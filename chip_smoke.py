@@ -1,0 +1,393 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+    python3 chip_smoke.py
+
+Phases, one JSON line each:
+
+1. device   — require CUDA; report the card (``nvidia-smi``).
+2. build    — compile ``src/repro_torch/csrc/*.cu`` with nvcc (sm_90a).
+3. kernels  — each CUDA kernel against its plain PyTorch version on the
+              card, bit for bit: ``dram_serve`` on seeded random programs
+              (4 memories x block widths K=1/8, carry chained across two
+              calls) and ``sweep_min`` on a random graph.
+4. goldens  — the 20 rmat7/rmat8 HitGraph/AccuGraph keys of
+              ``tests/goldens/simreports.json`` through ``simulate`` on
+              the card.
+5. main     — the main path at full size: the paper's Tab. 1 wiki-talk
+              stand-in (2,394,385 vertices, 10 M undirected edges), WCC on
+              HitGraph (Tab. 4: q = 256,000, 4 DDR3 channels) and on
+              AccuGraph (q = n, 1 DDR4 channel), through
+              ``SimSession.run``, with the kernel launch counts zeroed
+              just before and read just after.
+6. compare  — both kernels against their plain versions on the main
+              path's own inputs: a window of each packed wiki-talk
+              program that crosses a phase boundary (served as two
+              chained kernel calls), and one full sweep of the AccuGraph
+              block; kernel and plain times on the same inputs.
+
+Then the kernel table, the card's name and power limit, and last
+``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
+non-zero and prints no result.  It needs the repository around it and a
+CUDA device.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+import torch
+
+ROOT = Path(__file__).resolve().parent
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
+
+#: what the JAX package gives for the main path (wiki-talk stand-in,
+#: WCC): iterations and packed serve steps, per accelerator
+MAIN_EXPECT = {"hitgraph": (8, 743_776), "accugraph": (5, 859_351)}
+
+
+def emit(**kw) -> None:
+    print(json.dumps(kw), flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def i32(a, device):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(
+        device)
+
+
+def cold_state(packed, C, device):
+    from repro_torch.core import vectorized as vec
+    return tuple(vec.init_lean_carry(C, packed.n_banks,
+                                     packed.banks_per_rank, device)) + (
+        torch.zeros(C, dtype=torch.int32, device=device),)
+
+
+def max_abs_diff(a, b) -> int:
+    return int((a.long() - b.long()).abs().max()) if a.numel() else 0
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean CUDA-event time of ``fn`` over ``reps`` runs, after one
+    warm-up run."""
+    fn()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def host_ms(fn) -> float:
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def serve_bytes(S, C, K, B, R) -> int:
+    """Bytes the serve must move: issue, meta and finish once each
+    (12 B a lane-step), the boundary flags, timing, and the carry in and
+    out."""
+    carry = 2 * C * B + 2 * C + 5 * C * R
+    return S * C * K * 12 + S * 4 + 7 * 4 + 2 * carry * 4
+
+
+def random_program(rng, hit_heavy, n_phases=4, max_n=300):
+    from repro_torch.core.trace import SegmentedTrace
+    phases = []
+    for p in range(n_phases):
+        n = int(rng.integers(1, max_n))
+        lines = rng.integers(0, 64 if hit_heavy else 1 << 16, n)
+        if hit_heavy:
+            lines = np.sort(lines)
+        issue = np.sort(rng.integers(0, 4 * n, n))
+        phases.append((f"p{p}", lines, np.zeros(n, dtype=bool), issue))
+    return SegmentedTrace.from_phases(phases)
+
+
+def serve_both(packed, lo, hi, split, state, dev):
+    """Kernel (two chained calls split at ``split``) and plain version
+    (one call) on steps ``[lo, hi)`` from ``state``; returns the max
+    absolute difference over finishes and carry, and the inputs on the
+    card (streams, timing)."""
+    from repro_torch.kernels.dram_timing.ops import dram_serve
+    from repro_torch.kernels.dram_timing.ref import dram_serve_ref
+    streams = [i32(a[lo:hi], dev) for a in (packed.issue, packed.meta,
+                                             packed.boundary)]
+    timing = i32(packed.timing, dev)
+    k_state, fins = state, []
+    for a, b in ((0, split - lo), (split - lo, hi - lo)):
+        f, k_state = dram_serve(*(s[a:b].contiguous() for s in streams),
+                                timing, k_state)
+        fins.append(f)
+    fin_k = torch.cat(fins)
+    fin_p, p_state = dram_serve_ref(*streams, timing, state)
+    torch.cuda.synchronize()
+    diff = max([max_abs_diff(fin_k, fin_p)]
+               + [max_abs_diff(a, b) for a, b in zip(k_state, p_state)])
+    return diff, streams, timing
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device", file=sys.stderr)
+        return 1
+    if not (ROOT / "src" / "repro_torch").is_dir():
+        print("chip_smoke: src/repro_torch not found beside the script",
+              file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.algorithms import edge_centric
+    from repro_torch.algorithms.common import Problem
+    from repro_torch.core import accel
+    from repro_torch.core.dram import PRESETS
+    from repro_torch.graphs.datasets import instantiate
+    from repro_torch.graphs.generators import rmat
+    from repro_torch.kernels import build
+    from repro_torch.kernels.dram_timing.ops import dram_serve
+    from repro_torch.kernels.sweep_min.ops import sweep_min, sweep_min_ref
+    from repro_torch.sim import SimSession, get_accelerator, simulate
+    from repro_torch.sim.session import resolve_run_config
+    from repro_torch.algorithms.vertex_centric import _block_edges
+    from repro_torch.kernels.dram_timing.ref import dram_serve_ref
+
+    dev = torch.device("cuda")
+    kind = torch.cuda.get_device_name(0)
+    card = card_line()
+    emit(phase="device", kind=kind, count=torch.cuda.device_count(),
+         card=card, torch=torch.__version__, cuda=torch.version.cuda)
+
+    # ---- 2. build -----------------------------------------------------
+    t0 = time.perf_counter()
+    lib_path = build.build(verbose=True)
+    build.library()
+    emit(phase="build", seconds=time.perf_counter() - t0,
+         library=str(lib_path.relative_to(ROOT)))
+
+    # ---- 3. kernels vs plain on random programs -----------------------
+    worst, launches0 = 0, dram_serve.launches
+    cases = 0
+    for preset in ("hitgraph", "accugraph", "hbm2", "hbm2e"):
+        cfg = PRESETS[preset]()
+        for hit_heavy in (False, True):
+            rng = np.random.default_rng(100 + cases)
+            packed = accel.pack_program(random_program(rng, hit_heavy), cfg)
+            state = cold_state(packed, cfg.channels, dev)
+            split = packed.n_steps // 2 + 1
+            diff, _, _ = serve_both(packed, 0, len(packed.boundary), split,
+                                    state, dev)
+            worst = max(worst, diff)
+            cases += 1
+    assert worst == 0, f"dram_serve differs from its plain version: {worst}"
+    g = rmat(12, 4, seed=9).undirected_view()
+    order = np.argsort(g.dst, kind="stable")
+    src, dst = i32(g.src[order], dev), i32(g.dst[order], dev)
+    sweep_worst = 0
+    for add in (0, 1):
+        vk = torch.arange(g.n, dtype=torch.int32, device=dev)
+        vp = vk.clone()
+        sweep_min(vk, src, dst, add)
+        sweep_min_ref(vp, src, dst, add)
+        sweep_worst = max(sweep_worst, max_abs_diff(vk, vp))
+    assert sweep_worst == 0, "sweep_min differs from its plain version"
+    emit(phase="kernels", tolerance="exact", dram_serve_cases=cases,
+         dram_serve_launches=dram_serve.launches - launches0,
+         max_abs_diff=worst, sweep_min_max_abs_diff=sweep_worst)
+
+    # ---- 4. goldens on the card ---------------------------------------
+    golden = json.loads(
+        (ROOT / "tests" / "goldens" / "simreports.json").read_text())
+    graphs = {"rmat7": rmat(7, 4, seed=101).undirected_view(),
+              "rmat8": rmat(8, 5, seed=102).undirected_view()}
+    memories = {"hitgraph": ("ddr3", "hbm2"),
+                "accugraph": ("ddr4", "ddr4-8gb", "hbm2")}
+    checked, bad = 0, []
+    for gname, gg in graphs.items():
+        for acc, mems in memories.items():
+            for mem in mems:
+                for prob in ("wcc", "bfs"):
+                    key = f"{gname}/{acc}/{mem}/{prob}"
+                    r = simulate(gg, prob, accelerator=acc, memory=mem,
+                                 partition_elements=64)
+                    if digest(r) != golden[key]:
+                        bad.append(key)
+                    checked += 1
+    assert not bad, f"golden digests differ on the card: {bad}"
+    emit(phase="goldens", checked=checked, mismatched=len(bad))
+
+    # ---- 5. the main path at full size --------------------------------
+    t0 = time.perf_counter()
+    wt = instantiate("wt", 1.0).undirected_view()
+    emit(phase="graph", name=wt.name, vertices=wt.n, edges=wt.m,
+         seconds=time.perf_counter() - t0)
+    sessions, reports = {}, {}
+    dram_serve.launches = 0
+    sweep_min.launches = 0
+    for acc in ("hitgraph", "accugraph"):
+        sessions[acc] = SimSession(wt)
+        t0 = time.perf_counter()
+        reports[acc] = sessions[acc].run("wcc", acc)
+        reports[acc].stage_seconds["total"] = time.perf_counter() - t0
+    launches = {"dram_serve": dram_serve.launches,
+                "sweep_min": sweep_min.launches}
+    for name, n in launches.items():
+        assert n > 0, f"{name} was never launched on the main path"
+
+    # ---- 6. kernels vs plain on the main path's inputs ----------------
+    kernels = {}
+    for acc in ("hitgraph", "accugraph"):
+        sess, r = sessions[acc], reports[acc]
+        spec = get_accelerator(acc)
+        cfg = resolve_run_config(spec)
+        run = sess.algorithm_run(spec, Problem.WCC, cfg, 0, None, dev)
+        program = sess.model_for(spec, cfg).build_program(Problem.WCC, run)
+        packed = accel.pack_program(program, cfg.dram_config())
+        S, C, K = packed.issue.shape
+        want_iters, want_steps = MAIN_EXPECT[acc]
+        assert np.isfinite(r.runtime_ns) and r.runtime_ns > 0
+        assert (r.iterations, packed.n_steps) == (want_iters, want_steps), (
+            acc, r.iterations, packed.n_steps)
+        assert r.total_requests == len(program)
+        emit(phase="main", accelerator=acc, memory=cfg.dram_config().name,
+             iterations=r.iterations, requests=r.total_requests,
+             n_steps=packed.n_steps, shape=[S, C, K],
+             runtime_ns=r.runtime_ns, row_hit_rate=r.row_hit_rate,
+             stage_seconds=r.stage_seconds, card=card)
+        # the full program, timed as the main path calls the kernel
+        full = [i32(a, dev) for a in (packed.issue, packed.meta,
+                                      packed.boundary, packed.timing)]
+        cold = cold_state(packed, C, dev)
+        full_ms = cuda_ms(lambda: dram_serve(*full, cold), reps=2)
+        B, R = packed.n_banks, cold[3].shape[1]
+        # a window of the real program crossing its first phase boundary,
+        # started from the kernel's own carry at the window's start
+        W = 8192
+        first_bnd = int(np.flatnonzero(packed.boundary)[0])
+        lo = max(0, first_bnd - W // 2)
+        _, st = dram_serve(*(x[:lo].contiguous() for x in full[:3]),
+                           full[3], cold)
+        diff, win, timing = serve_both(packed, lo, lo + W, lo + W // 2,
+                                       st, dev)
+        assert diff == 0, f"dram_serve differs on the {acc} window: {diff}"
+        win_ms = cuda_ms(lambda: dram_serve(*win, timing, st), reps=5)
+        plain_ms = host_ms(lambda: dram_serve_ref(*win, timing, st))
+        k = kernels.setdefault("dram_serve", {"max_abs_err": 0,
+                                              "windows": {}})
+        k["max_abs_err"] = max(k["max_abs_err"], diff)
+        k["windows"][acc] = {
+            "steps": W, "shape": [W, C, K], "ms": win_ms,
+            "plain_ms": plain_ms,
+            "bound_ms": serve_bytes(W, C, K, B, R) / HBM_BYTES_PER_S * 1e3,
+            "full_program": {"shape": [S, C, K], "ms": full_ms,
+                             "bound_ms": serve_bytes(S, C, K, B, R)
+                             / HBM_BYTES_PER_S * 1e3}}
+        del full, win
+
+    # sweep_min: one full sweep of the AccuGraph wiki-talk block, from the
+    # WCC start values
+    accu = get_accelerator("accugraph")
+    parts = sessions["accugraph"].model_for(
+        accu, resolve_run_config(accu)).parts
+    s_np, d_np = _block_edges(parts, 0)
+    src, dst = i32(s_np, dev), i32(d_np, dev)
+    v0 = torch.arange(wt.n, dtype=torch.int32, device=dev)
+    sweep_ms = cuda_ms(lambda: sweep_min(v0.clone(), src, dst, 0), reps=2)
+    vk, vp = v0.clone(), v0.clone()
+    sweep_min(vk, src, dst, 0)
+    sweep_plain_ms = host_ms(lambda: sweep_min_ref(vp, src, dst, 0))
+    sweep_diff = max_abs_diff(vk, vp)
+    assert sweep_diff == 0, "sweep_min differs on the main-path block"
+    m = int(src.numel())
+    kernels["sweep_min"] = {
+        "max_abs_err": sweep_diff, "ms": sweep_ms,
+        "plain_ms": sweep_plain_ms,
+        "bound_ms": (m * 8 + wt.n * 8) / HBM_BYTES_PER_S * 1e3,
+        "shape": {"edges": m, "vertices": wt.n}}
+
+    # ---- CPU cross-check of the card's edge-centric run at full size ---
+    t0 = time.perf_counter()
+    run_cpu = edge_centric.run(wt.with_unit_weights(), Problem.WCC,
+                               device="cpu")
+    run_gpu = sessions["hitgraph"].algorithm_run(
+        get_accelerator("hitgraph"), Problem.WCC,
+        resolve_run_config(get_accelerator("hitgraph")), 0, None, dev)
+    assert run_cpu.iterations == run_gpu.iterations
+    assert np.array_equal(run_cpu.values, run_gpu.values)
+    assert all(np.array_equal(a.changed, b.changed)
+               for a, b in zip(run_cpu.per_iter, run_gpu.per_iter))
+    emit(phase="edge_centric_cross_check", iterations=run_gpu.iterations,
+         seconds=time.perf_counter() - t0)
+
+    ds = kernels["dram_serve"]
+    hw = ds["windows"]["hitgraph"]
+    table = [
+        {"name": "dram_serve", "route": "cuda",
+         "source": "src/repro_torch/csrc/dram_serve.cu",
+         "replaces": "src/repro/kernels/dram_timing/kernel.py:210",
+         "launches": launches["dram_serve"],
+         "max_abs_err": ds["max_abs_err"],
+         "ms": hw["ms"], "plain_ms": hw["plain_ms"],
+         "bound_ms": hw["bound_ms"], "bound_by": "bytes",
+         "library_ms": None, "inputs": "hitgraph main-path window",
+         "windows": ds["windows"]},
+        {"name": "sweep_min", "route": "cuda",
+         "source": "src/repro_torch/csrc/sweep_min.cu",
+         "replaces": "src/repro/algorithms/vertex_centric.py:41",
+         "launches": launches["sweep_min"],
+         "max_abs_err": kernels["sweep_min"]["max_abs_err"],
+         "ms": kernels["sweep_min"]["ms"],
+         "plain_ms": kernels["sweep_min"]["plain_ms"],
+         "bound_ms": kernels["sweep_min"]["bound_ms"],
+         "bound_by": "bytes", "library_ms": None,
+         "inputs": "accugraph main-path block, one sweep",
+         "shape": kernels["sweep_min"]["shape"]},
+    ]
+    print(json.dumps({"kernels": table}), flush=True)
+    print(card_line(), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": kind,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+def digest(r):
+    """The golden digest of tests/test_goldens.py::_digest."""
+    return {
+        "system": r.system,
+        "problem": r.problem,
+        "runtime_ns": r.runtime_ns,
+        "iterations": r.iterations,
+        "edges": r.edges,
+        "vertices": r.vertices,
+        "total_requests": r.total_requests,
+        "total_bytes": r.total_bytes,
+        "row_hit_rate": r.row_hit_rate,
+        "n_phases": len(r.phases),
+        "phase_requests": sum(p.requests for p in r.phases),
+        "row_hits": sum(p.row_hits for p in r.phases),
+        "row_conflicts": sum(p.row_conflicts for p in r.phases),
+        "end_cycle": r.phases[-1].end_cycle if r.phases else 0,
+        "cache_hits": r.cache_hits,
+        "prefetch_hits": r.prefetch_hits,
+    }
+
+
+if __name__ == "__main__":
+    sys.exit(main())

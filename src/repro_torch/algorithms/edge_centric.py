@@ -1,0 +1,140 @@
+"""Edge-centric (HitGraph-style) two-phase engine.
+
+Synchronous scatter/gather semantics (paper Sect. 3.2): each iteration
+produces updates for every edge whose source is *active* (scatter), then
+applies all updates to destination values (gather).  Values are always one
+iteration behind within an iteration — which is why HitGraph needs more
+iterations than AccuGraph (paper Fig. 12b).
+
+On the card the min-combine step is torch code: a gather of the source
+values and a ``scatter_reduce_("amin")`` onto the destinations.  On the
+CPU it is a dst-sorted ``np.minimum.reduceat``, as the JAX package runs
+it on the CPU.  Integer min is exact and independent of order, so both
+give the JAX package's values and per-iteration statistics bit for bit.
+A Python driver iterates to convergence and records the statistics the
+accelerator trace models consume.
+
+Only the min-combine problems (WCC, BFS, SSSP) are ported; PR and SpMV
+come with a later slice (see ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from repro_torch.algorithms.common import INF32, IterStats, Problem, RunResult
+from repro_torch.device import resolve_device
+from repro_torch.graphs.formats import Graph
+
+
+def _step_min(values, src, dst, w, active, problem: Problem):
+    """SSSP / WCC / BFS scatter+gather (min combine) on tensors."""
+    if problem == Problem.SSSP:
+        cand = values[src] + w
+    elif problem == Problem.BFS:
+        cand = values[src] + 1
+    else:  # wcc
+        cand = values[src]
+    cand = torch.where(active[src], cand,
+                       torch.full_like(cand, int(INF32)))
+    new = values.clone().scatter_reduce_(0, dst, cand, "amin",
+                                         include_self=True)
+    return new, new != values
+
+
+def _min_run_numpy(g: Graph, problem: Problem, w: np.ndarray,
+                   values: np.ndarray, active: np.ndarray,
+                   max_iters: int):
+    """Host path for the min-combine problems: one-time dst sort, then
+    ``np.minimum.reduceat`` per iteration."""
+    order = np.argsort(g.dst, kind="stable")
+    src_s = g.src[order]
+    w_s = w[order].astype(np.int32)
+    dst_s = g.dst[order]
+    starts = np.flatnonzero(np.diff(dst_s, prepend=np.int64(-1)))
+    dgroups = dst_s[starts]
+    add_one = np.int32(1)
+    per_iter = []
+    it = 0
+    while it < max_iters and active.any():
+        vs = values[src_s]
+        if problem == Problem.SSSP:
+            cand = vs + w_s
+        elif problem == Problem.BFS:
+            cand = vs + add_one
+        else:  # wcc
+            cand = vs
+        cand = np.where(active[src_s], cand, INF32)
+        new = values.copy()
+        if len(starts):
+            gathered = np.minimum.reduceat(cand, starts)
+            new[dgroups] = np.minimum(values[dgroups], gathered)
+        changed = new != values
+        per_iter.append(IterStats(active_before=active, changed=changed))
+        values = new
+        active = changed
+        it += 1
+    return RunResult(values, it, per_iter)
+
+
+def _min_run_torch(g: Graph, problem: Problem, w_np: np.ndarray,
+                   values_np: np.ndarray, active: np.ndarray,
+                   max_iters: int, device):
+    """Device path for the min-combine problems: the graph and values
+    stay on ``device``; each iteration's change set comes back to the
+    host for the trace models."""
+    src = torch.as_tensor(g.src, device=device)
+    dst = torch.as_tensor(g.dst, device=device)
+    w = torch.as_tensor(w_np, device=device)
+    values = torch.as_tensor(values_np, device=device)
+    per_iter = []
+    it = 0
+    while it < max_iters and active.any():
+        new, changed = _step_min(values, src, dst, w,
+                                 torch.as_tensor(active, device=device),
+                                 problem)
+        changed_np = changed.cpu().numpy()
+        per_iter.append(IterStats(active_before=active, changed=changed_np))
+        values = new
+        active = changed_np
+        it += 1
+    return RunResult(values.cpu().numpy(), it, per_iter)
+
+
+def run(
+    g: Graph,
+    problem: Problem,
+    root: int = 0,
+    max_iters: int = 10_000,
+    fixed_iters: Optional[int] = None,
+    device=None,
+) -> RunResult:
+    """Run ``problem`` edge-centrically to convergence on ``device``
+    (default the card); collect per-iteration stats.  ``fixed_iters``
+    applies to the stationary problems only, as in the JAX package."""
+    if problem not in (Problem.SSSP, Problem.WCC, Problem.BFS):
+        raise NotImplementedError(
+            f"edge-centric {problem.value} is not ported yet; see "
+            "ROADMAP.md")
+    device = resolve_device(device)
+    n = g.n
+    w_np = np.asarray(
+        g.weights if g.weights is not None
+        else np.ones(g.m, dtype=np.int32),
+        dtype=np.int32)
+    if problem == Problem.WCC:
+        values_np = np.arange(n, dtype=np.int32)
+        active = np.ones(n, dtype=bool)
+    else:
+        values_np = np.full(n, INF32, dtype=np.int32)
+        values_np[root] = 0
+        active = np.zeros(n, dtype=bool)
+        active[root] = True
+    if device.type == "cpu":
+        return _min_run_numpy(g, problem, w_np, values_np, active,
+                              max_iters)
+    return _min_run_torch(g, problem, w_np, values_np, active, max_iters,
+                          device)

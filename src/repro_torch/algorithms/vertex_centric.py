@@ -1,0 +1,114 @@
+"""Vertex-centric pull engine (AccuGraph-style).
+
+AccuGraph applies value changes *directly* (paper Sect. 3.3: "the value
+changes are also directly applied to the values currently present in BRAM
+for a coherent view") — i.e. asynchronous within an iteration.  Each block
+is swept edge by edge over its dst-sorted in-edges, relaxing each edge
+against the *current* value array, exactly like AccuGraph's sequential
+accumulator.  This is what makes AccuGraph converge in fewer iterations
+than HitGraph (Fig. 12b) — an effect the trace models depend on.
+
+The sweep is :func:`repro_torch.kernels.sweep_min.ops.sweep_min`: a
+one-thread CUDA kernel on the card, a plain loop on the CPU.  Only the
+min-combine problems (WCC, BFS, SSSP) are ported; PR and SpMV come with a
+later slice (see ROADMAP.md).
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import numpy as np
+import torch
+
+from repro_torch.algorithms.common import INF32, IterStats, Problem, RunResult
+from repro_torch.device import resolve_device
+from repro_torch.graphs.formats import CSRPartitions, Graph
+from repro_torch.kernels.sweep_min.ops import sweep_min
+
+
+def _block_edges(parts: CSRPartitions, k: int):
+    """Dst-sorted in-edges of block k as (src=neighbor, dst=vertex)."""
+    blk = parts.blocks[k]
+    dst = np.repeat(
+        np.arange(parts.n, dtype=np.int64), np.diff(blk.pointers)
+    )
+    return blk.neighbors, dst
+
+
+def run(
+    g: Graph,
+    problem: Problem,
+    q: Optional[int] = None,
+    root: int = 0,
+    max_iters: int = 10_000,
+    fixed_iters: Optional[int] = None,
+    block_skipping: bool = False,
+    device=None,
+) -> RunResult:
+    """Run ``problem`` vertex-centrically (pull) with partition size q on
+    ``device`` (default the card).
+
+    ``block_skipping`` models the paper's §5 *partition skipping*: a dirty
+    bit per source interval, set whenever a value in that interval is
+    written, cleared when the block is processed; clean blocks are skipped
+    (exact — a clean block admits no relaxation).  Skipped blocks are
+    recorded as ``None`` in ``changed_per_block`` so the trace model emits
+    no requests for them.  ``fixed_iters`` applies to the stationary
+    problems only, as in the JAX package.
+    """
+    if problem not in (Problem.BFS, Problem.WCC, Problem.SSSP):
+        raise NotImplementedError(
+            f"vertex-centric {problem.value} is not ported yet; see "
+            "ROADMAP.md")
+    device = resolve_device(device)
+    n = g.n
+    q = q if q is not None else n
+    parts = CSRPartitions.build(g, q)
+    per_iter: List[IterStats] = []
+    # the JAX package's quirk, kept: SSSP relaxes with +1, not weights
+    add = 1 if problem in (Problem.BFS, Problem.SSSP) else 0
+    if problem == Problem.WCC:
+        values = torch.arange(n, dtype=torch.int32, device=device)
+    else:
+        values = torch.full((n,), int(INF32), dtype=torch.int32,
+                            device=device)
+        values[root] = 0
+    block_arrays = []
+    for k in range(parts.p):
+        s, d = _block_edges(parts, k)
+        block_arrays.append((
+            torch.as_tensor(s.astype(np.int32), device=device),
+            torch.as_tensor(d.astype(np.int32), device=device),
+        ))
+    dirty = np.ones(parts.p, dtype=bool)
+    changed_prev = np.ones(n, dtype=bool)
+    it = 0
+    while it < max_iters:
+        vals_before = values.clone()
+        changed_blocks: List[Optional[np.ndarray]] = []
+        any_processed = False
+        for k in range(parts.p):
+            if block_skipping and not dirty[k]:
+                changed_blocks.append(None)
+                continue
+            any_processed = True
+            dirty[k] = False
+            before_k = values.clone()
+            s, d = block_arrays[k]
+            sweep_min(values, s, d, add)
+            changed_k = (values != before_k).cpu().numpy()
+            changed_blocks.append(changed_k)
+            if block_skipping and changed_k.any():
+                touched = np.nonzero(changed_k)[0]
+                dirty[np.unique(touched // parts.q)] = True
+        changed = (values != vals_before).cpu().numpy()
+        per_iter.append(IterStats(
+            active_before=changed_prev, changed=changed,
+            changed_per_block=changed_blocks,
+        ))
+        it += 1
+        changed_prev = changed
+        if not changed.any() or not any_processed:
+            break
+    return RunResult(values.cpu().numpy(), it, per_iter)

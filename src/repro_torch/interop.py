@@ -1,0 +1,79 @@
+"""Carry inputs across from the JAX package.
+
+Each function turns an object of the JAX package (``repro``) into the
+port's equivalent by reading its fields by name.  Nothing here imports
+``repro``: any object with the right fields converts, so the tests can
+feed both packages identical graphs, configs, programs and runs.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+
+from repro_torch.algorithms.common import IterStats, RunResult
+from repro_torch.core.accel import PackedProgram
+from repro_torch.core.accugraph import AccuGraphConfig
+from repro_torch.core.cache import CacheConfig
+from repro_torch.core.dram import DRAMConfig, DRAMOrganization, DRAMTiming
+from repro_torch.core.hitgraph import HitGraphConfig
+from repro_torch.core.trace import SegmentedTrace
+from repro_torch.graphs.formats import Graph
+
+
+def _fields(obj, cls, **converted):
+    """``cls(**{field: obj.field})`` over ``cls``'s dataclass fields, with
+    ``converted`` overriding individual fields."""
+    kw = {f.name: getattr(obj, f.name) for f in dataclasses.fields(cls)
+          if f.name not in converted}
+    return cls(**kw, **converted)
+
+
+def graph(g) -> Graph:
+    return Graph(g.n, np.asarray(g.src), np.asarray(g.dst),
+                 None if g.weights is None else np.asarray(g.weights),
+                 directed=g.directed, name=g.name)
+
+
+def cache_config(c):
+    return None if c is None else _fields(c, CacheConfig)
+
+
+def dram_config(d) -> DRAMConfig:
+    return _fields(d, DRAMConfig, timing=_fields(d.timing, DRAMTiming),
+                   org=_fields(d.org, DRAMOrganization),
+                   order=tuple(d.order), cache=cache_config(d.cache))
+
+
+def _accel_config(cfg, cls):
+    return _fields(cfg, cls, dram=(None if cfg.dram is None
+                                   else dram_config(cfg.dram)))
+
+
+def hitgraph_config(cfg) -> HitGraphConfig:
+    return _accel_config(cfg, HitGraphConfig)
+
+
+def accugraph_config(cfg) -> AccuGraphConfig:
+    return _accel_config(cfg, AccuGraphConfig)
+
+
+def segmented_trace(t) -> SegmentedTrace:
+    return SegmentedTrace(np.asarray(t.line_addr), np.asarray(t.is_write),
+                          np.asarray(t.issue), np.asarray(t.offsets),
+                          list(t.names))
+
+
+def packed_program(p) -> PackedProgram:
+    return _fields(p, PackedProgram, names=list(p.names))
+
+
+def run_result(r) -> RunResult:
+    per_iter = [
+        IterStats(np.asarray(s.active_before), np.asarray(s.changed),
+                  None if s.changed_per_block is None
+                  else [None if c is None else np.asarray(c)
+                        for c in s.changed_per_block])
+        for s in r.per_iter]
+    return RunResult(np.asarray(r.values), r.iterations, per_iter)

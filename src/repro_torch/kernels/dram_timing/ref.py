@@ -1,0 +1,152 @@
+"""Plain PyTorch version of the blocked DRAM serve: the reference the CUDA
+kernel (``csrc/dram_serve.cu``) is held against, and what the wrapper
+runs for CPU tensors.
+
+It is ``make_serve_step`` (``src/repro/core/vectorized.py:579``) written
+in torch, one Python-loop iteration per step, on whatever device its
+tensors live.  Steps past the last one that holds a valid lane or a phase
+boundary are all alike (every lane invalid, no re-base): instead of
+looping over them it applies their combined effect, which is not a no-op
+— the bus time and the phase makespan clamp at 0, because such a step's
+makespan ``mx`` is 0 — so the returned carry equals a step-by-step run
+over the whole padded stream.
+"""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+from repro_torch.core.vectorized import (META_CONFL, META_MISS,
+                                         META_RB_MASK, META_RB_SHIFT,
+                                         META_VALID, NEG_INF32)
+
+State = Tuple[torch.Tensor, ...]
+
+
+def make_serve_step(timing, C: int, B: int, R: int, K: int,
+                    banks_per_rank: int, device):
+    """The blocked lockstep serve step over ``[C, K]`` request blocks:
+    ``step(state, iss[C,K], mt[C,K], bnd) -> (state, fin_out[C,K])`` with
+    ``state`` the 6-tuple ``(avail, act, bus, hist, ptr, pmf)``."""
+    tCL, tRCD, tRP, tRAS, tBL, tRRD, tFAW = (int(x) for x in timing)
+    i32 = dict(dtype=torch.int32, device=device)
+    neg = torch.tensor(NEG_INF32, **i32)
+    zero = torch.tensor(0, **i32)
+    bank_ids = torch.arange(B, **i32)
+    rank_ids = torch.arange(R, **i32)
+    ptr_ids = torch.arange(4, **i32)
+    lane_ids = torch.arange(K, **i32)
+    lane_tbl = lane_ids * tBL
+    lane_tbl1 = (lane_ids + 1) * tBL
+    tril = lane_ids[:, None] >= lane_ids[None, :]          # [K, K]
+
+    def pick(masked, dim):
+        return masked.amax(dim=dim)
+
+    def step(state, iss, mt, bnd):
+        avail, act, bus, hist, ptr, pmf = state
+        b = mt & 0xFF
+        ms = (mt & META_MISS) != 0
+        cf = (mt & META_CONFL) != 0
+        v = (mt & META_VALID) != 0
+        rb_tbl = ((mt >> META_RB_SHIFT) & META_RB_MASK) * tBL
+        ohb = b[:, :, None] == bank_ids                    # [C, K, B]
+        avail_b = pick(torch.where(ohb, avail[:, None, :], neg), 2)
+        act_b = pick(torch.where(ohb, act[:, None, :], neg), 2)
+        # hit chain: same-bank max-plus chain over the block's lanes
+        adj = iss - rb_tbl
+        same = (b[:, :, None] == b[:, None, :]) & tril     # [C, K, K]
+        own = pick(torch.where(same, adj[:, None, :], neg), 2)
+        col_hit = rb_tbl + torch.maximum(own, avail_b)
+        # miss machinery at block level (at most one miss per block)
+        mv = ms & v
+        m_any = mv.any(dim=1)                              # [C]
+        if R == 1:
+            ptr_m = ptr[:, 0]                              # [C]
+            hist_m = hist[:, 0]                            # [C, 4]
+        else:
+            rank = torch.div(b, banks_per_rank, rounding_mode="floor")
+            rank_m = pick(torch.where(mv, rank, zero), 1)  # [C]
+            ohr_m = rank_m[:, None] == rank_ids            # [C, R]
+            ptr_m = pick(torch.where(ohr_m, ptr, zero), 1)
+            hist_m = pick(torch.where(ohr_m[:, :, None], hist, neg), 1)
+        ohp_m = ptr_m[:, None] == ptr_ids                  # [C, 4]
+        oh_last = torch.remainder(ptr_m + 3, 4)[:, None] == ptr_ids
+        hist_p = pick(torch.where(ohp_m, hist_m, neg), 1)
+        last_r = pick(torch.where(oh_last, hist_m, neg), 1)
+        # ACT rate limits per rank (tRRD, tFAW over the 4th-last ACT)
+        floor = torch.maximum(last_r + tRRD, hist_p + tFAW)  # [C]
+        base = torch.maximum(iss, avail_b)
+        pre = torch.where(cf, torch.maximum(base, act_b + tRAS) + tRP,
+                          base)
+        a = torch.maximum(pre, floor[:, None])             # miss ACT time
+        col = torch.where(ms, a + tRCD, col_hit)
+        # shared data bus: prefix max over the block's valid lanes
+        cadj = col + tCL - lane_tbl
+        ccm = pick(torch.where(tril & v[:, None, :], cadj[:, None, :], neg),
+                   2)
+        fin = lane_tbl1 + torch.maximum(bus[:, None], ccm)
+        fin_out = torch.where(v, fin, zero)
+        mx = pick(fin_out, 1)                              # [C]
+        bus = torch.maximum(bus, mx)
+        pmf = torch.maximum(pmf, mx)
+        vohb = ohb & v[:, :, None]
+        avail = torch.maximum(avail, pick(
+            torch.where(vohb, (col + tBL)[:, :, None], neg), 1))
+        a_m = pick(torch.where(mv, a, neg), 1)             # [C]
+        act = torch.maximum(act, pick(
+            torch.where(ohb & mv[:, :, None], a[:, :, None], neg), 1))
+        if R == 1:
+            hist = torch.maximum(hist, torch.where(
+                ohp_m & m_any[:, None], a_m[:, None], neg)[:, None, :])
+            ptr = torch.where(m_any[:, None],
+                              torch.remainder(ptr_m + 1, 4)[:, None], ptr)
+        else:
+            hist = torch.maximum(hist, torch.where(
+                (ohr_m[:, :, None] & ohp_m[:, None, :])
+                & m_any[:, None, None], a_m[:, None, None], neg))
+            ptr = torch.where(ohr_m & m_any[:, None],
+                              torch.remainder(ptr_m + 1, 4)[:, None], ptr)
+        # phase-boundary re-base (shift 0 off-boundary, as in the JAX step)
+        shift = pmf.max() if bnd else zero
+        lo = shift + NEG_INF32
+        avail, act, bus, hist = (torch.maximum(x, lo) - shift
+                                 for x in (avail, act, bus, hist))
+        if bnd:
+            pmf = torch.zeros_like(pmf)
+        return (avail, act, bus, hist, ptr, pmf), fin_out
+
+    return step
+
+
+def dram_serve_ref(issue: torch.Tensor, meta: torch.Tensor,
+                   boundary: torch.Tensor, timing: torch.Tensor,
+                   state: State):
+    """Serve a blocked ``[S, C, K]`` program from ``state`` (the 6-tuple
+    in-scan carry); returns ``(finish[S, C, K], state)``."""
+    S, C, K = issue.shape
+    avail, act, bus, hist, ptr, pmf = state
+    B = avail.shape[1]
+    R = hist.shape[1]
+    step = make_serve_step(timing.tolist(), C, B, R, K, B // R,
+                           issue.device)
+    live = ((meta & META_VALID) != 0).flatten(1).any(dim=1) | (boundary != 0)
+    idx = torch.nonzero(live).flatten()
+    n_live = int(idx[-1]) + 1 if len(idx) else 0
+    bnd = boundary[:n_live].tolist()
+    fin = torch.zeros_like(issue)
+    state = tuple(state)
+    for s in range(n_live):
+        state, fin[s] = step(state, issue[s], meta[s], bnd[s])
+    if n_live < S:
+        # the all-invalid tail: mx = 0 clamps bus and pmf at 0, and the
+        # zero-shift re-base clamps the time carry at NEG_INF32
+        avail, act, bus, hist, ptr, pmf = state
+        avail, act, hist = (torch.clamp_min(x, NEG_INF32)
+                            for x in (avail, act, hist))
+        bus = torch.clamp_min(bus, 0)
+        pmf = torch.clamp_min(pmf, 0)
+        state = (avail, act, bus, hist, ptr, pmf)
+    return fin, state

@@ -1,0 +1,195 @@
+"""Session facade: the public entry point for running simulations.
+
+``simulate(graph, problem, accelerator=..., memory=..., device=...)``
+resolves the accelerator spec, the memory device and the DRAM backend,
+and returns the shared :class:`~repro_torch.core.accel.SimReport`.  It
+runs on the card unless ``device`` says otherwise.
+
+:class:`SimSession` binds a graph and caches, across repeated calls,
+**algorithm runs** by ``spec.algorithm_key`` and **models** (edge sorts,
+layout, static streams) by config with the DRAM device reduced to its
+structure and clock.  Both caches are single-flight and thread-safe.
+
+Not in this slice (each raises and names ROADMAP.md): ``cache=``,
+``updates=``, ``backend="event"``, corpus preset names and
+``ScenarioSpec`` as the graph argument.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from concurrent.futures import Future
+from typing import Dict, Optional
+
+from repro_torch.algorithms.common import Problem, RunResult
+from repro_torch.core.accel import SimReport
+from repro_torch.device import resolve_device
+from repro_torch.graphs.formats import Graph
+from repro_torch.sim.memory import MemoryLike, resolve_cache, resolve_memory
+from repro_torch.sim.policy import resolve_partitioned_config
+from repro_torch.sim.registry import get_accelerator
+
+# built-in specs register on import
+from repro_torch.sim import specs as _specs  # noqa: F401
+
+
+def _coerce_problem(problem) -> Problem:
+    return problem if isinstance(problem, Problem) else Problem(problem)
+
+
+def resolve_run_config(spec, config=None, memory: MemoryLike = None,
+                       variant: Optional[str] = None, **overrides):
+    """Resolve the effective accelerator config from the public axis
+    selectors (defaults <- config <- overrides <- memory <- variant)."""
+    cfg = spec.make_config(config, memory=resolve_memory(memory),
+                           **overrides)
+    return spec.apply_variant(cfg, variant)
+
+
+def _dram_cfg_key(spec_name: str, config):
+    """Cache key for state that depends on the config and the DRAM
+    *structure + clock* but not its timing; ``None`` when the config has
+    no pluggable DRAM or is unhashable."""
+    if not hasattr(config, "dram_config"):
+        return None
+    try:
+        dram = config.dram_config()
+        key = (spec_name, dataclasses.replace(config, dram=None),
+               dram.structure_key, dram.clock_ghz)
+        hash(key)
+        return key
+    except (TypeError, dataclasses.FrozenInstanceError):
+        return None
+
+
+class SimSession:
+    """A graph bound to caches of algorithm runs and models.
+
+    >>> sess = SimSession(g)
+    >>> sess.run(Problem.WCC, accelerator="hitgraph")
+    >>> sess.run(Problem.WCC, accelerator="hitgraph", memory="hbm2")
+    # second call reuses the edge-centric WCC execution
+    """
+
+    def __init__(self, graph: Graph):
+        if not isinstance(graph, Graph):
+            raise TypeError(
+                f"SimSession takes a Graph, got {type(graph).__name__}; "
+                "corpus preset names come with a later slice (see "
+                "ROADMAP.md)")
+        self.graph = graph
+        self._lock = threading.Lock()
+        self._runs: Dict[object, Future] = {}
+        self._models: Dict[object, Future] = {}
+
+    def _singleflight(self, cache: Dict[object, Future], key, build):
+        """Get-or-build ``cache[key]``: exactly one thread runs
+        ``build()`` per key; concurrent lookups wait on its Future."""
+        with self._lock:
+            fut = cache.get(key)
+            owner = fut is None
+            if owner:
+                fut = cache[key] = Future()
+        if owner:
+            try:
+                fut.set_result(build())
+            except BaseException as e:
+                with self._lock:
+                    cache.pop(key, None)
+                fut.set_exception(e)
+                raise
+        return fut.result()
+
+    def model_for(self, spec, config):
+        """Graph-bound model cache, shared across problems and across
+        every timing variant of one memory structure."""
+        key = _dram_cfg_key(spec.name, config)
+        if key is None:
+            try:
+                key = (spec.name, config)
+                hash(key)
+            except TypeError:
+                return spec.build_model(self.graph, config)
+        return self._singleflight(
+            self._models, key,
+            lambda: spec.build_model(self.graph, config))
+
+    def algorithm_run(self, spec, problem: Problem, config, root: int,
+                      fixed_iters: Optional[int], device) -> RunResult:
+        key = spec.algorithm_key(self.graph, problem, config, root=root,
+                                 fixed_iters=fixed_iters)
+        return self._singleflight(
+            self._runs, key,
+            lambda: spec.run_algorithm(self.graph, problem, config,
+                                       root=root, fixed_iters=fixed_iters,
+                                       device=device))
+
+    def run(self, problem, accelerator: str = "hitgraph", *,
+            config=None, memory: MemoryLike = None, cache=None,
+            backend: Optional[str] = None, variant: Optional[str] = None,
+            root: int = 0, fixed_iters: Optional[int] = None,
+            device=None, **overrides) -> SimReport:
+        """Simulate ``problem`` on the bound graph on ``device`` (default
+        the card; raises when CUDA is absent)."""
+        resolve_cache(cache)
+        device = resolve_device(device)
+        problem = _coerce_problem(problem)
+        spec = get_accelerator(accelerator)
+        cfg = resolve_run_config(spec, config, memory=memory,
+                                 variant=variant, **overrides)
+        t0 = time.perf_counter()
+        run = self.algorithm_run(spec, problem, cfg, root, fixed_iters,
+                                 device)
+        t1 = time.perf_counter()
+        model = self.model_for(spec, cfg)
+        t2 = time.perf_counter()
+        report = spec.simulate(self.graph, problem, cfg, backend=backend,
+                               root=root, fixed_iters=fixed_iters, run=run,
+                               model=model, device=device)
+        report.stage_seconds = {"algorithm": t1 - t0, "model": t2 - t1,
+                                **report.stage_seconds}
+        return report
+
+
+def simulate(graph: Graph, problem=None,
+             accelerator: str = "hitgraph", *,
+             config=None, memory: MemoryLike = None, cache=None,
+             backend: Optional[str] = None, variant: Optional[str] = None,
+             root: int = 0, fixed_iters: Optional[int] = None,
+             updates=None, device=None, **overrides) -> SimReport:
+    """Run one simulation through the spec registry.
+
+    Parameters
+    ----------
+    graph:        a :class:`Graph`.
+    problem:      a :class:`Problem` or its string value (``"wcc"``...).
+    accelerator:  registered name (``"hitgraph"``, ``"accugraph"``) or an
+                  :class:`AcceleratorSpec` instance.
+    config:       accelerator config dataclass (defaults per paper Tab. 4);
+                  extra keyword arguments override individual fields, e.g.
+                  ``simulate(g, "wcc", partition_elements=2048)``.
+    memory:       ``None`` (the accelerator's paper default), a preset
+                  name (``"ddr3"``, ``"ddr4-8gb"``, ``"hbm2"``...), a
+                  :class:`MemoryConfig`, or a raw :class:`DRAMConfig`.
+    variant:      named optimization variant of the accelerator.
+    device:       where the algorithm engine and the DRAM serve run:
+                  ``None`` means the card (raises without CUDA);
+                  ``"cpu"`` runs the plain versions on the host.
+    cache, updates, backend="event":
+                  not ported yet; they raise ``NotImplementedError``.
+    """
+    if updates is not None:
+        raise NotImplementedError(
+            "dynamic update streams (updates=) are not ported yet; see "
+            "ROADMAP.md")
+    if problem is None:
+        raise TypeError("simulate() needs a problem")
+    resolve_cache(cache)
+    device = resolve_device(device)
+    cfg = resolve_partitioned_config(config, graph)
+    return SimSession(graph).run(
+        problem, accelerator, config=cfg, memory=memory,
+        backend=backend, variant=variant, root=root,
+        fixed_iters=fixed_iters, device=device, **overrides)

@@ -1,0 +1,94 @@
+"""Built-in accelerator specs: HitGraph and AccuGraph, registered under
+their paper names.  (The event-driven reference machine comes with a
+later slice; see ROADMAP.md.)
+
+The parity contract: ``run_algorithm`` must reproduce bit-identically the
+algorithm execution each model performs internally when ``run=None``, so
+cached runs yield the same SimReport as standalone simulation.
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+from repro_torch.algorithms import edge_centric, vertex_centric
+from repro_torch.algorithms.common import Problem, RunResult
+from repro_torch.core import accugraph, hitgraph
+from repro_torch.graphs.formats import Graph
+from repro_torch.sim.registry import AcceleratorSpec, register_accelerator
+
+
+def _graph_key(g: Graph):
+    """Identity-based graph key with structural guards (id() alone could
+    collide after garbage collection; n/m/name make that harmless)."""
+    return (id(g), g.n, g.m, g.name, g.weights is None)
+
+
+@register_accelerator
+class HitGraphSpec(AcceleratorSpec):
+    name = "hitgraph"
+    description = ("HitGraph [Zh19]: edge-centric scatter/gather, 4 PEs "
+                   "on 4 DDR3 channels (paper Tab. 4)")
+    config_cls = hitgraph.HitGraphConfig
+
+    def build_model(self, g, config):
+        return hitgraph.HitGraphModel(g, config)
+
+    def run_algorithm(self, g, problem: Problem, config, root: int = 0,
+                      fixed_iters: Optional[int] = None,
+                      device=None) -> RunResult:
+        g = g.with_unit_weights() if g.weights is None else g
+        return edge_centric.run(g, problem, root=root,
+                                fixed_iters=fixed_iters, device=device)
+
+    def algorithm_key(self, g, problem: Problem, config, root: int = 0,
+                      fixed_iters: Optional[int] = None):
+        return ("edge", _graph_key(g), problem, root, fixed_iters)
+
+    def variants(self):
+        return {
+            "baseline": {},
+            "no_merging": {"update_merging": False},
+            "no_filtering": {"update_filtering": False},
+            "no_skipping": {"partition_skipping": False},
+        }
+
+
+@register_accelerator
+class AccuGraphSpec(AcceleratorSpec):
+    name = "accugraph"
+    description = ("AccuGraph [Ya18]: vertex-centric pull with on-chip "
+                   "accumulation, 1 DDR4 channel (paper Tab. 4)")
+    config_cls = accugraph.AccuGraphConfig
+
+    def build_model(self, g, config):
+        return accugraph.AccuGraphModel(g, config)
+
+    def _q(self, g, config) -> int:
+        return (config.partition_elements if config.partition_elements
+                else g.n)
+
+    def run_algorithm(self, g, problem: Problem, config, root: int = 0,
+                      fixed_iters: Optional[int] = None,
+                      device=None) -> RunResult:
+        return vertex_centric.run(
+            g, problem, q=self._q(g, config), root=root,
+            fixed_iters=fixed_iters,
+            block_skipping=config.partition_skipping, device=device)
+
+    def algorithm_key(self, g, problem: Problem, config, root: int = 0,
+                      fixed_iters: Optional[int] = None):
+        return ("vertex", _graph_key(g), problem, self._q(g, config),
+                config.partition_skipping, root, fixed_iters)
+
+    def variants(self):
+        from repro_torch.core.dram import hbm2
+        return {
+            "baseline": {},
+            "prefetch_skip": {"prefetch_skipping": True},
+            "partition_skip": {"partition_skipping": True},
+            "both": {"prefetch_skipping": True,
+                     "partition_skipping": True},
+            # paper §7 future work: swap DDR4 for an HBM2 stack
+            "hbm": {"dram": hbm2()},
+        }

@@ -14,6 +14,8 @@ import types
 def pytest_configure(config):
     config.addinivalue_line(
         "markers", "slow: long-running tests (subprocess / multi-device)")
+    config.addinivalue_line(
+        "markers", "cuda: needs a CUDA device and nvcc; skips without them")
 
 
 def pytest_addoption(parser):

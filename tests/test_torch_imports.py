@@ -1,0 +1,86 @@
+"""``repro_torch`` stands alone: it imports neither JAX nor the JAX
+package, and its entry points run on the card or raise."""
+
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+ROOT = Path(__file__).resolve().parents[1]
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                               "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m == "jax" or m.startswith("jax.") or m == "jaxlib"
+             or m == "repro" or m.startswith("repro."))
+print(len(names), bad)
+"""
+
+#: an import statement naming jax or the JAX package (not repro_torch)
+_IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
+                     re.M)
+
+
+def test_import_leaves_jax_and_repro_out():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+                         capture_output=True, text=True, timeout=300,
+                         cwd=str(ROOT))
+    assert out.returncode == 0, out.stderr
+    n, bad = out.stdout.strip().split(" ", 1)
+    assert int(n) >= 20
+    assert bad == "[]", bad
+
+
+def test_no_jax_or_repro_import_in_sources():
+    files = sorted((ROOT / "src" / "repro_torch").rglob("*.py"))
+    files.append(ROOT / "chip_smoke.py")
+    offenders = [str(f.relative_to(ROOT)) for f in files
+                 if _IMPORT.search(f.read_text())]
+    assert not offenders, offenders
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    from repro_torch.core.accel import VectorizedDRAM
+    from repro_torch.core.dram import ddr4_2400r
+    from repro_torch.graphs.generators import rmat
+    from repro_torch.sim import SimSession, simulate
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    g = rmat(5, 2, seed=0).undirected_view()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        simulate(g, "wcc")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        simulate(g, "wcc", accelerator="accugraph", device="cuda")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SimSession(g).run("bfs", "hitgraph")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        VectorizedDRAM(ddr4_2400r())
+
+
+def test_later_slices_raise_not_implemented():
+    from repro_torch.core.accel import VectorizedDRAM
+    from repro_torch.core.dram import ddr4_2400r
+    from repro_torch.core.trace import Trace
+    from repro_torch.graphs.generators import rmat
+    from repro_torch.sim import simulate
+
+    g = rmat(5, 2, seed=0).undirected_view()
+    for kw in ({"cache": "vertex-1m"}, {"updates": "pa-growth"},
+               {"backend": "event"}):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            simulate(g, "wcc", device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        VectorizedDRAM(ddr4_2400r(), device="cpu").run_phase(
+            Trace([1], [False], [0]))
+    with pytest.raises(TypeError):
+        simulate("karate", "wcc", device="cpu")

@@ -1,0 +1,213 @@
+"""The port's serve path against the JAX package's: the plain torch serve
+(``repro_torch.kernels.dram_timing.ref.dram_serve_ref``, also what the
+wrapper runs for CPU tensors) against the XLA-scan reference
+``repro.kernels.dram_timing.ref.dram_serve_ref``, plus the host packer
+and finalizer.  Every value is an integer: all comparisons are exact."""
+
+import dataclasses
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from hypothesis import given, settings, strategies as st
+
+from repro.core import accel as r_accel
+from repro.core import vectorized as r_vec
+from repro.core.dram import PRESETS as R_PRESETS
+from repro.core.dram import ddr4_2400r as r_ddr4
+from repro.core.trace import SegmentedTrace as RSegmentedTrace
+from repro.kernels.dram_timing.ref import dram_serve_ref as r_serve_ref
+
+from repro_torch import interop
+from repro_torch.core import accel, vectorized as vec
+from repro_torch.kernels.dram_timing.ops import dram_serve
+from repro_torch.kernels.dram_timing.ref import dram_serve_ref
+
+
+def _random_serve_program(rng, n_phases=5, span=1 << 16, max_n=400,
+                          hit_heavy=False):
+    """The generator of tests/test_kernels.py (same draws)."""
+    phases = []
+    for p in range(n_phases):
+        n = int(rng.integers(1, max_n))
+        pool = 64 if hit_heavy else span
+        lines = rng.integers(0, pool, n)
+        if hit_heavy:
+            lines = np.sort(lines)
+        issue = np.sort(rng.integers(0, 4 * n, n))
+        phases.append((f"p{p}", lines, np.zeros(n, dtype=bool), issue))
+    return RSegmentedTrace.from_phases(phases)
+
+
+def _cold_state(packed, C):
+    lean = vec.init_lean_carry(C, packed.n_banks, packed.banks_per_rank,
+                               "cpu")
+    return tuple(lean) + (torch.zeros(C, dtype=torch.int32),)
+
+
+def _t(a):
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
+
+
+def _assert_serve_parity(r_cfg, r_prog, split=None):
+    """Pack with both packers (fields equal), serve with both serves
+    (finishes and the full 6-tuple carry equal).  ``split`` serves the
+    port's side as two calls with the carry chained across them."""
+    r_packed = r_accel.pack_program(r_prog, r_cfg)
+    packed = accel.pack_program(interop.segmented_trace(r_prog),
+                                interop.dram_config(r_cfg))
+    _assert_packed_equal(packed, r_packed)
+    C = r_cfg.channels
+    r_state = tuple(r_vec.init_lean_carry(C, r_packed.n_banks,
+                                          r_packed.banks_per_rank)) + (
+        jnp.zeros((C,), dtype=jnp.int32),)
+    t = r_vec.timing_params(r_cfg.timing)
+    fin_r, st_r = r_serve_ref(r_packed.issue, r_packed.meta,
+                              r_packed.boundary, t, *r_state,
+                              banks_per_rank=r_packed.banks_per_rank)
+    streams = [_t(packed.issue), _t(packed.meta), _t(packed.boundary)]
+    state = _cold_state(packed, C)
+    if split is None:
+        fin, state = dram_serve(*streams, _t(packed.timing), state)
+    else:
+        fins = []
+        for lo, hi in ((0, split), (split, len(packed.boundary))):
+            f, state = dram_serve(*(s[lo:hi].contiguous() for s in streams),
+                                  _t(packed.timing), state)
+            fins.append(f)
+        fin = torch.cat(fins)
+    np.testing.assert_array_equal(fin.numpy(), np.asarray(fin_r))
+    assert len(state) == len(st_r) == 6
+    for a, b in zip(state, st_r):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    return packed, fin
+
+
+def _assert_packed_equal(packed, r_packed):
+    for f in dataclasses.fields(accel.PackedProgram):
+        a, b = getattr(packed, f.name), getattr(r_packed, f.name)
+        if isinstance(a, np.ndarray):
+            assert a.dtype == np.asarray(b).dtype, f.name
+            np.testing.assert_array_equal(a, np.asarray(b), err_msg=f.name)
+        else:
+            assert a == b, f.name
+
+
+@pytest.mark.parametrize("preset", ["hitgraph", "accugraph", "hbm2",
+                                    "hbm2e"])
+@pytest.mark.parametrize("hit_heavy", [False, True])
+def test_serve_and_pack_vs_jax(preset, hit_heavy):
+    """Both block widths (K=8 hit chains, K=1 serialized misses) across
+    channel counts 1/4/8/16 and one or two ranks per channel."""
+    r_cfg = R_PRESETS[preset]()
+    rng = np.random.default_rng(5 + hit_heavy)
+    packed, _ = _assert_serve_parity(
+        r_cfg, _random_serve_program(rng, hit_heavy=hit_heavy))
+    assert packed.issue.shape[2] == (8 if hit_heavy else 1)
+
+
+@pytest.mark.parametrize("preset", ["hitgraph", "accugraph"])
+def test_serve_carry_chains_across_calls(preset):
+    """Serving a program in two calls, the carry handed from one to the
+    next, equals the JAX package's single scan — the split falls inside
+    a phase, before the padded tail."""
+    r_cfg = R_PRESETS[preset]()
+    rng = np.random.default_rng(23)
+    prog = _random_serve_program(rng, n_phases=4, hit_heavy=True)
+    packed = accel.pack_program(interop.segmented_trace(prog),
+                                interop.dram_config(r_cfg))
+    _assert_serve_parity(r_cfg, prog, split=packed.n_steps // 2 + 1)
+
+
+@settings(max_examples=10, deadline=None)
+@given(seed=st.integers(0, 10**6), tRRD=st.integers(1, 8),
+       tFAW=st.integers(4, 40))
+def test_property_timing(seed, tRRD, tFAW):
+    """Arbitrary ACT rate limits: the plain serve stays bit-identical to
+    the XLA scan, multi-phase carries included."""
+    base = r_ddr4()
+    r_cfg = dataclasses.replace(
+        base, timing=dataclasses.replace(base.timing, tRRD=tRRD, tFAW=tFAW))
+    rng = np.random.default_rng(seed)
+    _assert_serve_parity(r_cfg, _random_serve_program(
+        rng, n_phases=4, max_n=200, hit_heavy=bool(seed % 2)))
+
+
+def test_padded_tail_clamps_bus_and_makespan():
+    """Steps past the program are not no-ops: they clamp a negative bus
+    time at 0.  The plain serve skips them but must return the carry a
+    step-by-step run over the full padded stream gives."""
+    r_cfg = R_PRESETS["hitgraph"]()
+    rng = np.random.default_rng(3)
+    packed, _ = _assert_serve_parity(r_cfg, _random_serve_program(
+        rng, n_phases=3, max_n=50))
+    assert len(packed.boundary) > packed.n_steps
+
+
+def test_classify_rows_vs_jax():
+    rng = np.random.default_rng(7)
+    bank = rng.integers(0, 32, 5000)
+    row = rng.integers(0, 6, 5000)
+    open_row = rng.integers(-1, 6, (2, 16))
+    kind, flat = accel.classify_rows(bank, row, open_row)
+    r_kind, r_flat = r_accel.classify_rows(bank, row, open_row)
+    np.testing.assert_array_equal(kind, r_kind)
+    np.testing.assert_array_equal(flat, r_flat)
+
+
+@pytest.mark.parametrize("origin", [0, 123_456_789_012])
+def test_finalize_program_vs_jax(origin):
+    r_cfg = R_PRESETS["hbm2"]()
+    rng = np.random.default_rng(11)
+    r_prog = _random_serve_program(rng, n_phases=6, hit_heavy=True)
+    packed, fin = _assert_serve_parity(r_cfg, r_prog)
+    r_packed = r_accel.pack_program(r_prog, r_cfg)
+    got = accel.finalize_program(interop.packed_program(r_packed), fin,
+                                 origin=origin)
+    want = r_accel.finalize_program(r_packed, fin.numpy(), origin=origin)
+    for f in ("now", "total_requests", "total_row_hits",
+              "total_row_conflicts"):
+        assert getattr(got, f) == getattr(want, f), f
+    assert ([dataclasses.astuple(p) for p in got.phases]
+            == [dataclasses.astuple(p) for p in want.phases])
+
+
+def test_wrapper_rejects_bad_input():
+    r_cfg = R_PRESETS["accugraph"]()
+    prog = _random_serve_program(np.random.default_rng(1), n_phases=1)
+    packed = accel.pack_program(interop.segmented_trace(prog),
+                                interop.dram_config(r_cfg))
+    streams = [_t(packed.issue), _t(packed.meta), _t(packed.boundary),
+               _t(packed.timing)]
+    state = _cold_state(packed, 1)
+    with pytest.raises(TypeError):
+        dram_serve(streams[0].long(), *streams[1:], state)
+    with pytest.raises(ValueError):
+        dram_serve(*streams, state[:5])
+    bad_issue = streams[0].clone()
+    bad_issue[0, 0, 0] = vec.MAX_PHASE_ISSUE
+    with pytest.raises(ValueError):
+        dram_serve(bad_issue, *streams[1:], state)
+    # neither a CPU nor a CUDA tensor: no plain-version fallback
+    meta_dev = [s.to("meta") for s in streams]
+    with pytest.raises((ValueError, NotImplementedError, RuntimeError)):
+        dram_serve(*meta_dev, tuple(x.to("meta") for x in state))
+
+
+def test_dram_serve_ref_is_the_cpu_path():
+    """For CPU tensors the wrapper runs the plain version and counts no
+    kernel launch."""
+    r_cfg = R_PRESETS["hbm2e"]()
+    prog = _random_serve_program(np.random.default_rng(2), n_phases=2,
+                                 hit_heavy=True)
+    packed = accel.pack_program(interop.segmented_trace(prog),
+                                interop.dram_config(r_cfg))
+    args = [_t(packed.issue), _t(packed.meta), _t(packed.boundary),
+            _t(packed.timing)]
+    before = dram_serve.launches
+    fin_a, st_a = dram_serve(*args, _cold_state(packed, 16))
+    fin_b, st_b = dram_serve_ref(*args, _cold_state(packed, 16))
+    assert dram_serve.launches == before
+    assert torch.equal(fin_a, fin_b)
+    assert all(torch.equal(a, b) for a, b in zip(st_a, st_b))
