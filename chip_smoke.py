@@ -10,7 +10,10 @@ Phases, one JSON line each:
 3. kernels  — each CUDA kernel against its plain PyTorch version on the
               card, bit for bit: ``dram_serve`` on seeded random programs
               (4 memories x block widths K=1/8, carry chained across two
-              calls) and ``sweep_min`` on a random graph.
+              calls), ``dram_timing`` on seeded random traces (DDR3, DDR4,
+              HBM2, a 2-rank DDR4, and one bulk trace that trips the tFAW
+              window; carry chained across two calls) and ``sweep_min``
+              on a random graph.
 4. goldens  — the 20 rmat7/rmat8 HitGraph/AccuGraph keys of
               ``tests/goldens/simreports.json`` through ``simulate`` on
               the card.
@@ -20,11 +23,19 @@ Phases, one JSON line each:
               AccuGraph (q = n, 1 DDR4 channel), through
               ``SimSession.run``, with the kernel launch counts zeroed
               just before and read just after.
-6. compare  — both kernels against their plain versions on the main
-              path's own inputs: a window of each packed wiki-talk
-              program that crosses a phase boundary (served as two
-              chained kernel calls), and one full sweep of the AccuGraph
-              block; kernel and plain times on the same inputs.
+6. dynamic  — the dynamic-graph path at full size on the same graph,
+              through ``run_dynamic(..., verify=True)``: HitGraph WCC under
+              ``uniform-churn`` (3 epochs, inserts and deletes) and
+              AccuGraph WCC under ``pa-growth`` (3 epochs), sharing the
+              main path's sessions, with the launch counts zeroed just
+              before and read just after; one row per epoch.
+7. compare  — every kernel against its plain version on the paths' own
+              inputs: a window of each packed wiki-talk program that
+              crosses a phase boundary (served as two chained kernel
+              calls), one full sweep of the AccuGraph block, and a window
+              of the HitGraph ``ep1_apply`` phase's per-channel streams
+              (two chained kernel calls); kernel and plain times on the
+              same inputs.
 
 Then the kernel table, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -34,6 +45,7 @@ CUDA device.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -49,6 +61,22 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 #: what the JAX package gives for the main path (wiki-talk stand-in,
 #: WCC): iterations and packed serve steps, per accelerator
 MAIN_EXPECT = {"hitgraph": (8, 743_776), "accugraph": (5, 859_351)}
+
+#: the dynamic path: accelerator -> update stream (3 epochs each)
+DYNAMIC_CASES = {"hitgraph": "uniform-churn", "accugraph": "pa-growth"}
+
+#: per-epoch (iterations, total_requests) of the dynamic path, pinned from
+#: this script's first H100 run (the port's own numbers: no JAX run of the
+#: full-size dynamic case exists to hold them against).  Epoch 0 is the
+#: main path (MAIN_EXPECT); every epoch's labelling is also checked
+#: against a static recompute (``verify=True``).
+DYNAMIC_PINNED = {
+    "hitgraph": [(8, 12_306_821), (9, 15_517_544), (10, 16_791_707),
+                 (11, 18_799_090)],
+    "accugraph": [(5, 4_958_483), (4, 4_565_454), (5, 5_582_023),
+                  (4, 4_695_464)],
+}
+KERNELS = ("dram_serve", "dram_timing", "sweep_min")
 
 
 def emit(**kw) -> None:
@@ -109,6 +137,191 @@ def serve_bytes(S, C, K, B, R) -> int:
     return S * C * K * 12 + S * 4 + 7 * 4 + 2 * carry * 4
 
 
+def timing_bytes(C, L, B, R) -> int:
+    """Bytes the per-channel scan must move: issue, bank, row (4 B each)
+    and valid (1 B) in, finish (4 B) and kind (1 B) out per slot, timing,
+    and the carry in and out."""
+    carry = 3 * C * B + C + 6 * C * R
+    return C * L * (13 + 5) + 7 * 4 + 2 * carry * 4
+
+
+def channel_streams(cfg, rng, n=3000, bulk=False):
+    """Per-channel streams of a random trace; ``bulk`` issues every
+    request at cycle 0 over many rows, so back-to-back ACTs hit tFAW."""
+    from repro_torch.core import vectorized as vec
+    from repro_torch.core.trace import Trace
+    lines = rng.integers(0, 1 << 24 if bulk else 1 << 16, n)
+    issue = (np.zeros(n, dtype=np.int64) if bulk
+             else np.sort(rng.integers(0, 4 * n, n)))
+    return vec.pack_channels(Trace(lines, np.zeros(n, bool), issue), cfg)
+
+
+def timing_both(streams, timing, carry, split):
+    """Kernel (two chained calls split at slot ``split``) and plain
+    version (one call) on per-channel streams from ``carry``; returns the
+    max absolute difference over finishes, kinds and carry."""
+    from repro_torch.kernels.dram_timing.ops import dram_timing
+    from repro_torch.kernels.dram_timing.ref import dram_timing_ref
+    st, fins, kinds = carry, [], []
+    for a, b in ((0, split), (split, streams[0].shape[1])):
+        f, k, st = dram_timing(*(x[:, a:b].contiguous() for x in streams),
+                               timing, st)
+        fins.append(f)
+        kinds.append(k)
+    fin_p, kind_p, st_p = dram_timing_ref(*streams, timing, carry)
+    torch.cuda.synchronize()
+    return max([max_abs_diff(torch.cat(fins, 1), fin_p),
+                max_abs_diff(torch.cat(kinds, 1), kind_p)]
+               + [max_abs_diff(a, b) for a, b in zip(st, st_p)])
+
+
+def check_dram_timing(dev) -> dict:
+    """``dram_timing`` against its plain version on seeded random traces
+    of four memories and one bulk trace that trips the tFAW window."""
+    from repro_torch.core import vectorized as vec
+    from repro_torch.core.dram import PRESETS, ddr4_2400r
+    from repro_torch.kernels.dram_timing.ref import dram_timing_ref
+    memories = {"ddr3": PRESETS["hitgraph"], "ddr4": PRESETS["accugraph"],
+                "hbm2": PRESETS["hbm2"],
+                "ddr4-2ch-2rank": lambda: ddr4_2400r(channels=2, ranks=2),
+                "ddr4-faw": PRESETS["accugraph"]}
+    worst = 0
+    for i, (name, make) in enumerate(memories.items()):
+        cfg = make()
+        bulk = name == "ddr4-faw"
+        packed = channel_streams(cfg, np.random.default_rng(200 + i),
+                                 bulk=bulk)
+        streams = [torch.as_tensor(a, device=dev) for a in
+                   (packed.issue, packed.bank, packed.row, packed.valid)]
+        t_np = vec.timing_params(cfg.timing)
+        timing = torch.as_tensor(t_np, device=dev)
+        carry = vec.init_channel_carry(cfg.channels, cfg.banks_per_channel,
+                                       cfg.org.banks, dev)
+        worst = max(worst, timing_both(streams, timing, carry,
+                                       packed.issue.shape[1] // 2 + 1))
+        if bulk:
+            no_faw = t_np.copy()
+            no_faw[6] = 0
+            binds = not torch.equal(
+                dram_timing_ref(*streams, timing, carry)[0],
+                dram_timing_ref(*streams, torch.as_tensor(no_faw,
+                                                          device=dev),
+                                carry)[0])
+            assert binds, "the bulk trace does not reach the tFAW window"
+    assert worst == 0, f"dram_timing differs from its plain version: {worst}"
+    return {"dram_timing_cases": len(memories),
+            "dram_timing_max_abs_diff": worst, "faw_window_binds": True}
+
+
+def zero_launches() -> None:
+    from repro_torch.kernels.dram_timing.ops import dram_serve, dram_timing
+    from repro_torch.kernels.sweep_min.ops import sweep_min
+    for fn in (dram_serve, dram_timing, sweep_min):
+        fn.launches = 0
+
+
+def run_dynamic_path(wt, acc, session, main_report, card):
+    """One full-size dynamic run through ``run_dynamic(verify=True)``,
+    sharing the main path's session (so epoch 0 reuses its algorithm run
+    and model); one JSON row per epoch, then the run's totals."""
+    from repro_torch.sim import run_dynamic
+    preset = DYNAMIC_CASES[acc]
+    t0 = time.perf_counter()
+    res = run_dynamic(wt, "wcc", updates=preset, accelerator=acc,
+                      session=session, verify=True)
+    seconds = time.perf_counter() - t0
+    assert res.n_epochs == 4, res.n_epochs
+    # epoch 0 is the static main path, bit for bit (its ``phases`` list
+    # is the timeline's own, as in the JAX package, so it has grown by
+    # the later epochs' phases)
+    ep0 = res.epochs[0].report
+    assert dataclasses.replace(
+        ep0, phases=ep0.phases[:len(main_report.phases)]) == main_report
+    assert res.epochs[0].iterations == MAIN_EXPECT[acc][0]
+    assert np.array_equal(res.checkpoint, res.final_values)
+    got = [(ep.iterations, ep.report.total_requests) for ep in res.epochs]
+    assert got == DYNAMIC_PINNED[acc], (acc, got)
+    for ep in res.epochs:
+        r = ep.report
+        assert np.isfinite(r.runtime_ns) and r.runtime_ns > 0
+        apply = None
+        if ep.epoch:
+            assert ep.touched_partitions > 0 and ep.iterations > 0
+            assert r.phases[0].name == f"ep{ep.epoch}_apply"
+            apply = {"requests": r.phases[0].requests,
+                     "kernel_ms": r.stage_seconds["phase_serve"] * 1e3}
+        emit(phase="dynamic_epoch", accelerator=acc, updates=preset,
+             epoch=ep.epoch, iterations=ep.iterations,
+             requests=r.total_requests, runtime_ns=r.runtime_ns,
+             row_hit_rate=r.row_hit_rate, inserted=ep.inserted,
+             deleted=ep.deleted, touched_partitions=ep.touched_partitions,
+             total_partitions=ep.total_partitions,
+             reset_vertices=ep.reset_vertices,
+             frontier_vertices=ep.frontier_vertices, apply=apply,
+             kernel_launches={k: r.kernel_launches.get(k, 0)
+                              for k in KERNELS},
+             stage_seconds=r.stage_seconds)
+    agg = res.report
+    emit(phase="dynamic", accelerator=acc, updates=preset,
+         epochs=res.n_epochs, iterations=agg.iterations,
+         requests=agg.total_requests, runtime_ns=agg.runtime_ns,
+         row_hit_rate=agg.row_hit_rate, final_edges=res.final_graph.m,
+         verified=True, seconds=seconds, card=card)
+    return res
+
+
+def compare_dram_timing(wt, res, dev) -> dict:
+    """``dram_timing`` against its plain version on the HitGraph
+    ``ep1_apply`` phase's own per-channel streams, rebuilt from the
+    stream's seeded batch: a window of 8,192 slots per channel, entered
+    with the kernel's own carry and served as two chained kernel calls;
+    kernel and plain times on the window, and the kernel's time on the
+    whole phase."""
+    from repro_torch.core import accel, delta, vectorized as vec
+    from repro_torch.graphs.updates import UPDATE_PRESETS, apply_batch
+    from repro_torch.kernels.dram_timing.ops import dram_timing
+    from repro_torch.kernels.dram_timing.ref import dram_timing_ref
+    from repro_torch.sim import get_accelerator
+    from repro_torch.sim.session import resolve_run_config
+    spec = get_accelerator("hitgraph")
+    cfg = resolve_run_config(spec)
+    dram = cfg.dram_config()
+    b1 = UPDATE_PRESETS[DYNAMIC_CASES["hitgraph"]].batch(wt, 1)
+    model1 = spec.build_model(apply_batch(wt, b1), cfg)
+    touched = delta.structural_partitions(b1, wt, model1.q, model1.p)
+    name, line, _, issue = delta.delta_phase(model1, 1, touched)
+    served = res.epochs[1].report.phases[0]
+    assert (name, len(line)) == (served.name, served.requests)
+    comps = dram.decode_lines(line)
+    ch, C = comps["channel"], dram.channels
+    L = accel._bucket(int(np.bincount(ch, minlength=C).max()))
+    streams = [torch.as_tensor(a, device=dev) for a in vec.pack_streams(
+        ch, issue, comps["bank_in_channel"], comps["row"], C, L)[:4]]
+    timing = torch.as_tensor(vec.timing_params(dram.timing), device=dev)
+    cold = vec.init_channel_carry(C, dram.banks_per_channel,
+                                  dram.org.banks, dev)
+    full_ms = cuda_ms(lambda: dram_timing(*streams, timing, cold), reps=3)
+    W = min(8192, L)
+    lo = max(0, min(W, L - W))
+    _, _, st = dram_timing(*(x[:, :lo].contiguous() for x in streams),
+                           timing, cold)
+    win = [x[:, lo:lo + W].contiguous() for x in streams]
+    diff = timing_both(win, timing, st, W // 2)
+    assert diff == 0, f"dram_timing differs on the ep1_apply window: {diff}"
+    win_ms = cuda_ms(lambda: dram_timing(*win, timing, st), reps=5)
+    plain_ms = host_ms(lambda: dram_timing_ref(*win, timing, st))
+    B, R = dram.banks_per_channel, dram.org.ranks
+    return {"max_abs_err": diff, "ms": win_ms, "plain_ms": plain_ms,
+            "bound_ms": timing_bytes(C, W, B, R) / HBM_BYTES_PER_S * 1e3,
+            "window": {"shape": [C, W], "start": lo,
+                       "valid_slots": int(win[3].sum())},
+            "full_phase": {"shape": [C, L], "requests": len(line),
+                           "touched_partitions": len(touched),
+                           "ms": full_ms,
+                           "bound_ms": timing_bytes(C, L, B, R)
+                           / HBM_BYTES_PER_S * 1e3}}
+
+
 def random_program(rng, hit_heavy, n_phases=4, max_n=300):
     from repro_torch.core.trace import SegmentedTrace
     phases = []
@@ -160,7 +373,7 @@ def main() -> int:
     from repro_torch.core.dram import PRESETS
     from repro_torch.graphs.datasets import instantiate
     from repro_torch.graphs.generators import rmat
-    from repro_torch.kernels import build
+    from repro_torch.kernels import build, launch_counts
     from repro_torch.kernels.dram_timing.ops import dram_serve
     from repro_torch.kernels.sweep_min.ops import sweep_min, sweep_min_ref
     from repro_torch.sim import SimSession, get_accelerator, simulate
@@ -209,7 +422,8 @@ def main() -> int:
     assert sweep_worst == 0, "sweep_min differs from its plain version"
     emit(phase="kernels", tolerance="exact", dram_serve_cases=cases,
          dram_serve_launches=dram_serve.launches - launches0,
-         max_abs_diff=worst, sweep_min_max_abs_diff=sweep_worst)
+         max_abs_diff=worst, sweep_min_max_abs_diff=sweep_worst,
+         **check_dram_timing(dev))
 
     # ---- 4. goldens on the card ---------------------------------------
     golden = json.loads(
@@ -238,19 +452,27 @@ def main() -> int:
     emit(phase="graph", name=wt.name, vertices=wt.n, edges=wt.m,
          seconds=time.perf_counter() - t0)
     sessions, reports = {}, {}
-    dram_serve.launches = 0
-    sweep_min.launches = 0
+    zero_launches()
     for acc in ("hitgraph", "accugraph"):
         sessions[acc] = SimSession(wt)
         t0 = time.perf_counter()
         reports[acc] = sessions[acc].run("wcc", acc)
         reports[acc].stage_seconds["total"] = time.perf_counter() - t0
-    launches = {"dram_serve": dram_serve.launches,
-                "sweep_min": sweep_min.launches}
-    for name, n in launches.items():
-        assert n > 0, f"{name} was never launched on the main path"
+    launches = {"main": launch_counts()}
+    for name in ("dram_serve", "sweep_min"):
+        assert launches["main"][name] > 0, (
+            f"{name} was never launched on the main path")
 
-    # ---- 6. kernels vs plain on the main path's inputs ----------------
+    # ---- 6. the dynamic path at full size -------------------------------
+    zero_launches()
+    dyn = {acc: run_dynamic_path(wt, acc, sessions[acc], reports[acc], card)
+           for acc in DYNAMIC_CASES}
+    launches["dynamic"] = launch_counts()
+    for name in KERNELS:
+        assert launches["dynamic"][name] > 0, (
+            f"{name} was never launched on the dynamic path")
+
+    # ---- 7. kernels vs plain on the paths' inputs ----------------------
     kernels = {}
     for acc in ("hitgraph", "accugraph"):
         sess, r = sessions[acc], reports[acc]
@@ -335,22 +557,39 @@ def main() -> int:
     emit(phase="edge_centric_cross_check", iterations=run_gpu.iterations,
          seconds=time.perf_counter() - t0)
 
+    kernels["dram_timing"] = compare_dram_timing(wt, dyn["hitgraph"], dev)
+
     ds = kernels["dram_serve"]
     hw = ds["windows"]["hitgraph"]
+    dt = kernels["dram_timing"]
+    by_path = {name: {path: counts[name] for path, counts in launches.items()}
+               for name in KERNELS}
     table = [
         {"name": "dram_serve", "route": "cuda",
          "source": "src/repro_torch/csrc/dram_serve.cu",
          "replaces": "src/repro/kernels/dram_timing/kernel.py:210",
-         "launches": launches["dram_serve"],
+         "launches": launches["main"]["dram_serve"],
+         "launches_by_path": by_path["dram_serve"],
          "max_abs_err": ds["max_abs_err"],
          "ms": hw["ms"], "plain_ms": hw["plain_ms"],
          "bound_ms": hw["bound_ms"], "bound_by": "bytes",
          "library_ms": None, "inputs": "hitgraph main-path window",
          "windows": ds["windows"]},
+        {"name": "dram_timing", "route": "cuda",
+         "source": "src/repro_torch/csrc/dram_timing.cu",
+         "replaces": "src/repro/kernels/dram_timing/kernel.py:117",
+         "launches": launches["dynamic"]["dram_timing"],
+         "launches_by_path": by_path["dram_timing"],
+         "max_abs_err": dt["max_abs_err"], "ms": dt["ms"],
+         "plain_ms": dt["plain_ms"], "bound_ms": dt["bound_ms"],
+         "bound_by": "bytes", "library_ms": None,
+         "inputs": "hitgraph ep1_apply window", "window": dt["window"],
+         "full_phase": dt["full_phase"]},
         {"name": "sweep_min", "route": "cuda",
          "source": "src/repro_torch/csrc/sweep_min.cu",
          "replaces": "src/repro/algorithms/vertex_centric.py:41",
-         "launches": launches["sweep_min"],
+         "launches": launches["main"]["sweep_min"],
+         "launches_by_path": by_path["sweep_min"],
          "max_abs_err": kernels["sweep_min"]["max_abs_err"],
          "ms": kernels["sweep_min"]["ms"],
          "plain_ms": kernels["sweep_min"]["plain_ms"],

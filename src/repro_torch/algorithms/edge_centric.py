@@ -111,10 +111,18 @@ def run(
     max_iters: int = 10_000,
     fixed_iters: Optional[int] = None,
     device=None,
+    x0: Optional[np.ndarray] = None,
+    active0: Optional[np.ndarray] = None,
 ) -> RunResult:
     """Run ``problem`` edge-centrically to convergence on ``device``
     (default the card); collect per-iteration stats.  ``fixed_iters``
-    applies to the stationary problems only, as in the JAX package."""
+    applies to the stationary problems only, as in the JAX package.
+
+    ``x0`` / ``active0`` warm-start the relaxation (the incremental-update
+    path): iteration proceeds from the given labelling and frontier
+    instead of the static init.  Correctness needs ``L <= x0 <= init``
+    pointwise (see :mod:`repro_torch.algorithms.incremental`), which the
+    repair planner guarantees."""
     if problem not in (Problem.SSSP, Problem.WCC, Problem.BFS):
         raise NotImplementedError(
             f"edge-centric {problem.value} is not ported yet; see "
@@ -133,6 +141,13 @@ def run(
         values_np[root] = 0
         active = np.zeros(n, dtype=bool)
         active[root] = True
+    if x0 is not None:
+        if active0 is None:
+            raise ValueError(
+                "a min-problem warm start (x0=) needs active0=")
+        values_np = np.asarray(x0, dtype=np.int32).copy()
+    if active0 is not None:
+        active = np.asarray(active0, dtype=bool).copy()
     if device.type == "cpu":
         return _min_run_numpy(g, problem, w_np, values_np, active,
                               max_iters)

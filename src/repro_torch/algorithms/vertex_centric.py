@@ -45,6 +45,8 @@ def run(
     fixed_iters: Optional[int] = None,
     block_skipping: bool = False,
     device=None,
+    x0: Optional[np.ndarray] = None,
+    active0: Optional[np.ndarray] = None,
 ) -> RunResult:
     """Run ``problem`` vertex-centrically (pull) with partition size q on
     ``device`` (default the card).
@@ -56,6 +58,12 @@ def run(
     recorded as ``None`` in ``changed_per_block`` so the trace model emits
     no requests for them.  ``fixed_iters`` applies to the stationary
     problems only, as in the JAX package.
+
+    ``x0`` / ``active0`` warm-start the relaxation (the incremental-update
+    path): values start from ``x0`` and only blocks containing an
+    ``active0`` vertex start dirty.  Correctness needs ``L <= x0 <=
+    init`` pointwise (see :mod:`repro_torch.algorithms.incremental`).
+    The sweeps of the repair go through the same ``sweep_min`` kernel.
     """
     if problem not in (Problem.BFS, Problem.WCC, Problem.SSSP):
         raise NotImplementedError(
@@ -74,6 +82,12 @@ def run(
         values = torch.full((n,), int(INF32), dtype=torch.int32,
                             device=device)
         values[root] = 0
+    if x0 is not None:
+        if active0 is None:
+            raise ValueError(
+                "a min-problem warm start (x0=) needs active0=")
+        values = torch.as_tensor(np.asarray(x0, dtype=np.int32).copy(),
+                                 device=device)
     block_arrays = []
     for k in range(parts.p):
         s, d = _block_edges(parts, k)
@@ -83,6 +97,10 @@ def run(
         ))
     dirty = np.ones(parts.p, dtype=bool)
     changed_prev = np.ones(n, dtype=bool)
+    if active0 is not None:
+        changed_prev = np.asarray(active0, dtype=bool).copy()
+        dirty[:] = False
+        dirty[np.unique(np.flatnonzero(changed_prev) // parts.q)] = True
     it = 0
     while it < max_iters:
         vals_before = values.clone()

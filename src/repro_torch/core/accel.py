@@ -1,13 +1,21 @@
 """Shared machinery for the vectorized accelerator trace models.
 
-``VectorizedDRAM`` serves whole-run programs while carrying per-channel
-DRAM state across programs — the equivalent of the paper's controller
-"waiting on all memory requests to finish before switching phases": a
-:class:`~repro_torch.core.trace.SegmentedTrace` (every phase of the
-simulation, emitted up front by the trace models) is packed once on the
-host (:func:`pack_program`, NumPy) and served by the fused serve, which
-honors the phase barriers internally — one CUDA kernel launch per run on
-the card.
+``VectorizedDRAM`` serves phases and whole-run programs while carrying
+per-channel DRAM state across them — the equivalent of the paper's
+controller "waiting on all memory requests to finish before switching
+phases".  Two execution modes share one statistics surface and one
+carry:
+
+* :meth:`VectorizedDRAM.run_program` — a
+  :class:`~repro_torch.core.trace.SegmentedTrace` (every phase of the
+  simulation, emitted up front by the trace models) is packed once on
+  the host (:func:`pack_program`, NumPy) and served by the fused serve,
+  which honors the phase barriers internally — one CUDA kernel launch
+  per run on the card;
+* :meth:`VectorizedDRAM.run_phase` — one phase over per-channel
+  ``[C, L]`` streams through the per-channel scan (one launch of the
+  ``dram_timing`` kernel on the card); the dynamic-graph path serves its
+  ``ep{e}_apply`` rewrites this way.
 
 The JAX package packs on the device when it runs on an accelerator; the
 port packs on the host and copies the packed arrays to the card.  A
@@ -27,6 +35,10 @@ from repro_torch.core import vectorized as vec
 from repro_torch.core.dram import CACHE_LINE_BYTES, DRAMConfig
 from repro_torch.core.trace import SegmentedTrace, Trace
 from repro_torch.device import resolve_device
+
+
+def _bucket(n: int) -> int:
+    return 1 << max(n - 1, 1).bit_length()
 
 
 @dataclasses.dataclass
@@ -275,7 +287,10 @@ class VectorizedDRAM:
     card; raises when CUDA is absent).
 
     ``stage_seconds`` accumulates the wall time of the host pack, the
-    host-to-device copy, the serve and the finalize."""
+    host-to-device copy, the serve and the finalize of programs, and of
+    the pack (``phase_pack``, copy included), the scan (``phase_serve``,
+    CUDA events on the card) and the reductions (``phase_finalize``) of
+    single phases."""
 
     def __init__(self, cfg: DRAMConfig, device=None):
         if cfg.effective_cache is not None:
@@ -285,9 +300,7 @@ class VectorizedDRAM:
         self.cfg = cfg
         self.device = resolve_device(device)
         self._timing = vec.timing_params(cfg.timing)
-        self.carry = vec.init_channel_carry(
-            cfg.channels, cfg.banks_per_channel, cfg.org.banks,
-            self.device)
+        self._reset_carry()
         # Device-side cycle math is int32; ``_origin`` (host int) anchors
         # the device-relative clock so runs can exceed the int32 range.
         self._origin = 0
@@ -298,15 +311,68 @@ class VectorizedDRAM:
         self.total_row_conflicts = 0
         self.stage_seconds: Dict[str, float] = {}
 
+    def _reset_carry(self) -> None:
+        self.carry = vec.init_channel_carry(
+            self.cfg.channels, self.cfg.banks_per_channel,
+            self.cfg.org.banks, self.device)
+
+    def _add_seconds(self, stage: str, seconds: float) -> None:
+        self.stage_seconds[stage] = (self.stage_seconds.get(stage, 0.0)
+                                     + seconds)
+
     @property
     def now(self) -> int:
         """Current absolute memory-clock cycle."""
         return self._origin + self._rel_now
 
     def run_phase(self, trace: Trace, name: str = "phase") -> int:
-        raise NotImplementedError(
-            "the per-phase path (run_phase over the dram_timing kernel) "
-            "comes with a later slice; see ROADMAP.md")
+        """Simulate one phase starting at the current clock (one
+        per-channel scan: the ``dram_timing`` kernel on the card); returns
+        its makespan (absolute memory cycle)."""
+        if len(trace) == 0:
+            return self.now
+        t0 = time.perf_counter()
+        start_rel = self._rel_now
+        issue = trace.issue + start_rel
+        if issue.max() >= vec.MAX_PHASE_ISSUE:
+            # Re-base the device clock as the JAX package does: flush the
+            # carry (open rows are forgotten, a <1% effect at this
+            # magnitude); the statistics and the absolute clock are kept.
+            self._origin += self._rel_now
+            self._rel_now = 0
+            self._reset_carry()
+            start_rel = 0
+            issue = trace.issue
+        cfg = self.cfg
+        comps = cfg.decode_lines(trace.line_addr)
+        ch = comps["channel"]
+        C = cfg.channels
+        L = _bucket(int(np.bincount(ch, minlength=C).max()))
+        streams = vec.pack_streams(ch, issue, comps["bank_in_channel"],
+                                   comps["row"], C, L)[:4]
+        streams = [torch.from_numpy(a).to(self.device)
+                   for a in streams + (self._timing,)]
+        vec._sync(self.device)
+        self._add_seconds("phase_pack", time.perf_counter() - t0)
+        (finish, kind, self.carry), serve = vec.run_timed(
+            lambda: vec.simulate_packed(*streams, self.carry), self.device)
+        self._add_seconds("phase_serve", serve)
+        t1 = time.perf_counter()
+        end_rel = int(finish[streams[3]].max())
+        hits, confl = (int(x) for x in torch.stack(
+            [(kind == 0).sum(), (kind == 2).sum()]).tolist())
+        self._add_seconds("phase_finalize", time.perf_counter() - t1)
+        self.phases.append(PhaseStats(
+            name=name, requests=len(trace),
+            bytes=len(trace) * CACHE_LINE_BYTES,
+            start_cycle=self._origin + start_rel,
+            end_cycle=self._origin + end_rel,
+            row_hits=hits, row_conflicts=confl))
+        self.total_requests += len(trace)
+        self.total_row_hits += hits
+        self.total_row_conflicts += confl
+        self._rel_now = max(self._rel_now, end_rel)
+        return self._origin + end_rel
 
     def run_program(self, program: SegmentedTrace) -> int:
         """Serve a whole multi-phase program (host pack + one fused
@@ -315,8 +381,7 @@ class VectorizedDRAM:
         t0 = time.perf_counter()
         packed = pack_program(program, self.cfg,
                               open_row=self.carry[0].cpu().numpy())
-        self.stage_seconds["pack"] = (self.stage_seconds.get("pack", 0.0)
-                                      + time.perf_counter() - t0)
+        self._add_seconds("pack", time.perf_counter() - t0)
         if packed is None:
             return self.now
         if self._rel_now:
@@ -347,7 +412,10 @@ class SimReport:
 
     ``stage_seconds`` is the wall time of each pipeline stage
     (``algorithm``, ``model``, ``trace``, ``pack``, ``h2d``, ``serve``,
-    ``finalize``); it describes how the run went, not what it computed."""
+    ``finalize``; the dynamic path adds its own) and ``kernel_launches``
+    the CUDA kernel launches of the run, by kernel, where it is recorded
+    (the dynamic path's epochs); both describe how the run went, not what
+    it computed."""
 
     system: str
     problem: str
@@ -364,4 +432,6 @@ class SimReport:
     cache_hits: int = 0
     prefetch_hits: int = 0
     stage_seconds: Dict[str, float] = dataclasses.field(
+        default_factory=dict, compare=False)
+    kernel_launches: Dict[str, int] = dataclasses.field(
         default_factory=dict, compare=False)

@@ -139,6 +139,21 @@ def ragged_spread(start: np.ndarray, window: np.ndarray,
     return (t + i * w / n).astype(np.int64)
 
 
+def group_ranks(counts: np.ndarray, key: np.ndarray) -> np.ndarray:
+    """Rank of each element within its group, preserving input order.
+
+    ``key`` maps each element to its group id; ``counts`` are the group
+    sizes (``np.bincount(key, minlength=G)``).
+    """
+    order = np.argsort(key, kind="stable")
+    counts = np.asarray(counts, dtype=np.int64)
+    starts = np.cumsum(counts) - counts
+    ranks = np.empty(len(key), dtype=np.int64)
+    ranks[order] = np.arange(len(key), dtype=np.int64) - np.repeat(
+        starts, counts)
+    return ranks
+
+
 def bulk_issue(n: int, start: int) -> np.ndarray:
     """Unlimited producer: all requests available at ``start`` (paper: "the
     requests are just created in bulk")."""

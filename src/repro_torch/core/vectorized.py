@@ -1,11 +1,17 @@
-"""The DRAM-timing model's carry, stream format and fused serve.
+"""The DRAM-timing model's carry, stream formats and serves.
 
-The JAX package serves a packed program with a ``lax.scan`` (or its
-Pallas kernel) over blocked ``[S, C, K]`` lockstep streams: a step
-retires up to K row hits per channel, or one miss, and phase barriers
-are honored inside the scan by re-basing the carry at each segment
-boundary.  Here the same serve runs as one launch of the hand-written
-CUDA kernel on the card, or its plain torch version on the CPU (see
+Two entry points, as in the JAX package:
+
+* :func:`simulate_packed` — one phase over per-channel ``[C, L]``
+  streams, one request per channel per slot, carry in and out (the
+  per-phase path behind ``VectorizedDRAM.run_phase``);
+* :func:`fused_scan` — a whole multi-phase program over blocked
+  ``[S, C, K]`` lockstep streams: a step retires up to K row hits per
+  channel, or one miss, and phase barriers are honored inside the serve
+  by re-basing the carry at each segment boundary.
+
+Each runs as one launch of a hand-written CUDA kernel on the card, or as
+its plain torch version on the CPU (see
 ``repro_torch.kernels.dram_timing``); which one is decided by the device
 the streams are put on.
 
@@ -16,13 +22,15 @@ arbitrary length are fine.
 
 from __future__ import annotations
 
+import dataclasses
 import time
 from typing import Dict, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.core.dram import DRAMTiming
+from repro_torch.core.dram import DRAMConfig, DRAMTiming
+from repro_torch.core.trace import Trace, group_ranks
 
 NEG_INF32 = -(1 << 30)
 
@@ -45,6 +53,73 @@ def choose_block_lanes(n_miss: int, n: int) -> int:
 def timing_params(t: DRAMTiming) -> np.ndarray:
     """Timing parameters as the int32[7] the serve consumes."""
     return np.array([getattr(t, f) for f in TIMING_FIELDS], dtype=np.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class PackedChannels:
+    """Per-channel padded request streams + scatter metadata."""
+
+    issue: np.ndarray        # int32[C, L]
+    bank: np.ndarray         # int32[C, L]
+    row: np.ndarray          # int32[C, L]
+    valid: np.ndarray        # bool[C, L]
+    scatter_index: np.ndarray  # int64[C, L] -> position in original trace
+
+
+def pack_streams(ch: np.ndarray, issue: np.ndarray, bank: np.ndarray,
+                 row: np.ndarray, channels: int, length: int):
+    """Scatter program-order request components into padded per-channel
+    streams (one stable argsort).
+
+    Returns ``(issue[C, L] int32, bank[C, L] int32, row[C, L] int32,
+    valid[C, L] bool, slot[n] int64)`` where ``slot`` is each request's
+    position within its channel stream.
+    """
+    counts = np.bincount(ch, minlength=channels)
+    slot = group_ranks(counts, ch)
+    issue_p = np.zeros((channels, length), dtype=np.int32)
+    bank_p = np.zeros((channels, length), dtype=np.int32)
+    row_p = np.zeros((channels, length), dtype=np.int32)
+    valid_p = np.zeros((channels, length), dtype=bool)
+    issue_p[ch, slot] = issue
+    bank_p[ch, slot] = bank
+    row_p[ch, slot] = row
+    valid_p[ch, slot] = True
+    return issue_p, bank_p, row_p, valid_p, slot
+
+
+def pack_channels(trace: Trace, cfg: DRAMConfig) -> PackedChannels:
+    """Split a program-order trace into per-channel padded streams."""
+    comps = cfg.decode_lines(trace.line_addr)
+    ch = comps["channel"]
+    C = cfg.channels
+    counts = np.bincount(ch, minlength=C)
+    L = max(int(counts.max()) if len(trace) else 0, 1)
+    if np.any(trace.issue < 0) or np.any(trace.issue >= MAX_PHASE_ISSUE):
+        raise ValueError("issue cycles out of int32 range; chunk the trace")
+    issue, bank, row, valid, slot = pack_streams(
+        ch, trace.issue, comps["bank_in_channel"], comps["row"], C, L)
+    scatter = np.zeros((C, L), dtype=np.int64)
+    scatter[ch, slot] = np.arange(len(trace), dtype=np.int64)
+    return PackedChannels(issue, bank, row, valid, scatter)
+
+
+def simulate_packed(issue, bank, row, valid, timing, carry):
+    """Serve one phase of per-channel ``[C, L]`` streams from ``carry``
+    (the 7-tuple :func:`init_channel_carry` builds, on the streams'
+    device): NumPy or torch inputs go to ``carry``'s device and through
+    one ``dram_timing`` call — the CUDA kernel on the card, the plain
+    version on the CPU.  Returns ``(finish int32[C, L], kind int8[C, L],
+    carry)`` on that device; invalid slots give ``(0, -1)``."""
+    from repro_torch.kernels.dram_timing.ops import dram_timing
+    device = carry[0].device
+
+    def to(a, dtype):
+        return torch.as_tensor(a, device=device).to(dtype).contiguous()
+
+    return dram_timing(to(issue, torch.int32), to(bank, torch.int32),
+                       to(row, torch.int32), to(valid, torch.bool),
+                       to(timing, torch.int32), tuple(carry))
 
 
 def init_channel_carry(channels: int, n_banks: int, banks_per_rank: int,
@@ -158,6 +233,22 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def run_timed(fn, device: torch.device):
+    """``(fn(), seconds)``: CUDA events around ``fn`` on the card (it
+    synchronises on the end event), the host clock on the CPU."""
+    if device.type != "cuda":
+        t0 = time.perf_counter()
+        out = fn()
+        return out, time.perf_counter() - t0
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end) / 1e3
+
+
 def fused_scan(issue, meta, boundary, timing, carry, device,
                stage_seconds: Optional[Dict[str, float]] = None):
     """Serve a whole packed program from ``carry`` (the 5-tuple lean
@@ -176,17 +267,8 @@ def fused_scan(issue, meta, boundary, timing, carry, device,
     C = issue.shape[1]
     state = tuple(carry) + (torch.zeros((C,), dtype=torch.int32,
                                         device=device),)
-    if device.type == "cuda":
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fin, state = dram_serve(*streams, state)
-        end.record()
-        end.synchronize()
-        serve = start.elapsed_time(end) / 1e3
-    else:
-        fin, state = dram_serve(*streams, state)
-        serve = time.perf_counter() - t1
+    (fin, state), serve = run_timed(lambda: dram_serve(*streams, state),
+                                    device)
     if stage_seconds is not None:
         stage_seconds["h2d"] = stage_seconds.get("h2d", 0.0) + (t1 - t0)
         stage_seconds["serve"] = stage_seconds.get("serve", 0.0) + serve

@@ -40,6 +40,9 @@ class Graph:
     def m(self) -> int:
         return len(self.src)
 
+    def in_degrees(self) -> np.ndarray:
+        return np.bincount(self.dst, minlength=self.n).astype(np.int64)
+
     def with_unit_weights(self) -> "Graph":
         """Paper §4.1: HitGraph weights undisclosed; we initialize to 1."""
         return dataclasses.replace(

@@ -3,7 +3,8 @@
 Each function turns an object of the JAX package (``repro``) into the
 port's equivalent by reading its fields by name.  Nothing here imports
 ``repro``: any object with the right fields converts, so the tests can
-feed both packages identical graphs, configs, programs and runs.
+feed both packages identical graphs, configs, programs, runs and update
+batches, and compare their reports and dynamic results.
 """
 
 from __future__ import annotations
@@ -13,13 +14,15 @@ import dataclasses
 import numpy as np
 
 from repro_torch.algorithms.common import IterStats, RunResult
-from repro_torch.core.accel import PackedProgram
+from repro_torch.core.accel import PackedProgram, PhaseStats, SimReport
 from repro_torch.core.accugraph import AccuGraphConfig
 from repro_torch.core.cache import CacheConfig
 from repro_torch.core.dram import DRAMConfig, DRAMOrganization, DRAMTiming
 from repro_torch.core.hitgraph import HitGraphConfig
-from repro_torch.core.trace import SegmentedTrace
+from repro_torch.core.trace import SegmentedTrace, Trace
 from repro_torch.graphs.formats import Graph
+from repro_torch.graphs.updates import UpdateBatch, UpdateStream
+from repro_torch.sim.dynamic import DynamicResult, EpochReport
 
 
 def _fields(obj, cls, **converted):
@@ -65,6 +68,11 @@ def segmented_trace(t) -> SegmentedTrace:
                           list(t.names))
 
 
+def trace(t) -> Trace:
+    return Trace(np.asarray(t.line_addr), np.asarray(t.is_write),
+                 np.asarray(t.issue))
+
+
 def packed_program(p) -> PackedProgram:
     return _fields(p, PackedProgram, names=list(p.names))
 
@@ -77,3 +85,31 @@ def run_result(r) -> RunResult:
                         for c in s.changed_per_block])
         for s in r.per_iter]
     return RunResult(np.asarray(r.values), r.iterations, per_iter)
+
+
+def update_batch(b) -> UpdateBatch:
+    return _fields(b, UpdateBatch)
+
+
+def update_stream(s) -> UpdateStream:
+    return _fields(s, UpdateStream)
+
+
+def sim_report(r) -> SimReport:
+    return _fields(r, SimReport,
+                   phases=[_fields(p, PhaseStats) for p in r.phases],
+                   stage_seconds={}, kernel_launches={})
+
+
+def epoch_report(e) -> EpochReport:
+    return _fields(e, EpochReport, report=sim_report(e.report))
+
+
+def dynamic_result(r) -> DynamicResult:
+    return DynamicResult(
+        epochs=[epoch_report(e) for e in r.epochs],
+        report=sim_report(r.report),
+        final_values=np.asarray(r.final_values),
+        final_graph=graph(r.final_graph),
+        checkpoint=(None if r.checkpoint is None
+                    else np.asarray(r.checkpoint)))

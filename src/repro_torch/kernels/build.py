@@ -37,6 +37,9 @@ SIGNATURES = {
     # issue, meta, boundary, timing, 6 carry inputs, finish, 6 carry
     # outputs, S, C, K, B, R, banks_per_rank, stream
     "repro_dram_serve": ([_P] * 17 + [_L, _I, _I, _I, _I, _I, _P], _I),
+    # issue, bank, row, valid, timing, 7 carry inputs, finish, kind,
+    # 7 carry outputs, C, L, B, R, banks_per_rank, stream
+    "repro_dram_timing": ([_P] * 21 + [_I, _L, _I, _I, _I, _P], _I),
     # values, src, dst, m, add, stream
     "repro_sweep_min": ([_P, _P, _P, _L, _I, _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),

@@ -1,20 +1,33 @@
-"""Public wrapper of the blocked DRAM-serve kernel (``csrc/dram_serve.cu``).
+"""Public wrappers of the two DRAM-timing kernels.
 
-``dram_serve`` checks its inputs, then launches the CUDA kernel for CUDA
-tensors or runs the plain version (:func:`ref.dram_serve_ref`) for CPU
-tensors.  There is no fallback: a CUDA tensor goes to the kernel or the
-call raises.  ``dram_serve.launches`` counts kernel launches.
+* ``dram_serve`` — the blocked ``[S, C, K]`` multi-phase serve
+  (``csrc/dram_serve.cu``);
+* ``dram_timing`` — the per-channel ``[C, L]`` scan of one phase
+  (``csrc/dram_timing.cu``), and :func:`simulate_trace` around it.
+
+Each wrapper checks its inputs, then launches the CUDA kernel for CUDA
+tensors or runs the plain version (``ref.py``) for CPU tensors.  There
+is no fallback: a CUDA tensor goes to the kernel or the call raises.
+``dram_serve.launches`` and ``dram_timing.launches`` count kernel
+launches.
 """
 
 from __future__ import annotations
 
 from typing import Tuple
 
+import numpy as np
 import torch
 
-from repro_torch.core.vectorized import MAX_PHASE_ISSUE, NEG_INF32
+from repro_torch.core.dram import DRAMConfig
+from repro_torch.core.trace import Trace
+from repro_torch.core.vectorized import (MAX_PHASE_ISSUE, NEG_INF32,
+                                         init_channel_carry, pack_channels,
+                                         timing_params)
+from repro_torch.device import resolve_device
 from repro_torch.kernels.build import check_launch, library
-from repro_torch.kernels.dram_timing.ref import dram_serve_ref
+from repro_torch.kernels.dram_timing.ref import (dram_serve_ref,
+                                                 dram_timing_ref)
 
 State = Tuple[torch.Tensor, ...]
 
@@ -100,3 +113,110 @@ def dram_serve(issue: torch.Tensor, meta: torch.Tensor,
 
 
 dram_serve.launches = 0
+
+
+def _check_timing(issue, bank, row, valid, timing, carry):
+    if len(carry) != 7:
+        raise ValueError(f"carry must be the 7-tuple channel carry, got "
+                         f"{len(carry)} arrays")
+    dev = issue.device
+    for t in (issue, bank, row, valid, timing) + tuple(carry):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"expected torch tensors, got {type(t)}")
+        want = torch.bool if t is valid else torch.int32
+        if t.dtype != want:
+            raise TypeError(f"dram_timing takes int32 tensors and a bool "
+                            f"valid mask, got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"tensors on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError("dram_timing takes contiguous tensors")
+    if issue.dim() != 2:
+        raise ValueError(f"issue must be [C, L], got {tuple(issue.shape)}")
+    C, L = issue.shape
+    open_row, act_time, bank_avail, bus_free, hist, ptr, last = carry
+    if open_row.dim() != 2 or ptr.dim() != 2:
+        raise ValueError("open_row must be [C, B] and act_ptr [C, R]")
+    B, R = open_row.shape[1], ptr.shape[1]
+    want = {"bank": ((C, L), bank), "row": ((C, L), row),
+            "valid": ((C, L), valid), "timing": ((7,), timing),
+            "open_row": ((C, B), open_row), "act_time": ((C, B), act_time),
+            "bank_avail": ((C, B), bank_avail), "bus_free": ((C,), bus_free),
+            "act_hist": ((C, R, 4), hist), "act_ptr": ((C, R), ptr),
+            "last_act": ((C, R), last)}
+    for name, (shape, t) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got "
+                             f"{tuple(t.shape)}")
+    if C < 1 or R < 1 or B % R:
+        raise ValueError(f"need C >= 1 and banks ({B}) split evenly over "
+                         f"ranks ({R}), got C={C}")
+    # the kernel's int32 contract, as the packer asserts it: issues are
+    # phase-relative and in range; banks and pointers index the carry
+    if issue.numel() and (int(issue.min()) < 0
+                          or int(issue.max()) >= MAX_PHASE_ISSUE):
+        raise ValueError("issue cycles out of int32 range; chunk the trace")
+    if bank.numel() and (int(bank.min()) < 0 or int(bank.max()) >= B):
+        raise ValueError(f"bank ids must lie in [0, {B})")
+    if ptr.numel() and (int(ptr.min()) < 0 or int(ptr.max()) > 3):
+        raise ValueError("ACT-history pointers must lie in [0, 4)")
+    return C, L, B, R
+
+
+def dram_timing(issue: torch.Tensor, bank: torch.Tensor, row: torch.Tensor,
+                valid: torch.Tensor, timing: torch.Tensor, carry: State):
+    """Serve one phase of per-channel ``[C, L]`` streams (issue, bank,
+    row int32; valid bool) from ``carry``, the 7-tuple ``(open_row[C,B],
+    act_time[C,B], bank_avail[C,B], bus_free[C], act_hist[C,R,4],
+    act_ptr[C,R], last_act[C,R])``, all int32; ``timing`` is the int32[7]
+    vector (tCL, tRCD, tRP, tRAS, tBL, tRRD, tFAW).  Returns
+    ``(finish int32[C, L], kind int8[C, L], carry)``, bit-identical to
+    the JAX package's per-channel scan."""
+    C, L, B, R = _check_timing(issue, bank, row, valid, timing, carry)
+    if issue.device.type == "cpu":
+        return dram_timing_ref(issue, bank, row, valid, timing, carry)
+    if issue.device.type != "cuda":
+        raise ValueError(f"dram_timing runs on CUDA or CPU, not "
+                         f"{issue.device}")
+    lib = library()
+    finish = torch.empty_like(issue)
+    kind = torch.empty((C, L), dtype=torch.int8, device=issue.device)
+    out = tuple(torch.empty_like(x) for x in carry)
+    with torch.cuda.device(issue.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.repro_dram_timing(
+            issue.data_ptr(), bank.data_ptr(), row.data_ptr(),
+            valid.data_ptr(), timing.data_ptr(),
+            *(x.data_ptr() for x in carry),
+            finish.data_ptr(), kind.data_ptr(),
+            *(x.data_ptr() for x in out),
+            C, L, B, R, B // R, stream)
+    check_launch(code, "dram_timing")
+    dram_timing.launches += 1
+    return finish, kind, out
+
+
+dram_timing.launches = 0
+
+
+def simulate_trace(trace: Trace, cfg: DRAMConfig, device=None):
+    """End-to-end on ``device`` (default the card): trace -> per-channel
+    pack -> one ``dram_timing`` call from a cold carry.  Returns
+    ``(finish int32[C, L], kind int8[C, L], makespan)`` as NumPy arrays
+    and an int; the counterpart of the JAX package's
+    ``simulate_trace_kernel``."""
+    device = resolve_device(device)
+    packed = pack_channels(trace, cfg)
+    carry = init_channel_carry(cfg.channels, cfg.banks_per_channel,
+                               cfg.org.banks, device)
+
+    def to(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+    finish, kind, _ = dram_timing(
+        to(packed.issue), to(packed.bank), to(packed.row), to(packed.valid),
+        to(timing_params(cfg.timing)), carry)
+    finish, kind = finish.cpu().numpy(), kind.cpu().numpy()
+    valid = packed.valid
+    makespan = int(finish[valid].max()) if valid.any() else 0
+    return finish, kind, makespan

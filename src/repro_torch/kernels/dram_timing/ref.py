@@ -1,15 +1,21 @@
-"""Plain PyTorch version of the blocked DRAM serve: the reference the CUDA
-kernel (``csrc/dram_serve.cu``) is held against, and what the wrapper
-runs for CPU tensors.
+"""Plain PyTorch versions of the two DRAM-timing kernels: the references
+the CUDA kernels are held against, and what the wrappers run for CPU
+tensors.  Both run on whatever device their tensors live.
 
-It is ``make_serve_step`` (``src/repro/core/vectorized.py:579``) written
-in torch, one Python-loop iteration per step, on whatever device its
-tensors live.  Steps past the last one that holds a valid lane or a phase
-boundary are all alike (every lane invalid, no re-base): instead of
-looping over them it applies their combined effect, which is not a no-op
-— the bus time and the phase makespan clamp at 0, because such a step's
-makespan ``mx`` is 0 — so the returned carry equals a step-by-step run
-over the whole padded stream.
+:func:`dram_serve_ref` (for ``csrc/dram_serve.cu``) is
+``make_serve_step`` (``src/repro/core/vectorized.py:579``) written in
+torch, one Python-loop iteration per step.  Steps past the last one that
+holds a valid lane or a phase boundary are all alike (every lane invalid,
+no re-base): instead of looping over them it applies their combined
+effect, which is not a no-op — the bus time and the phase makespan clamp
+at 0, because such a step's makespan ``mx`` is 0 — so the returned carry
+equals a step-by-step run over the whole padded stream.
+
+:func:`dram_timing_ref` (for ``csrc/dram_timing.cu``) is
+``_request_step``/``_channel_scan`` (``src/repro/core/vectorized.py:227,
+279``) in torch, channels side by side, one Python-loop iteration per
+slot.  Invalid slots leave the carry untouched, so it stops at the last
+slot that is valid in any channel.
 """
 
 from __future__ import annotations
@@ -23,6 +29,64 @@ from repro_torch.core.vectorized import (META_CONFL, META_MISS,
                                          META_VALID, NEG_INF32)
 
 State = Tuple[torch.Tensor, ...]
+
+
+def dram_timing_ref(issue: torch.Tensor, bank: torch.Tensor,
+                    row: torch.Tensor, valid: torch.Tensor,
+                    timing: torch.Tensor, carry: State):
+    """Serve per-channel ``[C, L]`` request streams (one request per
+    channel per slot) from ``carry``, the 7-tuple ``(open_row[C,B],
+    act_time[C,B], bank_avail[C,B], bus_free[C], act_hist[C,R,4],
+    act_ptr[C,R], last_act[C,R])``.  Returns ``(finish int32[C, L],
+    kind int8[C, L], carry)``: kind 0 hit / 1 empty / 2 conflict, and
+    ``(0, -1)`` on invalid slots."""
+    tCL, tRCD, tRP, tRAS, tBL, tRRD, tFAW = (int(x) for x in
+                                             timing.tolist())
+    (open_row, act_time, bank_avail, bus_free,
+     act_hist, act_ptr, last_act) = (x.clone() for x in carry)
+    C, L = issue.shape
+    banks_per_rank = open_row.shape[1] // act_ptr.shape[1]
+    ch = torch.arange(C, device=issue.device)
+    finish = torch.zeros_like(issue)
+    kind = torch.full((C, L), -1, dtype=torch.int8, device=issue.device)
+    live = torch.nonzero(valid.any(dim=0)).flatten()
+    n_live = int(live[-1]) + 1 if len(live) else 0
+    for j in range(n_live):
+        v = valid[:, j]
+        b = bank[:, j].long()
+        r = row[:, j]
+        rank = torch.div(b, banks_per_rank, rounding_mode="floor")
+        o = open_row[ch, b]
+        av = bank_avail[ch, b]
+        at = act_time[ch, b]
+        hit = o == r
+        empty = o == -1
+        base = torch.maximum(issue[:, j], av)
+        # ACT rate limits per rank (tRRD, tFAW over the 4th-last ACT)
+        ptr = act_ptr[ch, rank].long()
+        oldest = act_hist[ch, rank, ptr]
+        la = last_act[ch, rank]
+        act_floor = torch.maximum(la + tRRD, oldest + tFAW)
+        act = torch.where(
+            empty, torch.maximum(base, act_floor),
+            torch.maximum(torch.maximum(base, at + tRAS) + tRP, act_floor))
+        col = torch.where(hit, base, act + tRCD)
+        fin = torch.maximum(col + tCL, bus_free) + tBL
+        did_act = ~hit & v
+        open_row[ch, b] = torch.where(v & ~hit, r, o)
+        act_time[ch, b] = torch.where(did_act, act, at)
+        bank_avail[ch, b] = torch.where(v, col + tBL, av)
+        bus_free = torch.where(v, fin, bus_free)
+        act_hist[ch, rank, ptr] = torch.where(did_act, act, oldest)
+        act_ptr[ch, rank] = torch.where(
+            did_act, torch.remainder(ptr + 1, 4), ptr).to(act_ptr.dtype)
+        last_act[ch, rank] = torch.where(did_act, act, la)
+        finish[:, j] = torch.where(v, fin, torch.zeros_like(fin))
+        kind[:, j] = torch.where(
+            v, torch.where(hit, 0, torch.where(empty, 1, 2)),
+            -1).to(torch.int8)
+    return finish, kind, (open_row, act_time, bank_avail, bus_free,
+                          act_hist, act_ptr, last_act)
 
 
 def make_serve_step(timing, C: int, B: int, R: int, K: int,

@@ -3,6 +3,7 @@
 >>> from repro_torch.sim import simulate
 >>> r = simulate(g, "wcc", accelerator="hitgraph")            # on the card
 >>> r = simulate(g, "wcc", accelerator="accugraph", device="cpu")
+>>> res = run_dynamic(g, "wcc", updates="pa-growth", device="cpu")
 """
 
 from repro_torch.algorithms.common import Problem
@@ -17,10 +18,13 @@ from repro_torch.sim.registry import (AcceleratorSpec, get_accelerator,
                                       list_accelerators,
                                       register_accelerator)
 from repro_torch.sim.session import SimSession, simulate
+from repro_torch.sim.dynamic import (DynamicResult, DynamicTimeline,
+                                     EpochReport, run_dynamic)
 
 __all__ = [
     "Problem", "SimReport", "PhaseStats", "UnknownPresetError",
     "simulate", "SimSession",
+    "run_dynamic", "DynamicTimeline", "EpochReport", "DynamicResult",
     "AcceleratorSpec", "register_accelerator", "get_accelerator",
     "list_accelerators",
     "MemoryConfig", "MEMORY_PRESETS", "resolve_memory", "resolve_cache",

@@ -9,6 +9,8 @@ drive a model generically:
 * ``run_algorithm``   — produce the per-iteration :class:`RunResult` the
   trace generation consumes;
 * ``algorithm_key``   — hashable identity of that run, for deduplication;
+* ``incremental_run`` — the warm-started repair after an update batch
+  (the dynamic-graph path);
 * ``variants``        — named optimization-variant config overrides.
 """
 
@@ -88,6 +90,16 @@ class AcceleratorSpec:
                       fixed_iters: Optional[int] = None) -> Hashable:
         """Cache key identifying :meth:`run_algorithm`'s inputs."""
         raise NotImplementedError
+
+    def incremental_run(self, g_old: Graph, g_new: Graph, batch,
+                        problem: Problem, old_values, config,
+                        root: int = 0, plan=None,
+                        device=None) -> RunResult:
+        """Repair ``old_values`` (converged on ``g_old``) after ``batch``
+        took the graph to ``g_new``; bit-identical to
+        :meth:`run_algorithm` on ``g_new``."""
+        raise NotImplementedError(
+            f"accelerator {self.name!r} has no incremental variant")
 
     # -- simulation -----------------------------------------------------
     def preferred_backend(self) -> str:

@@ -8,10 +8,14 @@ runs on the card unless ``device`` says otherwise.
 :class:`SimSession` binds a graph and caches, across repeated calls,
 **algorithm runs** by ``spec.algorithm_key`` and **models** (edge sorts,
 layout, static streams) by config with the DRAM device reduced to its
-structure and clock.  Both caches are single-flight and thread-safe.
+structure and clock.  Both caches are single-flight and thread-safe; a
+session rebinds to a mutated graph (:meth:`SimSession.rebind`) on the
+dynamic-graph path.
 
-Not in this slice (each raises and names ROADMAP.md): ``cache=``,
-``updates=``, ``backend="event"``, corpus preset names and
+``simulate(..., updates=...)`` runs a dynamic-graph update stream through
+:func:`repro_torch.sim.dynamic.run_dynamic` and returns its aggregate
+report.  Not in this slice (each raises and names ROADMAP.md):
+``cache=``, ``backend="event"``, corpus preset names and
 ``ScenarioSpec`` as the graph argument.
 """
 
@@ -48,6 +52,15 @@ def resolve_run_config(spec, config=None, memory: MemoryLike = None,
     return spec.apply_variant(cfg, variant)
 
 
+def _check_graph(graph) -> Graph:
+    if not isinstance(graph, Graph):
+        raise TypeError(
+            f"SimSession takes a Graph, got {type(graph).__name__}; "
+            "corpus preset names come with a later slice (see "
+            "ROADMAP.md)")
+    return graph
+
+
 def _dram_cfg_key(spec_name: str, config):
     """Cache key for state that depends on the config and the DRAM
     *structure + clock* but not its timing; ``None`` when the config has
@@ -74,15 +87,12 @@ class SimSession:
     """
 
     def __init__(self, graph: Graph):
-        if not isinstance(graph, Graph):
-            raise TypeError(
-                f"SimSession takes a Graph, got {type(graph).__name__}; "
-                "corpus preset names come with a later slice (see "
-                "ROADMAP.md)")
-        self.graph = graph
+        self.graph = _check_graph(graph)
         self._lock = threading.Lock()
         self._runs: Dict[object, Future] = {}
         self._models: Dict[object, Future] = {}
+        self.invalidations = 0
+        self.invalidation_skips = 0
 
     def _singleflight(self, cache: Dict[object, Future], key, build):
         """Get-or-build ``cache[key]``: exactly one thread runs
@@ -125,6 +135,30 @@ class SimSession:
             lambda: spec.run_algorithm(self.graph, problem, config,
                                        root=root, fixed_iters=fixed_iters,
                                        device=device))
+
+    def invalidate(self, touched_partitions) -> int:
+        """Invalidate the session's run and model caches after the bound
+        graph mutated, keyed by which partitions actually changed: an
+        empty ``touched_partitions`` is a guaranteed no-op (every cached
+        entry stays), a non-empty one drops all entries (they are
+        whole-graph artifacts).  Returns the number of entries dropped."""
+        with self._lock:
+            if len(touched_partitions) == 0:
+                self.invalidation_skips += 1
+                return 0
+            dropped = len(self._runs) + len(self._models)
+            self._runs.clear()
+            self._models.clear()
+            self.invalidations += 1
+        return dropped
+
+    def rebind(self, graph: Graph, touched_partitions) -> int:
+        """Swap the resident graph (a long-lived session whose graph
+        evolves in place) and invalidate accordingly.  Returns the number
+        of cache entries dropped."""
+        dropped = self.invalidate(touched_partitions)
+        self.graph = _check_graph(graph)
+        return dropped
 
     def run(self, problem, accelerator: str = "hitgraph", *,
             config=None, memory: MemoryLike = None, cache=None,
@@ -174,21 +208,28 @@ def simulate(graph: Graph, problem=None,
                   name (``"ddr3"``, ``"ddr4-8gb"``, ``"hbm2"``...), a
                   :class:`MemoryConfig`, or a raw :class:`DRAMConfig`.
     variant:      named optimization variant of the accelerator.
+    updates:      dynamic-graph mutation stream (``None`` = static, or
+                  an ``UPDATE_PRESETS`` name / ``UpdateStream``): the run
+                  goes through :func:`repro_torch.sim.dynamic.run_dynamic`
+                  and returns its aggregate report over all epochs.
     device:       where the algorithm engine and the DRAM serve run:
                   ``None`` means the card (raises without CUDA);
                   ``"cpu"`` runs the plain versions on the host.
-    cache, updates, backend="event":
+    cache, backend="event":
                   not ported yet; they raise ``NotImplementedError``.
     """
-    if updates is not None:
-        raise NotImplementedError(
-            "dynamic update streams (updates=) are not ported yet; see "
-            "ROADMAP.md")
     if problem is None:
         raise TypeError("simulate() needs a problem")
     resolve_cache(cache)
     device = resolve_device(device)
     cfg = resolve_partitioned_config(config, graph)
+    if updates is not None:
+        from repro_torch.sim.dynamic import run_dynamic
+        return run_dynamic(
+            graph, problem, updates=updates, accelerator=accelerator,
+            config=cfg, memory=memory, backend=backend, variant=variant,
+            root=root, fixed_iters=fixed_iters, device=device,
+            **overrides).report
     return SimSession(graph).run(
         problem, accelerator, config=cfg, memory=memory,
         backend=backend, variant=variant, root=root,

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 from typing import Optional
 
-from repro_torch.algorithms import edge_centric, vertex_centric
+from repro_torch.algorithms import edge_centric, incremental, vertex_centric
 from repro_torch.algorithms.common import Problem, RunResult
 from repro_torch.core import accugraph, hitgraph
 from repro_torch.graphs.formats import Graph
@@ -44,6 +44,13 @@ class HitGraphSpec(AcceleratorSpec):
     def algorithm_key(self, g, problem: Problem, config, root: int = 0,
                       fixed_iters: Optional[int] = None):
         return ("edge", _graph_key(g), problem, root, fixed_iters)
+
+    def incremental_run(self, g_old, g_new, batch, problem: Problem,
+                        old_values, config, root: int = 0, plan=None,
+                        device=None) -> RunResult:
+        return incremental.run_incremental(
+            g_old, g_new, batch, problem, old_values, engine="edge",
+            root=root, plan=plan, device=device)
 
     def variants(self):
         return {
@@ -80,6 +87,15 @@ class AccuGraphSpec(AcceleratorSpec):
                       fixed_iters: Optional[int] = None):
         return ("vertex", _graph_key(g), problem, self._q(g, config),
                 config.partition_skipping, root, fixed_iters)
+
+    def incremental_run(self, g_old, g_new, batch, problem: Problem,
+                        old_values, config, root: int = 0, plan=None,
+                        device=None) -> RunResult:
+        return incremental.run_incremental(
+            g_old, g_new, batch, problem, old_values, engine="vertex",
+            root=root, q=self._q(g_new, config),
+            block_skipping=config.partition_skipping, plan=plan,
+            device=device)
 
     def variants(self):
         from repro_torch.core.dram import hbm2

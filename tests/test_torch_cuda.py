@@ -10,13 +10,14 @@ import pytest
 import torch
 
 from repro_torch.core import accel, vectorized as vec
-from repro_torch.core.dram import PRESETS
-from repro_torch.core.trace import SegmentedTrace
+from repro_torch.core.dram import PRESETS, ddr4_2400r
+from repro_torch.core.trace import SegmentedTrace, Trace
 from repro_torch.graphs.generators import rmat
-from repro_torch.kernels.dram_timing.ops import dram_serve
-from repro_torch.kernels.dram_timing.ref import dram_serve_ref
+from repro_torch.kernels.dram_timing.ops import dram_serve, dram_timing
+from repro_torch.kernels.dram_timing.ref import (dram_serve_ref,
+                                                 dram_timing_ref)
 from repro_torch.kernels.sweep_min.ops import sweep_min, sweep_min_ref
-from repro_torch.sim import simulate
+from repro_torch.sim import run_dynamic, simulate
 
 pytestmark = pytest.mark.cuda
 
@@ -84,3 +85,62 @@ def test_simulate_on_card_equals_cpu(cuda, accelerator):
     b = simulate(g, "wcc", accelerator=accelerator, partition_elements=64,
                  device="cpu")
     assert a == b
+
+
+def _channel_streams(cfg, seed, n=3000, span=1 << 16, bulk=False):
+    """Per-channel streams of a random trace; ``bulk`` issues every
+    request at cycle 0 over many rows, so the ACT window (tFAW) binds."""
+    rng = np.random.default_rng(seed)
+    lines = rng.integers(0, span, n)
+    issue = (np.zeros(n, dtype=np.int64) if bulk
+             else np.sort(rng.integers(0, 4 * n, n)))
+    return vec.pack_channels(Trace(lines, np.zeros(n, bool), issue), cfg)
+
+
+@pytest.mark.parametrize("memory", ["ddr3", "ddr4", "hbm2", "ddr4-2rank",
+                                    "ddr4-faw"])
+def test_dram_timing_kernel_equals_plain(cuda, memory):
+    """Kernel against plain on the card, bit for bit, with the carry
+    chained across two kernel calls; ``ddr4-faw`` trips the tFAW
+    window."""
+    cfg = {"ddr3": PRESETS["hitgraph"], "ddr4": PRESETS["accugraph"],
+           "hbm2": PRESETS["hbm2"],
+           "ddr4-2rank": lambda: ddr4_2400r(channels=2, ranks=2),
+           "ddr4-faw": PRESETS["accugraph"]}[memory]()
+    packed = _channel_streams(cfg, seed=len(memory),
+                              bulk=memory == "ddr4-faw",
+                              span=1 << 24 if memory == "ddr4-faw"
+                              else 1 << 16)
+    args = [torch.as_tensor(a, device=cuda) for a in
+            (packed.issue, packed.bank, packed.row, packed.valid)]
+    timing = torch.as_tensor(vec.timing_params(cfg.timing), device=cuda)
+    carry = vec.init_channel_carry(cfg.channels, cfg.banks_per_channel,
+                                   cfg.org.banks, cuda)
+    h = packed.issue.shape[1] // 2
+    before = dram_timing.launches
+    fins, kinds, st = [], [], carry
+    for lo, hi in ((0, h), (h, packed.issue.shape[1])):
+        f, k, st = dram_timing(*(a[:, lo:hi].contiguous() for a in args),
+                               timing, st)
+        fins.append(f)
+        kinds.append(k)
+    torch.cuda.synchronize()
+    assert dram_timing.launches == before + 2
+    fin_p, kind_p, st_p = dram_timing_ref(*args, timing, carry)
+    assert torch.equal(torch.cat(fins, 1), fin_p)
+    assert torch.equal(torch.cat(kinds, 1), kind_p)
+    for a, b in zip(st, st_p):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("accelerator", ["hitgraph", "accugraph"])
+def test_run_dynamic_on_card_equals_cpu(cuda, accelerator):
+    g = rmat(8, 5, seed=102).undirected_view()
+    kw = dict(updates="uniform-churn", accelerator=accelerator,
+              partition_elements=64)
+    a = run_dynamic(g, "wcc", verify=True, **kw)
+    b = run_dynamic(g, "wcc", device="cpu", **kw)
+    assert a.epochs == b.epochs and a.report == b.report
+    assert np.array_equal(a.final_values, b.final_values)
+    assert all(ep.report.kernel_launches.get("dram_timing", 0) == 1
+               for ep in a.epochs[1:])

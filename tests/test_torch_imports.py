@@ -23,7 +23,14 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith("jax.") or m == "jaxlib"
              or m == "repro" or m.startswith("repro."))
 print(len(names), bad)
+print(" ".join(names))
 """
+
+#: the modules of the dynamic-graph slice, which the probe must reach
+_DYNAMIC_MODULES = {"repro_torch.graphs.updates",
+                    "repro_torch.algorithms.incremental",
+                    "repro_torch.core.delta", "repro_torch.sim.dynamic",
+                    "repro_torch.kernels.dram_timing.ops"}
 
 #: an import statement naming jax or the JAX package (not repro_torch)
 _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
@@ -36,9 +43,11 @@ def test_import_leaves_jax_and_repro_out():
                          capture_output=True, text=True, timeout=300,
                          cwd=str(ROOT))
     assert out.returncode == 0, out.stderr
-    n, bad = out.stdout.strip().split(" ", 1)
-    assert int(n) >= 20
+    counts, names = out.stdout.strip().split("\n")
+    n, bad = counts.split(" ", 1)
+    assert int(n) >= 24
     assert bad == "[]", bad
+    assert _DYNAMIC_MODULES <= set(names.split()), names
 
 
 def test_no_jax_or_repro_import_in_sources():
@@ -53,7 +62,7 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     from repro_torch.core.accel import VectorizedDRAM
     from repro_torch.core.dram import ddr4_2400r
     from repro_torch.graphs.generators import rmat
-    from repro_torch.sim import SimSession, simulate
+    from repro_torch.sim import SimSession, run_dynamic, simulate
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     g = rmat(5, 2, seed=0).undirected_view()
@@ -65,22 +74,26 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         SimSession(g).run("bfs", "hitgraph")
     with pytest.raises(RuntimeError, match="CUDA"):
         VectorizedDRAM(ddr4_2400r())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_dynamic(g, "wcc", updates="pa-growth")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        simulate(g, "bfs", updates="uniform-churn")
 
 
 def test_later_slices_raise_not_implemented():
-    from repro_torch.core.accel import VectorizedDRAM
-    from repro_torch.core.dram import ddr4_2400r
-    from repro_torch.core.trace import Trace
     from repro_torch.graphs.generators import rmat
-    from repro_torch.sim import simulate
+    from repro_torch.sim import run_dynamic, simulate
 
     g = rmat(5, 2, seed=0).undirected_view()
-    for kw in ({"cache": "vertex-1m"}, {"updates": "pa-growth"},
-               {"backend": "event"}):
+    for kw in ({"cache": "vertex-1m"}, {"backend": "event"},
+               {"cache": "vertex-1m", "updates": "pa-growth"},
+               {"backend": "event", "updates": "pa-growth"}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             simulate(g, "wcc", device="cpu", **kw)
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        VectorizedDRAM(ddr4_2400r(), device="cpu").run_phase(
-            Trace([1], [False], [0]))
+        run_dynamic(g, "wcc", updates="pa-growth", cache="default",
+                    device="cpu")
     with pytest.raises(TypeError):
         simulate("karate", "wcc", device="cpu")
+    with pytest.raises(TypeError):
+        run_dynamic("karate", "wcc", updates="pa-growth", device="cpu")
