@@ -8,12 +8,16 @@ Phases, one JSON line each:
 1. device   — require CUDA; report the card (``nvidia-smi``).
 2. build    — compile ``src/repro_torch/csrc/*.cu`` with nvcc (sm_90a).
 3. kernels  — each CUDA kernel against its plain PyTorch version on the
-              card, bit for bit: ``dram_serve`` on seeded random programs
-              (4 memories x block widths K=1/8, carry chained across two
-              calls), ``dram_timing`` on seeded random traces (DDR3, DDR4,
-              HBM2, a 2-rank DDR4, and one bulk trace that trips the tFAW
-              window; carry chained across two calls) and ``sweep_min``
-              on a random graph.
+              card: ``dram_serve`` on seeded random programs (4 memories x
+              block widths K=1/8, carry chained across two calls),
+              ``dram_timing`` on seeded random traces (DDR3, DDR4, HBM2, a
+              2-rank DDR4, and one bulk trace that trips the tFAW window;
+              carry chained across two calls) and ``sweep_min`` on a random
+              graph, bit for bit; ``segment_reduce`` (sum/min/max in f32,
+              sum in bf16), ``edge_scatter`` (copy/add/mul) and
+              ``spmv_ell`` (every lane-group width, one warp a row, rows
+              split over blocks) on seeded cases with out-of-range ids, to
+              the stated tolerances.
 4. goldens  — the 20 rmat7/rmat8 HitGraph/AccuGraph keys of
               ``tests/goldens/simreports.json`` through ``simulate`` on
               the card.
@@ -29,13 +33,21 @@ Phases, one JSON line each:
               AccuGraph WCC under ``pa-growth`` (3 epochs), sharing the
               main path's sessions, with the launch counts zeroed just
               before and read just after; one row per epoch.
-7. compare  — every kernel against its plain version on the paths' own
+7. stationary — the stationary path at full size on the same graph and
+              sessions: PR and SpMV with ``fixed_iters=3`` on HitGraph
+              (``edge_scatter`` + ``segment_reduce`` a step) and AccuGraph
+              (``spmv_ell`` a degree bucket), launch counts zeroed just
+              before each run; values held to a float64 recompute, PR's
+              report to SpMV's.
+8. compare  — every kernel against its plain version on the paths' own
               inputs: a window of each packed wiki-talk program that
               crosses a phase boundary (served as two chained kernel
-              calls), one full sweep of the AccuGraph block, and a window
-              of the HitGraph ``ep1_apply`` phase's per-channel streams
-              (two chained kernel calls); kernel and plain times on the
-              same inputs.
+              calls), one full sweep of the AccuGraph block, a window of
+              the HitGraph ``ep1_apply`` phase's per-channel streams (two
+              chained kernel calls), and the full-size PR scatter, gather
+              and bucketed pull; kernel and plain times on the same
+              inputs, and one PyTorch call's time where one computes the
+              same function.
 
 Then the kernel table, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -76,7 +88,17 @@ DYNAMIC_PINNED = {
     "accugraph": [(5, 4_958_483), (4, 4_565_454), (5, 5_582_023),
                   (4, 4_695_464)],
 }
-KERNELS = ("dram_serve", "dram_timing", "sweep_min")
+KERNELS = ("dram_serve", "dram_timing", "sweep_min", "segment_reduce",
+           "edge_scatter", "spmv_ell")
+
+#: the stationary path: problems, iterations, and the largest relative
+#: error of the values against a float64 recompute.  HitGraph's gather
+#: sums in float64; AccuGraph's pull sums each row in float32 over at most
+#: 128 slots a lane and the hub's row over 512 chunk sums, whose rounding
+#: drifts by at most ~3e-5, compounded over 3 iterations.
+STATIONARY = ("pr", "spmv")
+STATIONARY_ITERS = 3
+STATIONARY_RTOL = 1e-3
 
 
 def emit(**kw) -> None:
@@ -109,10 +131,14 @@ def max_abs_diff(a, b) -> int:
 
 def cuda_ms(fn, reps: int) -> float:
     """Mean CUDA-event time of ``fn`` over ``reps`` runs, after one
-    warm-up run."""
+    warm-up run.  A sleep kernel keeps the stream busy while the runs are
+    enqueued, so host overhead between short launches does not show as
+    idle time between the events."""
     fn()
+    torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)
     start.record()
     for _ in range(reps):
         fn()
@@ -213,11 +239,254 @@ def check_dram_timing(dev) -> dict:
             "dram_timing_max_abs_diff": worst, "faw_window_binds": True}
 
 
-def zero_launches() -> None:
-    from repro_torch.kernels.dram_timing.ops import dram_serve, dram_timing
-    from repro_torch.kernels.sweep_min.ops import sweep_min
-    for fn in (dram_serve, dram_timing, sweep_min):
-        fn.launches = 0
+def max_rel_err(got, want) -> float:
+    """Largest ``|got - want| / |want|`` over ``want != 0``; where
+    ``want`` is 0, ``got`` must be 0 too."""
+    got = np.asarray(got, dtype=np.float64)
+    want = np.asarray(want, dtype=np.float64)
+    assert np.all(np.isfinite(got)), "non-finite values"
+    zero = want == 0
+    assert np.all(got[zero] == 0), "a value with no contribution is not 0"
+    if zero.all():
+        return 0.0
+    return float(np.max(np.abs(got[~zero] - want[~zero])
+                        / np.abs(want[~zero])))
+
+
+def close(a, b, rtol, atol) -> float:
+    """Max absolute difference of two tensors; asserts ``|a - b| <= atol
+    + rtol * |b|`` elementwise (exactly equal when both are 0)."""
+    a, b = a.float(), b.float()
+    if rtol == 0 and atol == 0:
+        assert torch.equal(a, b), "kernel differs from its plain version"
+    else:
+        assert torch.allclose(a, b, rtol=rtol, atol=atol), (
+            "kernel differs from its plain version beyond the tolerance")
+    return float((a - b).abs().max()) if a.numel() else 0.0
+
+
+def check_stationary_kernels(dev) -> dict:
+    """``segment_reduce``, ``edge_scatter`` and ``spmv_ell`` against their
+    plain versions on seeded cases at the shapes of the JAX package's
+    kernel tests (plus wide ELL rows), with out-of-range ids and padding
+    slots that carry nonzero values.  Tolerances: min/max and the
+    scatter exact; f32 sums rtol 1e-5 / atol 1e-4; bf16 sums 5e-2."""
+    from repro_torch.kernels.edge_scatter.ops import edge_scatter
+    from repro_torch.kernels.edge_scatter.ref import edge_scatter_ref
+    from repro_torch.kernels.segment_reduce.ops import segment_reduce
+    from repro_torch.kernels.segment_reduce.ref import segment_reduce_ref
+    from repro_torch.kernels.spmv_ell.ops import spmv_ell
+    from repro_torch.kernels.spmv_ell.ref import spmv_ell_ref
+    tol = {("sum", torch.float32): (1e-5, 1e-4),
+           ("sum", torch.bfloat16): (5e-2, 5e-2),
+           ("min", torch.float32): (0, 0), ("max", torch.float32): (0, 0)}
+    worst = {"segment_reduce": 0.0, "edge_scatter": 0.0, "spmv_ell": 0.0}
+    cases = {name: 0 for name in worst}
+    for m, n, d in ((1000, 300, 1), (513, 128, 4), (128, 700, 2)):
+        rng = np.random.default_rng(m + n)
+        ids = i32(rng.integers(-2, n + 2, m), dev)
+        vals = torch.as_tensor(rng.normal(size=(m, d)).astype(np.float32),
+                               device=dev)
+        if d == 1:
+            vals = vals[:, 0].contiguous()
+        for (op, dtype), (rtol, atol) in tol.items():
+            v = vals.to(dtype)
+            worst["segment_reduce"] = max(worst["segment_reduce"], close(
+                segment_reduce(ids, v, n, op),
+                segment_reduce_ref(ids, v, n, op), rtol, atol))
+            cases["segment_reduce"] += 1
+    for m, q in ((500, 256), (128, 1000), (77, 33)):
+        rng = np.random.default_rng(m + q)
+        args = (i32(rng.integers(-2, q + 3, m), dev),
+                torch.as_tensor(rng.normal(size=m).astype(np.float32),
+                                device=dev),
+                torch.as_tensor(rng.normal(size=q).astype(np.float32),
+                                device=dev),
+                torch.as_tensor((rng.random(q) < 0.5).astype(np.float32),
+                                device=dev))
+        for op in ("copy", "add", "mul"):
+            got, want = edge_scatter(*args, op), edge_scatter_ref(*args, op)
+            worst["edge_scatter"] = max(worst["edge_scatter"],
+                                        close(got[0], want[0], 0, 0),
+                                        close(got[1], want[1], 0, 0))
+            cases["edge_scatter"] += 1
+    for n, k, nx in ((256, 4, 256), (100, 7, 333), (513, 2, 128),
+                     (1000, 1, 500), (300, 16, 900), (70, 33, 400),
+                     (5, 1000, 3000), (3, 9000, 5000)):
+        rng = np.random.default_rng(n * 7 + k)
+        cols = rng.integers(0, nx, (n, k)).astype(np.int32)
+        pad = rng.random((n, k)) < 0.2
+        cols[pad] = rng.choice([nx, nx + 7, -1], size=int(pad.sum()))
+        args = (i32(cols, dev),
+                torch.as_tensor(rng.normal(size=(n, k)).astype(np.float32),
+                                device=dev),
+                torch.as_tensor(rng.normal(size=nx).astype(np.float32),
+                                device=dev))
+        worst["spmv_ell"] = max(worst["spmv_ell"], close(
+            spmv_ell(*args), spmv_ell_ref(*args), 1e-5, 1e-4))
+        cases["spmv_ell"] += 1
+    torch.cuda.synchronize()
+    return {f"{name}_cases": cases[name] for name in worst} | {
+        f"{name}_max_abs_diff": worst[name] for name in worst}
+
+
+def stationary_f64(g, problem: str, iters: int) -> np.ndarray:
+    """PR / SpMV (unit weights) recomputed in float64 with NumPy."""
+    n = g.n
+    if problem == "pr":
+        inv = 1.0 / np.maximum(g.out_degrees(), 1)
+        x = np.full(n, 1.0 / n)
+    else:
+        x = np.ones(n)
+    for _ in range(iters):
+        contrib = x[g.src] * inv[g.src] if problem == "pr" else x[g.src]
+        acc = np.bincount(g.dst, weights=contrib, minlength=n)
+        x = (1.0 - 0.85) / n + 0.85 * acc if problem == "pr" else acc
+    return x
+
+
+def run_stationary_path(wt, sessions, card, dev):
+    """PR and SpMV at full size on both accelerators through
+    ``SimSession.run``, reusing the main path's sessions (the models are
+    not rebuilt); launch counts zeroed just before each run.  Returns
+    the path's total launches by kernel and the runs, by (accelerator,
+    problem)."""
+    from repro_torch.algorithms.common import Problem
+    from repro_torch.kernels import launch_counts, zero_launch_counts
+    from repro_torch.sim import get_accelerator
+    from repro_torch.sim.session import resolve_run_config
+    total = {name: 0 for name in KERNELS}
+    runs, reports = {}, {}
+    for acc in ("hitgraph", "accugraph"):
+        spec = get_accelerator(acc)
+        cfg = resolve_run_config(spec)
+        for prob in STATIONARY:
+            zero_launch_counts()
+            t0 = time.perf_counter()
+            r = sessions[acc].run(prob, acc, fixed_iters=STATIONARY_ITERS)
+            seconds = time.perf_counter() - t0
+            counts = launch_counts()
+            for name in KERNELS:
+                total[name] += counts[name]
+            run = sessions[acc].algorithm_run(spec, Problem(prob), cfg, 0,
+                                              STATIONARY_ITERS, dev)
+            assert run.values.shape == (wt.n,)
+            err = max_rel_err(run.values,
+                              stationary_f64(wt, prob, STATIONARY_ITERS))
+            emit(phase="stationary", accelerator=acc, problem=prob,
+                 memory=cfg.dram_config().name, iterations=r.iterations,
+                 requests=r.total_requests, runtime_ns=r.runtime_ns,
+                 row_hit_rate=r.row_hit_rate, max_rel_err=err,
+                 tolerance=STATIONARY_RTOL,
+                 kernel_launches={k: counts[k] for k in KERNELS},
+                 stage_seconds=r.stage_seconds, seconds=seconds, card=card)
+            assert err <= STATIONARY_RTOL, (acc, prob, err)
+            assert r.iterations == STATIONARY_ITERS, r.iterations
+            assert np.isfinite(r.runtime_ns) and r.runtime_ns > 0
+            assert counts["dram_serve"] > 0
+            need = (("edge_scatter", "segment_reduce") if acc == "hitgraph"
+                    else ("spmv_ell",))
+            for name in need:
+                assert counts[name] > 0, (
+                    f"{name} was never launched on {acc} {prob}")
+            runs[acc, prob], reports[acc, prob] = run, r
+        pr, spmv = reports[acc, "pr"], reports[acc, "spmv"]
+        assert dataclasses.replace(pr, problem="spmv") == spmv, (
+            f"{acc}: PR's report differs from SpMV's beyond `problem`")
+    return total, runs
+
+
+def compare_stationary(wt, runs, dev) -> dict:
+    """The three stationary kernels against their plain versions on the
+    path's own full-size PR inputs (HitGraph's edge arrays and per-edge
+    factor, AccuGraph's degree buckets, each with its run's PR values),
+    with the kernel's, the plain version's and one PyTorch call's device
+    time, and the byte bound."""
+    from repro_torch.algorithms.common import Problem, stationary_inputs
+    from repro_torch.kernels.edge_scatter.ops import edge_scatter
+    from repro_torch.kernels.edge_scatter.ref import edge_scatter_ref
+    from repro_torch.kernels.segment_reduce.ops import segment_reduce
+    from repro_torch.kernels.segment_reduce.ref import segment_reduce_ref
+    from repro_torch.kernels.spmv_ell.ops import pack_in_edges, spmv_ell
+    from repro_torch.kernels.spmv_ell.ref import spmv_ell_ref
+    n, m = wt.n, wt.m
+    w_np, _ = stationary_inputs(wt, Problem.PR)
+    src, dst = i32(wt.src, dev), i32(wt.dst, dev)
+    w = torch.as_tensor(w_np, device=dev)
+    ones = torch.ones(n, dtype=torch.float32, device=dev)
+    out = {}
+
+    # HitGraph's scatter: values[src] * w
+    x = torch.as_tensor(runs["hitgraph", "pr"].values, device=dev)
+    upd, valid = edge_scatter(src, w, x, ones, "mul")
+    upd_p, valid_p = edge_scatter_ref(src, w, x, ones, "mul")
+    err = max(close(upd, upd_p, 0, 0), close(valid, valid_p, 0, 0))
+    out["edge_scatter"] = {
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: edge_scatter(src, w, x, ones, "mul"), 20),
+        "plain_ms": cuda_ms(
+            lambda: edge_scatter_ref(src, w, x, ones, "mul"), 5),
+        "library_ms": cuda_ms(lambda: x.index_select(0, src) * w, 20),
+        "library_call": "values.index_select(0, src) * w",
+        "bound_ms": (16 * m + 8 * n) / HBM_BYTES_PER_S * 1e3,
+        "shape": {"edges": m, "vertices": n}}
+
+    # HitGraph's gather: the updates summed onto their destinations
+    acc = segment_reduce(dst, upd, n, "sum")
+    acc_p = segment_reduce_ref(dst, upd, n, "sum")
+    rel = max_rel_err(acc.cpu().numpy(), acc_p.cpu().numpy())
+    assert rel <= STATIONARY_RTOL, f"segment_reduce at full size: {rel}"
+    lib_acc = torch.zeros(n, dtype=torch.float32, device=dev)
+    out["segment_reduce"] = {
+        "max_abs_err": float((acc - acc_p).abs().max()),
+        "max_rel_err": rel,
+        "ms": cuda_ms(lambda: segment_reduce(dst, upd, n, "sum"), 10),
+        "plain_ms": cuda_ms(
+            lambda: segment_reduce_ref(dst, upd, n, "sum"), 5),
+        "library_ms": cuda_ms(
+            lambda: lib_acc.index_add_(0, dst, upd), 10),
+        "library_call": "out.index_add_(0, dst, upd)",
+        "bound_ms": (8 * m + 4 * n) / HBM_BYTES_PER_S * 1e3,
+        "shape": {"updates": m, "segments": n,
+                  "largest_segment": int(wt.in_degrees().max())}}
+    del upd, valid, upd_p, valid_p, acc, acc_p
+
+    # AccuGraph's pull: one launch per in-degree bucket
+    x = torch.as_tensor(runs["accugraph", "pr"].values, device=dev)
+    buckets = [(torch.as_tensor(b.rows, device=dev),
+                torch.as_tensor(b.cols, device=dev),
+                torch.as_tensor(b.vals, device=dev))
+               for b in pack_in_edges(wt.src, wt.dst, n, w_np)]
+    y = torch.zeros(n, dtype=torch.float32, device=dev)
+    y_p = torch.zeros(n, dtype=torch.float32, device=dev)
+    for rows, cols, vals in buckets:
+        y[rows] = spmv_ell(cols, vals, x)
+        y_p[rows] = spmv_ell_ref(cols, vals, x)
+    rel = max_rel_err(y.cpu().numpy(), y_p.cpu().numpy())
+    assert rel <= STATIONARY_RTOL, f"spmv_ell at full size: {rel}"
+    order = np.argsort(wt.dst, kind="stable")
+    crow = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(np.bincount(wt.dst, minlength=n), out=crow[1:])
+    a = torch.sparse_csr_tensor(
+        torch.as_tensor(crow, device=dev),
+        torch.as_tensor(wt.src[order], device=dev),
+        torch.as_tensor(w_np[order], device=dev), size=(n, n))
+    slots = sum(int(c.numel()) for _, c, _ in buckets)
+    rows_total = sum(int(r.numel()) for r, _, _ in buckets)
+    out["spmv_ell"] = {
+        "max_abs_err": float((y - y_p).abs().max()), "max_rel_err": rel,
+        "ms": cuda_ms(lambda: [spmv_ell(c, v, x)
+                                 for _, c, v in buckets], 20),
+        "plain_ms": cuda_ms(lambda: [spmv_ell_ref(c, v, x)
+                                       for _, c, v in buckets], 3),
+        "library_ms": cuda_ms(lambda: a @ x, 20),
+        "library_call": "torch.sparse_csr_tensor(in-edges) @ x",
+        "bound_ms": (8 * slots + 4 * n + 4 * rows_total)
+        / HBM_BYTES_PER_S * 1e3,
+        "shape": {"buckets": len(buckets), "slots": slots,
+                  "rows": rows_total, "nnz": m,
+                  "widths": [int(c.shape[1]) for _, c, _ in buckets]}}
+    return out
 
 
 def run_dynamic_path(wt, acc, session, main_report, card):
@@ -373,7 +642,7 @@ def main() -> int:
     from repro_torch.core.dram import PRESETS
     from repro_torch.graphs.datasets import instantiate
     from repro_torch.graphs.generators import rmat
-    from repro_torch.kernels import build, launch_counts
+    from repro_torch.kernels import build, launch_counts, zero_launch_counts
     from repro_torch.kernels.dram_timing.ops import dram_serve
     from repro_torch.kernels.sweep_min.ops import sweep_min, sweep_min_ref
     from repro_torch.sim import SimSession, get_accelerator, simulate
@@ -424,6 +693,12 @@ def main() -> int:
          dram_serve_launches=dram_serve.launches - launches0,
          max_abs_diff=worst, sweep_min_max_abs_diff=sweep_worst,
          **check_dram_timing(dev))
+    emit(phase="kernels", kernels=["segment_reduce", "edge_scatter",
+                                   "spmv_ell"],
+         tolerance={"min/max, edge_scatter": "exact",
+                    "f32 sum, spmv_ell": "rtol 1e-5, atol 1e-4",
+                    "bf16 sum": "rtol 5e-2, atol 5e-2"},
+         **check_stationary_kernels(dev))
 
     # ---- 4. goldens on the card ---------------------------------------
     golden = json.loads(
@@ -452,7 +727,7 @@ def main() -> int:
     emit(phase="graph", name=wt.name, vertices=wt.n, edges=wt.m,
          seconds=time.perf_counter() - t0)
     sessions, reports = {}, {}
-    zero_launches()
+    zero_launch_counts()
     for acc in ("hitgraph", "accugraph"):
         sessions[acc] = SimSession(wt)
         t0 = time.perf_counter()
@@ -464,15 +739,19 @@ def main() -> int:
             f"{name} was never launched on the main path")
 
     # ---- 6. the dynamic path at full size -------------------------------
-    zero_launches()
+    zero_launch_counts()
     dyn = {acc: run_dynamic_path(wt, acc, sessions[acc], reports[acc], card)
            for acc in DYNAMIC_CASES}
     launches["dynamic"] = launch_counts()
-    for name in KERNELS:
+    for name in ("dram_serve", "dram_timing", "sweep_min"):
         assert launches["dynamic"][name] > 0, (
             f"{name} was never launched on the dynamic path")
 
-    # ---- 7. kernels vs plain on the paths' inputs ----------------------
+    # ---- 7. the stationary path at full size ----------------------------
+    launches["stationary"], stat_runs = run_stationary_path(
+        wt, sessions, card, dev)
+
+    # ---- 8. kernels vs plain on the paths' inputs ----------------------
     kernels = {}
     for acc in ("hitgraph", "accugraph"):
         sess, r = sessions[acc], reports[acc]
@@ -558,6 +837,7 @@ def main() -> int:
          seconds=time.perf_counter() - t0)
 
     kernels["dram_timing"] = compare_dram_timing(wt, dyn["hitgraph"], dev)
+    kernels.update(compare_stationary(wt, stat_runs, dev))
 
     ds = kernels["dram_serve"]
     hw = ds["windows"]["hitgraph"]
@@ -598,6 +878,25 @@ def main() -> int:
          "inputs": "accugraph main-path block, one sweep",
          "shape": kernels["sweep_min"]["shape"]},
     ]
+    replaces = {"segment_reduce": "segment_reduce/kernel.py:60",
+                "edge_scatter": "edge_scatter/kernel.py:63",
+                "spmv_ell": "spmv_ell/kernel.py:46"}
+    inputs = {"segment_reduce": "hitgraph PR gather, full size",
+              "edge_scatter": "hitgraph PR scatter, full size",
+              "spmv_ell": "accugraph PR pull, all degree buckets"}
+    for name, where in replaces.items():
+        k = kernels[name]
+        table.append({
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/csrc/{name}.cu",
+            "replaces": f"src/repro/kernels/{where}",
+            "launches": launches["stationary"][name],
+            "launches_by_path": by_path[name],
+            "max_abs_err": k["max_abs_err"], "ms": k["ms"],
+            "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
+            "bound_by": "bytes", "library_ms": k["library_ms"],
+            "library_call": k["library_call"], "inputs": inputs[name],
+            "shape": k["shape"], "max_rel_err": k.get("max_rel_err")})
     print(json.dumps({"kernels": table}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

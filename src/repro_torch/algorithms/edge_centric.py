@@ -14,8 +14,12 @@ give the JAX package's values and per-iteration statistics bit for bit.
 A Python driver iterates to convergence and records the statistics the
 accelerator trace models consume.
 
-Only the min-combine problems (WCC, BFS, SSSP) are ported; PR and SpMV
-come with a later slice (see ROADMAP.md).
+The stationary problems (PR, SpMV) run a fixed number of iterations of
+two kernels, on the card and (as their plain versions) on the CPU: the
+scatter ``edge_scatter(op="mul")``, ``values[src] * w``, and the gather
+``segment_reduce(op="sum")`` onto the destinations.  Their float sums
+are taken in another order than the JAX package's, so values agree to a
+tolerance, while the statistics (all-true every iteration) are equal.
 """
 
 from __future__ import annotations
@@ -25,9 +29,12 @@ from typing import Optional
 import numpy as np
 import torch
 
-from repro_torch.algorithms.common import INF32, IterStats, Problem, RunResult
+from repro_torch.algorithms.common import (DAMPING, INF32, IterStats, Problem,
+                                          RunResult, stationary_inputs)
 from repro_torch.device import resolve_device
 from repro_torch.graphs.formats import Graph
+from repro_torch.kernels.edge_scatter.ops import edge_scatter
+from repro_torch.kernels.segment_reduce.ops import segment_reduce
 
 
 def _step_min(values, src, dst, w, active, problem: Problem):
@@ -104,6 +111,28 @@ def _min_run_torch(g: Graph, problem: Problem, w_np: np.ndarray,
     return RunResult(values.cpu().numpy(), it, per_iter)
 
 
+def _stationary_run(g: Graph, problem: Problem, iters: int, device,
+                    x0: Optional[np.ndarray]) -> RunResult:
+    """PR / SpMV: each iteration scatters ``values[src] * w`` over the
+    edges and sums the updates onto their destinations; PR then damps."""
+    n = g.n
+    w_np, values_np = stationary_inputs(g, problem, x0)
+    src = torch.as_tensor(g.src.astype(np.int32), device=device)
+    dst = torch.as_tensor(g.dst.astype(np.int32), device=device)
+    w = torch.as_tensor(w_np, device=device)
+    values = torch.as_tensor(values_np, device=device)
+    ones = torch.ones(n, dtype=torch.float32, device=device)
+    per_iter = []
+    for _ in range(iters):
+        upd, _ = edge_scatter(src, w, values, ones, op="mul")
+        acc = segment_reduce(dst, upd, n, "sum")
+        values = (acc if problem == Problem.SPMV
+                  else (1.0 - DAMPING) / n + DAMPING * acc)
+        per_iter.append(IterStats(active_before=np.ones(n, bool),
+                                  changed=np.ones(n, bool)))
+    return RunResult(values.cpu().numpy(), iters, per_iter)
+
+
 def run(
     g: Graph,
     problem: Problem,
@@ -116,18 +145,20 @@ def run(
 ) -> RunResult:
     """Run ``problem`` edge-centrically to convergence on ``device``
     (default the card); collect per-iteration stats.  ``fixed_iters``
-    applies to the stationary problems only, as in the JAX package.
+    applies to the stationary problems only (default 1), as in the JAX
+    package.
 
-    ``x0`` / ``active0`` warm-start the relaxation (the incremental-update
-    path): iteration proceeds from the given labelling and frontier
-    instead of the static init.  Correctness needs ``L <= x0 <= init``
-    pointwise (see :mod:`repro_torch.algorithms.incremental`), which the
-    repair planner guarantees."""
-    if problem not in (Problem.SSSP, Problem.WCC, Problem.BFS):
-        raise NotImplementedError(
-            f"edge-centric {problem.value} is not ported yet; see "
-            "ROADMAP.md")
+    For the min-combine problems ``x0`` / ``active0`` warm-start the
+    relaxation (the incremental-update path): iteration proceeds from
+    the given labelling and frontier instead of the static init.
+    Correctness needs ``L <= x0 <= init`` pointwise (see
+    :mod:`repro_torch.algorithms.incremental`), which the repair planner
+    guarantees.  For SpMV ``x0`` is the start vector; PR ignores both."""
     device = resolve_device(device)
+    if problem.stationary:
+        return _stationary_run(
+            g, problem, fixed_iters if fixed_iters is not None else 1,
+            device, x0)
     n = g.n
     w_np = np.asarray(
         g.weights if g.weights is not None

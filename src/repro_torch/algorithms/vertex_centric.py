@@ -9,9 +9,13 @@ accumulator.  This is what makes AccuGraph converge in fewer iterations
 than HitGraph (Fig. 12b) — an effect the trace models depend on.
 
 The sweep is :func:`repro_torch.kernels.sweep_min.ops.sweep_min`: a
-one-thread CUDA kernel on the card, a plain loop on the CPU.  Only the
-min-combine problems (WCC, BFS, SSSP) are ported; PR and SpMV come with a
-later slice (see ROADMAP.md).
+one-thread CUDA kernel on the card, a plain loop on the CPU.
+
+Stationary problems (PR, SpMV) use synchronous pull semantics (two value
+arrays), matching the original article's fixed-iteration measurements:
+each iteration is ``y[v] = sum over in-edges u -> v of w * x[u]``, one
+:func:`repro_torch.kernels.spmv_ell.ops.spmv_ell` launch per in-degree
+bucket of the ELL-packed in-edges.
 """
 
 from __future__ import annotations
@@ -21,9 +25,12 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from repro_torch.algorithms.common import INF32, IterStats, Problem, RunResult
+from repro_torch.algorithms.common import (DAMPING, INF32, IterStats, Problem,
+                                          RunResult, stationary_inputs)
 from repro_torch.device import resolve_device
-from repro_torch.graphs.formats import CSRPartitions, Graph
+from repro_torch.graphs.formats import (CSRPartitions, Graph,
+                                        partition_intervals)
+from repro_torch.kernels.spmv_ell.ops import pack_in_edges, spmv_ell
 from repro_torch.kernels.sweep_min.ops import sweep_min
 
 
@@ -34,6 +41,31 @@ def _block_edges(parts: CSRPartitions, k: int):
         np.arange(parts.n, dtype=np.int64), np.diff(blk.pointers)
     )
     return blk.neighbors, dst
+
+
+def _stationary_run(g: Graph, problem: Problem, p: int, iters: int,
+                    device) -> RunResult:
+    """PR / SpMV by pull: each iteration rebuilds ``y`` from the in-edge
+    ELL buckets, one ``spmv_ell`` a bucket; PR then damps.  The JAX
+    package starts SpMV from ones here (it takes no ``x0``)."""
+    n = g.n
+    w, values_np = stationary_inputs(g, problem)
+    buckets = [(torch.as_tensor(b.rows, device=device),
+                torch.as_tensor(b.cols, device=device),
+                torch.as_tensor(b.vals, device=device))
+               for b in pack_in_edges(g.src, g.dst, n, w)]
+    values = torch.as_tensor(values_np, device=device)
+    blocks_all = [np.ones(n, dtype=bool) for _ in range(p)]
+    per_iter: List[IterStats] = []
+    for _ in range(iters):
+        y = torch.zeros(n, dtype=torch.float32, device=device)
+        for rows, cols, vals in buckets:
+            y[rows] = spmv_ell(cols, vals, values)
+        values = (y if problem == Problem.SPMV
+                  else (1.0 - DAMPING) / n + DAMPING * y)
+        per_iter.append(IterStats(np.ones(n, bool), np.ones(n, bool),
+                                  changed_per_block=blocks_all))
+    return RunResult(values.cpu().numpy(), iters, per_iter)
 
 
 def run(
@@ -57,21 +89,24 @@ def run(
     (exact — a clean block admits no relaxation).  Skipped blocks are
     recorded as ``None`` in ``changed_per_block`` so the trace model emits
     no requests for them.  ``fixed_iters`` applies to the stationary
-    problems only, as in the JAX package.
+    problems only (default 1), as in the JAX package; their
+    ``changed_per_block`` is one all-true array per block.
 
     ``x0`` / ``active0`` warm-start the relaxation (the incremental-update
     path): values start from ``x0`` and only blocks containing an
     ``active0`` vertex start dirty.  Correctness needs ``L <= x0 <=
     init`` pointwise (see :mod:`repro_torch.algorithms.incremental`).
     The sweeps of the repair go through the same ``sweep_min`` kernel.
+    The stationary problems ignore ``x0`` and ``active0``, as the JAX
+    package does.
     """
-    if problem not in (Problem.BFS, Problem.WCC, Problem.SSSP):
-        raise NotImplementedError(
-            f"vertex-centric {problem.value} is not ported yet; see "
-            "ROADMAP.md")
     device = resolve_device(device)
     n = g.n
     q = q if q is not None else n
+    if problem.stationary:
+        return _stationary_run(
+            g, problem, len(partition_intervals(n, q)),
+            fixed_iters if fixed_iters is not None else 1, device)
     parts = CSRPartitions.build(g, q)
     per_iter: List[IterStats] = []
     # the JAX package's quirk, kept: SSSP relaxes with +1, not weights

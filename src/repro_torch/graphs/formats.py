@@ -40,6 +40,9 @@ class Graph:
     def m(self) -> int:
         return len(self.src)
 
+    def out_degrees(self) -> np.ndarray:
+        return np.bincount(self.src, minlength=self.n).astype(np.int64)
+
     def in_degrees(self) -> np.ndarray:
         return np.bincount(self.dst, minlength=self.n).astype(np.int64)
 
@@ -87,6 +90,9 @@ class CSR:
         pointers = np.zeros(g.n + 1, dtype=np.int64)
         np.cumsum(counts, out=pointers[1:])
         return CSR(g.n, pointers, neighbors, w)
+
+    def degrees(self) -> np.ndarray:
+        return np.diff(self.pointers)
 
 
 def partition_intervals(n: int, q: int) -> List[Tuple[int, int]]:

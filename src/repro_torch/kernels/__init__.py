@@ -1,13 +1,28 @@
 """Hand-written CUDA kernels (sources in ``repro_torch/csrc``), each with a
 plain PyTorch version beside it and a launch counter on its wrapper."""
 
-from typing import Dict
+from typing import Callable, Dict
+
+
+def wrappers() -> Dict[str, Callable]:
+    """Every kernel wrapper, by kernel name; each counts its launches in
+    ``<wrapper>.launches``."""
+    from repro_torch.kernels.dram_timing.ops import dram_serve, dram_timing
+    from repro_torch.kernels.edge_scatter.ops import edge_scatter
+    from repro_torch.kernels.segment_reduce.ops import segment_reduce
+    from repro_torch.kernels.spmv_ell.ops import spmv_ell
+    from repro_torch.kernels.sweep_min.ops import sweep_min
+    return {"dram_serve": dram_serve, "dram_timing": dram_timing,
+            "sweep_min": sweep_min, "segment_reduce": segment_reduce,
+            "edge_scatter": edge_scatter, "spmv_ell": spmv_ell}
 
 
 def launch_counts() -> Dict[str, int]:
     """The launch counter of every kernel wrapper, by kernel name."""
-    from repro_torch.kernels.dram_timing.ops import dram_serve, dram_timing
-    from repro_torch.kernels.sweep_min.ops import sweep_min
-    return {"dram_serve": dram_serve.launches,
-            "dram_timing": dram_timing.launches,
-            "sweep_min": sweep_min.launches}
+    return {name: fn.launches for name, fn in wrappers().items()}
+
+
+def zero_launch_counts() -> None:
+    """Set every wrapper's launch counter to 0."""
+    for fn in wrappers().values():
+        fn.launches = 0

@@ -42,6 +42,12 @@ SIGNATURES = {
     "repro_dram_timing": ([_P] * 21 + [_I, _L, _I, _I, _I, _P], _I),
     # values, src, dst, m, add, stream
     "repro_sweep_min": ([_P, _P, _P, _L, _I, _P], _I),
+    # ids, values, out, scratch, m, d, num_segments, op, bf16, stream
+    "repro_segment_reduce": ([_P] * 4 + [_L, _I, _I, _I, _I, _P], _I),
+    # src, w, values, active, upd, valid, m, q, op, stream
+    "repro_edge_scatter": ([_P] * 6 + [_L, _I, _I, _P], _I),
+    # cols, vals, x, y, n, k, nx, stream
+    "repro_spmv_ell": ([_P] * 4 + [_L, _I, _I, _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -198,7 +198,8 @@ def simulate(graph: Graph, problem=None,
     Parameters
     ----------
     graph:        a :class:`Graph`.
-    problem:      a :class:`Problem` or its string value (``"wcc"``...).
+    problem:      a :class:`Problem` or its string value (``"wcc"``,
+                  ``"bfs"``, ``"sssp"``, ``"pr"``, ``"spmv"``).
     accelerator:  registered name (``"hitgraph"``, ``"accugraph"``) or an
                   :class:`AcceleratorSpec` instance.
     config:       accelerator config dataclass (defaults per paper Tab. 4);
@@ -208,6 +209,8 @@ def simulate(graph: Graph, problem=None,
                   name (``"ddr3"``, ``"ddr4-8gb"``, ``"hbm2"``...), a
                   :class:`MemoryConfig`, or a raw :class:`DRAMConfig`.
     variant:      named optimization variant of the accelerator.
+    fixed_iters:  iterations of the stationary problems (PR, SpMV);
+                  ``None`` runs one, as the JAX package does.
     updates:      dynamic-graph mutation stream (``None`` = static, or
                   an ``UPDATE_PRESETS`` name / ``UpdateStream``): the run
                   goes through :func:`repro_torch.sim.dynamic.run_dynamic`

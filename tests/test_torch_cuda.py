@@ -16,7 +16,15 @@ from repro_torch.graphs.generators import rmat
 from repro_torch.kernels.dram_timing.ops import dram_serve, dram_timing
 from repro_torch.kernels.dram_timing.ref import (dram_serve_ref,
                                                  dram_timing_ref)
+from repro_torch.kernels.edge_scatter.ops import edge_scatter
+from repro_torch.kernels.edge_scatter.ref import edge_scatter_ref
+from repro_torch.kernels.segment_reduce.ops import segment_reduce
+from repro_torch.kernels.segment_reduce.ref import segment_reduce_ref
+from repro_torch.kernels.spmv_ell.ops import pack_in_edges, spmv_ell
+from repro_torch.kernels.spmv_ell.ref import spmv_ell_ref
 from repro_torch.kernels.sweep_min.ops import sweep_min, sweep_min_ref
+from repro_torch.algorithms import edge_centric, vertex_centric
+from repro_torch.algorithms.common import Problem
 from repro_torch.sim import run_dynamic, simulate
 
 pytestmark = pytest.mark.cuda
@@ -144,3 +152,108 @@ def test_run_dynamic_on_card_equals_cpu(cuda, accelerator):
     assert np.array_equal(a.final_values, b.final_values)
     assert all(ep.report.kernel_launches.get("dram_timing", 0) == 1
                for ep in a.epochs[1:])
+
+
+@pytest.mark.parametrize("op,dtype", [("sum", torch.float32),
+                                      ("min", torch.float32),
+                                      ("max", torch.float32),
+                                      ("sum", torch.bfloat16)])
+@pytest.mark.parametrize("m,n,d", [(1000, 300, 1), (513, 128, 4),
+                                   (128, 700, 2), (200_000, 50, 1)])
+def test_segment_reduce_kernel_equals_plain(cuda, op, dtype, m, n, d):
+    """Sum to the f32/bf16 tolerances of the JAX package's kernel tests,
+    min/max exactly; some ids lie outside [0, n) and match nothing."""
+    rng = np.random.default_rng(m + n)
+    ids = torch.as_tensor(rng.integers(-3, n + 3, m).astype(np.int32),
+                          device=cuda)
+    vals = torch.as_tensor(rng.normal(size=(m, d)).astype(np.float32),
+                           device=cuda).to(dtype)
+    if d == 1:
+        vals = vals[:, 0].contiguous()
+    before = segment_reduce.launches
+    out = segment_reduce(ids, vals, n, op)
+    torch.cuda.synchronize()
+    assert segment_reduce.launches == before + 1
+    ref = segment_reduce_ref(ids, vals, n, op)
+    assert out.dtype == dtype and out.shape == ref.shape
+    if op == "sum":
+        tol = 1e-5 if dtype == torch.float32 else 5e-2
+        atol = 1e-4 if dtype == torch.float32 else 5e-2
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
+                                   atol=atol)
+    else:
+        assert torch.equal(out, ref)
+
+
+@pytest.mark.parametrize("op", ["copy", "add", "mul"])
+@pytest.mark.parametrize("m,q", [(500, 256), (77, 33), (300_000, 1000)])
+def test_edge_scatter_kernel_equals_plain(cuda, op, m, q):
+    """Bit for bit, out-of-range sources included."""
+    rng = np.random.default_rng(m)
+    src = torch.as_tensor(rng.integers(-2, q + 5, m).astype(np.int32),
+                          device=cuda)
+    w = torch.as_tensor(rng.normal(size=m).astype(np.float32), device=cuda)
+    vals = torch.as_tensor(rng.normal(size=q).astype(np.float32),
+                           device=cuda)
+    act = torch.as_tensor((rng.random(q) < 0.5).astype(np.float32),
+                          device=cuda)
+    upd, valid = edge_scatter(src, w, vals, act, op)
+    torch.cuda.synchronize()
+    upd_p, valid_p = edge_scatter_ref(src, w, vals, act, op)
+    assert torch.equal(upd, upd_p) and torch.equal(valid, valid_p)
+
+
+@pytest.mark.parametrize("n,k,nx", [(256, 4, 256), (100, 7, 333),
+                                    (513, 2, 128), (1000, 1, 500),
+                                    (300, 16, 900), (70, 33, 400),
+                                    (5, 1000, 3000), (3, 9000, 5000),
+                                    (4, 0, 10)])
+def test_spmv_ell_kernel_equals_plain(cuda, n, k, nx):
+    """Every lane-group width (k = 1 to 32), one warp a row (k >= 32),
+    rows split over blocks (k >= 4096) and k = 0; padding ids with
+    nonzero values add nothing."""
+    rng = np.random.default_rng(n * 7 + k)
+    cols = rng.integers(0, nx, (n, k)).astype(np.int32)
+    pad = rng.random((n, k)) < 0.2
+    cols[pad] = rng.choice([nx, nx + 7, -1], size=int(pad.sum()))
+    vals = rng.normal(size=(n, k)).astype(np.float32)
+    x = rng.normal(size=nx).astype(np.float32)
+    args = [torch.as_tensor(a, device=cuda) for a in (cols, vals, x)]
+    y = spmv_ell(*args)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(y, spmv_ell_ref(*args), rtol=1e-5,
+                               atol=1e-4)
+
+
+def test_spmv_ell_buckets_equal_dense_on_card(cuda):
+    g = rmat(10, 8, seed=5)
+    w = np.random.default_rng(1).random(g.m).astype(np.float32)
+    x = np.random.default_rng(2).random(g.n).astype(np.float32)
+    y = torch.zeros(g.n, dtype=torch.float32, device=cuda)
+    xt = torch.as_tensor(x, device=cuda)
+    for b in pack_in_edges(g.src, g.dst, g.n, w):
+        y[torch.as_tensor(b.rows, device=cuda)] = spmv_ell(
+            torch.as_tensor(b.cols, device=cuda),
+            torch.as_tensor(b.vals, device=cuda), xt)
+    want = np.zeros(g.n)
+    np.add.at(want, g.dst, w.astype(np.float64) * x[g.src])
+    np.testing.assert_allclose(y.cpu().numpy(), want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("accelerator", ["hitgraph", "accugraph"])
+@pytest.mark.parametrize("problem", ["pr", "spmv"])
+def test_stationary_simulate_on_card_equals_cpu(cuda, accelerator,
+                                                problem):
+    """The report is equal field for field; the values (the engines'
+    float sums, in another order on the card) to rtol 1e-5."""
+    g = rmat(8, 5, seed=102).undirected_view()
+    kw = dict(accelerator=accelerator, partition_elements=64,
+              fixed_iters=3)
+    assert simulate(g, problem, **kw) == simulate(g, problem,
+                                                  device="cpu", **kw)
+    engine = (edge_centric.run if accelerator == "hitgraph"
+              else vertex_centric.run)
+    gw = g.with_unit_weights()
+    a = engine(gw, Problem(problem), fixed_iters=3)
+    b = engine(gw, Problem(problem), fixed_iters=3, device="cpu")
+    np.testing.assert_allclose(a.values, b.values, rtol=1e-5)
