@@ -14,10 +14,12 @@ Phases, one JSON line each:
               2-rank DDR4, and one bulk trace that trips the tFAW window;
               carry chained across two calls) and ``sweep_min`` on a random
               graph, bit for bit; ``segment_reduce`` (sum/min/max in f32,
-              sum in bf16), ``edge_scatter`` (copy/add/mul) and
-              ``spmv_ell`` (every lane-group width, one warp a row, rows
-              split over blocks) on seeded cases with out-of-range ids, to
-              the stated tolerances.
+              sum in bf16; and on run layouts: sorted, unsorted, one
+              run over many tiles, runs ending at thread, warp and tile
+              edges, d = 1 and 3), ``edge_scatter`` (copy/add/mul) and
+              ``spmv_ell`` (the row-major entry point at narrow and wide
+              k; the sliced-ELL pull at three heavy thresholds) on seeded
+              cases with out-of-range ids, to the stated tolerances.
 4. goldens  — the 20 rmat7/rmat8 HitGraph/AccuGraph keys of
               ``tests/goldens/simreports.json`` through ``simulate`` on
               the card.
@@ -35,19 +37,25 @@ Phases, one JSON line each:
               before and read just after; one row per epoch.
 7. stationary — the stationary path at full size on the same graph and
               sessions: PR and SpMV with ``fixed_iters=3`` on HitGraph
-              (``edge_scatter`` + ``segment_reduce`` a step) and AccuGraph
-              (``spmv_ell`` a degree bucket), launch counts zeroed just
-              before each run; values held to a float64 recompute, PR's
-              report to SpMV's.
+              (``edge_scatter`` + ``segment_reduce`` a step over the
+              destination-sorted edges) and AccuGraph (one ``spmv_ell``
+              launch a step over the sliced ELL), launch counts zeroed
+              just before each run and held to one a step; values held
+              to a float64 recompute, PR's report to SpMV's; the time of
+              each engine's set-up (the sort, the packing) beside.
 8. compare  — every kernel against its plain version on the paths' own
               inputs: a window of each packed wiki-talk program that
               crosses a phase boundary (served as two chained kernel
               calls), one full sweep of the AccuGraph block, a window of
               the HitGraph ``ep1_apply`` phase's per-channel streams (two
-              chained kernel calls), and the full-size PR scatter, gather
-              and bucketed pull; kernel and plain times on the same
-              inputs, and one PyTorch call's time where one computes the
-              same function.
+              chained kernel calls), and the full-size PR scatter and
+              gather (destination-sorted, and in raw edge order) and the
+              whole pull step; kernel and plain times on the same
+              inputs, one PyTorch call's time where one computes the
+              same function (the gather also beside
+              ``torch.segment_reduce``), and the pull's bound over the
+              edges beside the bound over the slots of the per-bucket
+              layout it ran on before.
 
 Then the kernel table, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -93,9 +101,10 @@ KERNELS = ("dram_serve", "dram_timing", "sweep_min", "segment_reduce",
 
 #: the stationary path: problems, iterations, and the largest relative
 #: error of the values against a float64 recompute.  HitGraph's gather
-#: sums in float64; AccuGraph's pull sums each row in float32 over at most
-#: 128 slots a lane and the hub's row over 512 chunk sums, whose rounding
-#: drifts by at most ~3e-5, compounded over 3 iterations.
+#: sums in float64; AccuGraph's pull sums a light row in float32 over at
+#: most 31 slots on one thread and a heavy row over chunk sums of up to
+#: 4,096 slots (377 on the hub), whose rounding drifts by at most ~3e-5,
+#: compounded over 3 iterations.
 STATIONARY = ("pr", "spmv")
 STATIONARY_ITERS = 3
 STATIONARY_RTOL = 1e-3
@@ -265,18 +274,51 @@ def close(a, b, rtol, atol) -> float:
     return float((a - b).abs().max()) if a.numel() else 0.0
 
 
+def run_ids(layout, rng):
+    """Segment ids of a run layout, and the segment count: ``sorted``
+    (destination order, a long hub run), ``unsorted`` (the same ids
+    shuffled), ``one-run`` (one id over many 4,096-update tiles) and
+    ``edges`` (runs ending one before, at and one after the 16-update
+    thread, 512-update warp and 4,096-update tile boundaries); out-of-
+    range ids lie inside runs."""
+    n = 300
+    if layout == "one-run":
+        ids = np.full(50_000, 7)
+    elif layout == "edges":
+        lengths = np.array([15, 1, 16, 17, 511, 1, 513, 4095, 2, 4097,
+                            8192, 3, 4096])
+        ids = np.repeat(rng.permutation(n)[:len(lengths)], lengths)
+    else:
+        lengths = rng.integers(0, 60, n)
+        lengths[5] = 20_000
+        ids = np.repeat(np.arange(n), lengths)
+    ids = ids.astype(np.int32)
+    inside = rng.random(len(ids)) < 0.002
+    ids[inside] = rng.choice([-1, n, n + 9], size=int(inside.sum()))
+    if layout == "unsorted":
+        ids = rng.permutation(ids)
+    return ids, n
+
+
 def check_stationary_kernels(dev) -> dict:
     """``segment_reduce``, ``edge_scatter`` and ``spmv_ell`` against their
     plain versions on seeded cases at the shapes of the JAX package's
     kernel tests (plus wide ELL rows), with out-of-range ids and padding
-    slots that carry nonzero values.  Tolerances: min/max and the
-    scatter exact; f32 sums rtol 1e-5 / atol 1e-4; bf16 sums 5e-2."""
+    slots that carry nonzero values; ``segment_reduce`` also on run
+    layouts (sorted, unsorted, one run over many tiles, runs ending at
+    thread, warp and tile edges; d = 1 and 3), and the one-launch pull
+    over a sliced ELL of rmat(12, 8) at three heavy thresholds.
+    Tolerances: min/max and the scatter exact; f32 sums rtol 1e-5 / atol
+    1e-4 (the pull's 1e-6); bf16 sums 5e-2."""
     from repro_torch.kernels.edge_scatter.ops import edge_scatter
     from repro_torch.kernels.edge_scatter.ref import edge_scatter_ref
     from repro_torch.kernels.segment_reduce.ops import segment_reduce
     from repro_torch.kernels.segment_reduce.ref import segment_reduce_ref
-    from repro_torch.kernels.spmv_ell.ops import spmv_ell
-    from repro_torch.kernels.spmv_ell.ref import spmv_ell_ref
+    from repro_torch.graphs.generators import rmat
+    from repro_torch.kernels.spmv_ell.ops import (CHUNK_SLOTS, HEAVY_SLOTS,
+                                                  pack_in_edges, spmv_ell,
+                                                  spmv_sell)
+    from repro_torch.kernels.spmv_ell.ref import spmv_ell_ref, spmv_sell_ref
     tol = {("sum", torch.float32): (1e-5, 1e-4),
            ("sum", torch.bfloat16): (5e-2, 5e-2),
            ("min", torch.float32): (0, 0), ("max", torch.float32): (0, 0)}
@@ -310,6 +352,24 @@ def check_stationary_kernels(dev) -> dict:
                                         close(got[0], want[0], 0, 0),
                                         close(got[1], want[1], 0, 0))
             cases["edge_scatter"] += 1
+    for layout in ("sorted", "unsorted", "one-run", "edges"):
+        rng = np.random.default_rng(len(layout))
+        ids_np, n = run_ids(layout, rng)
+        ids = i32(ids_np, dev)
+        for d in (1, 3):
+            vals = torch.as_tensor(rng.normal(size=(len(ids_np), d)).astype(
+                np.float32), device=dev)
+            if d == 1:
+                vals = vals[:, 0].contiguous()
+            for op in ("sum", "min", "max"):
+                for dtype in (torch.float32, torch.bfloat16):
+                    rtol, atol = tol.get((op, dtype), (0, 0))
+                    v = vals.to(dtype)
+                    worst["segment_reduce"] = max(
+                        worst["segment_reduce"],
+                        close(segment_reduce(ids, v, n, op),
+                              segment_reduce_ref(ids, v, n, op), rtol, atol))
+                    cases["segment_reduce"] += 1
     for n, k, nx in ((256, 4, 256), (100, 7, 333), (513, 2, 128),
                      (1000, 1, 500), (300, 16, 900), (70, 33, 400),
                      (5, 1000, 3000), (3, 9000, 5000)):
@@ -324,6 +384,17 @@ def check_stationary_kernels(dev) -> dict:
                                 device=dev))
         worst["spmv_ell"] = max(worst["spmv_ell"], close(
             spmv_ell(*args), spmv_ell_ref(*args), 1e-5, 1e-4))
+        cases["spmv_ell"] += 1
+    g = rmat(12, 8, seed=5)
+    rng = np.random.default_rng(5)
+    w = rng.random(g.m).astype(np.float32)
+    x = torch.as_tensor(rng.random(g.n).astype(np.float32), device=dev)
+    for heavy, chunk in ((HEAVY_SLOTS, CHUNK_SLOTS), (256, 100), (4, 3)):
+        a = pack_in_edges(g.src, g.dst, g.n, w, device=dev, heavy=heavy,
+                          chunk=chunk)
+        assert a.n_chunks > 0
+        worst["spmv_ell"] = max(worst["spmv_ell"], close(
+            spmv_sell(a, x), spmv_sell_ref(a, x), 1e-5, 1e-6))
         cases["spmv_ell"] += 1
     torch.cuda.synchronize()
     return {f"{name}_cases": cases[name] for name in worst} | {
@@ -348,18 +419,34 @@ def stationary_f64(g, problem: str, iters: int) -> np.ndarray:
 def run_stationary_path(wt, sessions, card, dev):
     """PR and SpMV at full size on both accelerators through
     ``SimSession.run``, reusing the main path's sessions (the models are
-    not rebuilt); launch counts zeroed just before each run.  Returns
-    the path's total launches by kernel and the runs, by (accelerator,
-    problem)."""
-    from repro_torch.algorithms.common import Problem
+    not rebuilt); launch counts zeroed just before each run and read just
+    after: one ``edge_scatter`` and one ``segment_reduce`` (HitGraph) or
+    one ``spmv_ell`` (AccuGraph) an iteration.  Each line also gives the
+    time of the engine's per-run set-up on the card (HitGraph's sort of
+    the edges by destination, AccuGraph's sliced-ELL packing), measured
+    apart from the run.  Returns the path's total launches by kernel and
+    the runs, by (accelerator, problem)."""
+    from repro_torch.algorithms.common import Problem, stationary_inputs
+    from repro_torch.algorithms.edge_centric import sort_by_dst
     from repro_torch.kernels import launch_counts, zero_launch_counts
+    from repro_torch.kernels.spmv_ell.ops import pack_in_edges
     from repro_torch.sim import get_accelerator
     from repro_torch.sim.session import resolve_run_config
     total = {name: 0 for name in KERNELS}
     runs, reports = {}, {}
+    w_np, _ = stationary_inputs(wt, Problem.PR)
+    setup = {
+        "hitgraph": ("dst_sort_ms", lambda: sort_by_dst(
+            i32(wt.src, dev), i32(wt.dst, dev),
+            torch.as_tensor(w_np, device=dev))),
+        "accugraph": ("ell_pack_ms", lambda: pack_in_edges(
+            wt.src, wt.dst, wt.n, w_np, device=dev))}
     for acc in ("hitgraph", "accugraph"):
         spec = get_accelerator(acc)
         cfg = resolve_run_config(spec)
+        setup_key, setup_fn = setup[acc]
+        setup_fn()
+        setup_ms = host_ms(setup_fn)
         for prob in STATIONARY:
             zero_launch_counts()
             t0 = time.perf_counter()
@@ -379,7 +466,8 @@ def run_stationary_path(wt, sessions, card, dev):
                  row_hit_rate=r.row_hit_rate, max_rel_err=err,
                  tolerance=STATIONARY_RTOL,
                  kernel_launches={k: counts[k] for k in KERNELS},
-                 stage_seconds=r.stage_seconds, seconds=seconds, card=card)
+                 stage_seconds=r.stage_seconds, seconds=seconds,
+                 **{setup_key: setup_ms}, card=card)
             assert err <= STATIONARY_RTOL, (acc, prob, err)
             assert r.iterations == STATIONARY_ITERS, r.iterations
             assert np.isfinite(r.runtime_ns) and r.runtime_ns > 0
@@ -387,8 +475,9 @@ def run_stationary_path(wt, sessions, card, dev):
             need = (("edge_scatter", "segment_reduce") if acc == "hitgraph"
                     else ("spmv_ell",))
             for name in need:
-                assert counts[name] > 0, (
-                    f"{name} was never launched on {acc} {prob}")
+                assert counts[name] == STATIONARY_ITERS, (
+                    f"{name} launched {counts[name]} times on {acc} {prob},"
+                    f" not once an iteration")
             runs[acc, prob], reports[acc, prob] = run, r
         pr, spmv = reports[acc, "pr"], reports[acc, "spmv"]
         assert dataclasses.replace(pr, problem="spmv") == spmv, (
@@ -396,27 +485,42 @@ def run_stationary_path(wt, sessions, card, dev):
     return total, runs
 
 
+def bucket_slots(deg) -> int:
+    """Slots of the per-bucket ELL the pull ran on before the sliced
+    layout: every row with an in-edge padded to the power of two at or
+    above its in-degree."""
+    d = deg[deg > 0].astype(np.int64)
+    return int(np.sum(np.left_shift(1, np.frexp(d - 1)[1])))
+
+
 def compare_stationary(wt, runs, dev) -> dict:
     """The three stationary kernels against their plain versions on the
-    path's own full-size PR inputs (HitGraph's edge arrays and per-edge
-    factor, AccuGraph's degree buckets, each with its run's PR values),
-    with the kernel's, the plain version's and one PyTorch call's device
-    time, and the byte bound."""
+    path's own full-size PR inputs, with the kernel's, the plain
+    version's and one PyTorch call's device time, and the byte bound:
+    HitGraph's scatter and gather over the destination-sorted edges (and,
+    as a second line, the raw edge order), with the run's PR values;
+    AccuGraph's whole pull step (zeroing memset and one launch) over the
+    sliced ELL, with its run's PR values, beside cuSPARSE's CSR mat-vec,
+    with the bound over the edges and the bound over the slots of the
+    per-bucket layout the pull ran on before."""
     from repro_torch.algorithms.common import Problem, stationary_inputs
+    from repro_torch.algorithms.edge_centric import sort_by_dst
     from repro_torch.kernels.edge_scatter.ops import edge_scatter
     from repro_torch.kernels.edge_scatter.ref import edge_scatter_ref
     from repro_torch.kernels.segment_reduce.ops import segment_reduce
     from repro_torch.kernels.segment_reduce.ref import segment_reduce_ref
-    from repro_torch.kernels.spmv_ell.ops import pack_in_edges, spmv_ell
-    from repro_torch.kernels.spmv_ell.ref import spmv_ell_ref
+    from repro_torch.kernels.spmv_ell.ops import pack_in_edges, spmv_sell
+    from repro_torch.kernels.spmv_ell.ref import spmv_sell_ref
     n, m = wt.n, wt.m
     w_np, _ = stationary_inputs(wt, Problem.PR)
-    src, dst = i32(wt.src, dev), i32(wt.dst, dev)
-    w = torch.as_tensor(w_np, device=dev)
+    src_raw, dst_raw = i32(wt.src, dev), i32(wt.dst, dev)
+    w_raw = torch.as_tensor(w_np, device=dev)
+    src, dst, w = sort_by_dst(src_raw, dst_raw, w_raw)
     ones = torch.ones(n, dtype=torch.float32, device=dev)
+    deg = wt.in_degrees()
     out = {}
 
-    # HitGraph's scatter: values[src] * w
+    # HitGraph's scatter: values[src] * w, over the sorted edges
     x = torch.as_tensor(runs["hitgraph", "pr"].values, device=dev)
     upd, valid = edge_scatter(src, w, x, ones, "mul")
     upd_p, valid_p = edge_scatter_ref(src, w, x, ones, "mul")
@@ -429,63 +533,102 @@ def compare_stationary(wt, runs, dev) -> dict:
         "library_ms": cuda_ms(lambda: x.index_select(0, src) * w, 20),
         "library_call": "values.index_select(0, src) * w",
         "bound_ms": (16 * m + 8 * n) / HBM_BYTES_PER_S * 1e3,
+        "raw_order_ms": cuda_ms(
+            lambda: edge_scatter(src_raw, w_raw, x, ones, "mul"), 20),
         "shape": {"edges": m, "vertices": n}}
+    del upd_p, valid_p, valid
 
-    # HitGraph's gather: the updates summed onto their destinations
+    # HitGraph's gather: the updates summed onto their destinations, in
+    # destination order as the path feeds them, and in raw edge order
+    upd_raw, _ = edge_scatter(src_raw, w_raw, x, ones, "mul")
     acc = segment_reduce(dst, upd, n, "sum")
     acc_p = segment_reduce_ref(dst, upd, n, "sum")
     rel = max_rel_err(acc.cpu().numpy(), acc_p.cpu().numpy())
-    assert rel <= STATIONARY_RTOL, f"segment_reduce at full size: {rel}"
+    err = close(acc, acc_p, 1e-5, 0)
+    acc_raw = segment_reduce(dst_raw, upd_raw, n, "sum")
+    err = max(err, close(acc_raw, segment_reduce_ref(dst_raw, upd_raw, n,
+                                                     "sum"), 1e-5, 0))
+    lengths = torch.as_tensor(deg, device=dev)
     lib_acc = torch.zeros(n, dtype=torch.float32, device=dev)
+    lib_seg = torch.segment_reduce(upd, "sum", lengths=lengths)
+    assert max_rel_err(lib_seg.cpu().numpy(), acc_p.cpu().numpy()) < 1e-3
     out["segment_reduce"] = {
-        "max_abs_err": float((acc - acc_p).abs().max()),
-        "max_rel_err": rel,
-        "ms": cuda_ms(lambda: segment_reduce(dst, upd, n, "sum"), 10),
+        "max_abs_err": err, "max_rel_err": rel,
+        "ms": cuda_ms(lambda: segment_reduce(dst, upd, n, "sum"), 20),
         "plain_ms": cuda_ms(
             lambda: segment_reduce_ref(dst, upd, n, "sum"), 5),
         "library_ms": cuda_ms(
             lambda: lib_acc.index_add_(0, dst, upd), 10),
-        "library_call": "out.index_add_(0, dst, upd)",
+        "library_call": "out.index_add_(0, dst, upd), dst-sorted",
+        "torch_segment_reduce_ms": cuda_ms(
+            lambda: torch.segment_reduce(upd, "sum", lengths=lengths), 10),
+        "raw_order_ms": cuda_ms(
+            lambda: segment_reduce(dst_raw, upd_raw, n, "sum"), 10),
+        "raw_order_index_add_ms": cuda_ms(
+            lambda: lib_acc.index_add_(0, dst_raw, upd_raw), 10),
+        "dst_sort_ms": cuda_ms(
+            lambda: sort_by_dst(src_raw, dst_raw, w_raw), 5),
         "bound_ms": (8 * m + 4 * n) / HBM_BYTES_PER_S * 1e3,
         "shape": {"updates": m, "segments": n,
-                  "largest_segment": int(wt.in_degrees().max())}}
-    del upd, valid, upd_p, valid_p, acc, acc_p
+                  "largest_segment": int(deg.max())}}
+    del upd, upd_raw, acc, acc_p, acc_raw, lib_seg
 
-    # AccuGraph's pull: one launch per in-degree bucket
+    # AccuGraph's pull: the whole y in one launch over the sliced ELL
     x = torch.as_tensor(runs["accugraph", "pr"].values, device=dev)
-    buckets = [(torch.as_tensor(b.rows, device=dev),
-                torch.as_tensor(b.cols, device=dev),
-                torch.as_tensor(b.vals, device=dev))
-               for b in pack_in_edges(wt.src, wt.dst, n, w_np)]
-    y = torch.zeros(n, dtype=torch.float32, device=dev)
-    y_p = torch.zeros(n, dtype=torch.float32, device=dev)
-    for rows, cols, vals in buckets:
-        y[rows] = spmv_ell(cols, vals, x)
-        y_p[rows] = spmv_ell_ref(cols, vals, x)
+    pack_ms = host_ms(lambda: pack_in_edges(wt.src, wt.dst, n, w_np,
+                                            device=dev))
+    a = pack_in_edges(wt.src, wt.dst, n, w_np, device=dev)
+    y = spmv_sell(a, x)
+    y_p = spmv_sell_ref(a, x)
     rel = max_rel_err(y.cpu().numpy(), y_p.cpu().numpy())
-    assert rel <= STATIONARY_RTOL, f"spmv_ell at full size: {rel}"
+    err = close(y, y_p, 1e-5, 0)
     order = np.argsort(wt.dst, kind="stable")
     crow = np.zeros(n + 1, dtype=np.int64)
-    np.cumsum(np.bincount(wt.dst, minlength=n), out=crow[1:])
-    a = torch.sparse_csr_tensor(
+    np.cumsum(deg, out=crow[1:])
+    csr = torch.sparse_csr_tensor(
         torch.as_tensor(crow, device=dev),
         torch.as_tensor(wt.src[order], device=dev),
         torch.as_tensor(w_np[order], device=dev), size=(n, n))
-    slots = sum(int(c.numel()) for _, c, _ in buckets)
-    rows_total = sum(int(r.numel()) for r, _, _ in buckets)
+    rows = int((deg > 0).sum())
+    slots, old_slots = int(a.cols.numel()), bucket_slots(deg)
+    # where the step's time goes: the zeroing alone, the heavy chunks
+    # alone and the light slices alone (each with its memset), and the
+    # whole step at other heavy thresholds
+    heavy_only = dataclasses.replace(a, slice_ptr=a.slice_ptr[:1].clone(),
+                                     slice_rows=a.slice_rows[:0].clone())
+    light_only = dataclasses.replace(a, chunk_ptr=a.chunk_ptr[:1].clone(),
+                                     chunk_rows=a.chunk_rows[:0].clone())
+    zeroed = torch.empty(n, dtype=torch.float32, device=dev)
+    parts = {"memset_ms": cuda_ms(zeroed.zero_, 20),
+             "heavy_only_ms": cuda_ms(lambda: spmv_sell(heavy_only, x), 20),
+             "light_only_ms": cuda_ms(lambda: spmv_sell(light_only, x), 20)}
+    by_threshold = {}
+    for heavy in (16, 32, 64, 128, 256):
+        b = pack_in_edges(wt.src, wt.dst, n, w_np, device=dev, heavy=heavy)
+        close(spmv_sell(b, x), spmv_sell_ref(b, x), 1e-5, 0)
+        by_threshold[heavy] = cuda_ms(lambda: spmv_sell(b, x), 20)
+    del b, heavy_only, light_only
     out["spmv_ell"] = {
-        "max_abs_err": float((y - y_p).abs().max()), "max_rel_err": rel,
-        "ms": cuda_ms(lambda: [spmv_ell(c, v, x)
-                                 for _, c, v in buckets], 20),
-        "plain_ms": cuda_ms(lambda: [spmv_ell_ref(c, v, x)
-                                       for _, c, v in buckets], 3),
-        "library_ms": cuda_ms(lambda: a @ x, 20),
+        "max_abs_err": err, "max_rel_err": rel,
+        "ms": cuda_ms(lambda: spmv_sell(a, x), 20),
+        "plain_ms": cuda_ms(lambda: spmv_sell_ref(a, x), 3),
+        "library_ms": cuda_ms(lambda: csr @ x, 20),
         "library_call": "torch.sparse_csr_tensor(in-edges) @ x",
-        "bound_ms": (8 * slots + 4 * n + 4 * rows_total)
+        "bound_ms": (8 * m + 4 * n + 4 * rows) / HBM_BYTES_PER_S * 1e3,
+        "slot_bound_ms": (8 * slots + 4 * n + 4 * rows)
         / HBM_BYTES_PER_S * 1e3,
-        "shape": {"buckets": len(buckets), "slots": slots,
-                  "rows": rows_total, "nnz": m,
-                  "widths": [int(c.shape[1]) for _, c, _ in buckets]}}
+        "per_bucket_layout": {
+            "slots": old_slots, "launches_per_step": int(np.unique(
+                np.frexp(deg[deg > 0] - 1)[1]).size),
+            "bound_ms": (8 * old_slots + 4 * n + 4 * rows)
+            / HBM_BYTES_PER_S * 1e3},
+        "pack_ms": pack_ms, "parts": parts,
+        "ms_by_heavy_threshold": by_threshold,
+        "shape": {"slices": a.n_slices, "heavy_chunks": a.n_chunks,
+                  "heavy_rows": int(torch.unique(a.chunk_rows).numel()),
+                  "slots": slots, "rows": rows, "nnz": m,
+                  "widest_slice": int((a.slice_ptr[1] - a.slice_ptr[0])
+                                      // 32) if a.n_slices else 0}}
     return out
 
 
@@ -697,6 +840,7 @@ def main() -> int:
                                    "spmv_ell"],
          tolerance={"min/max, edge_scatter": "exact",
                     "f32 sum, spmv_ell": "rtol 1e-5, atol 1e-4",
+                    "spmv_sell": "rtol 1e-5, atol 1e-6",
                     "bf16 sum": "rtol 5e-2, atol 5e-2"},
          **check_stationary_kernels(dev))
 
@@ -750,6 +894,9 @@ def main() -> int:
     # ---- 7. the stationary path at full size ----------------------------
     launches["stationary"], stat_runs = run_stationary_path(
         wt, sessions, card, dev)
+    # one pull launch an iteration: 2 AccuGraph runs x STATIONARY_ITERS
+    assert launches["stationary"]["spmv_ell"] == 2 * STATIONARY_ITERS, (
+        launches["stationary"])
 
     # ---- 8. kernels vs plain on the paths' inputs ----------------------
     kernels = {}
@@ -881,9 +1028,12 @@ def main() -> int:
     replaces = {"segment_reduce": "segment_reduce/kernel.py:60",
                 "edge_scatter": "edge_scatter/kernel.py:63",
                 "spmv_ell": "spmv_ell/kernel.py:46"}
-    inputs = {"segment_reduce": "hitgraph PR gather, full size",
-              "edge_scatter": "hitgraph PR scatter, full size",
-              "spmv_ell": "accugraph PR pull, all degree buckets"}
+    inputs = {"segment_reduce": "hitgraph PR gather, full size, "
+                                "dst-sorted updates",
+              "edge_scatter": "hitgraph PR scatter, full size, "
+                              "dst-sorted edges",
+              "spmv_ell": "accugraph PR pull step (memset + one launch), "
+                          "sliced ELL"}
     for name, where in replaces.items():
         k = kernels[name]
         table.append({
@@ -896,7 +1046,9 @@ def main() -> int:
             "plain_ms": k["plain_ms"], "bound_ms": k["bound_ms"],
             "bound_by": "bytes", "library_ms": k["library_ms"],
             "library_call": k["library_call"], "inputs": inputs[name],
-            "shape": k["shape"], "max_rel_err": k.get("max_rel_err")})
+            **{key: v for key, v in k.items() if key not in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "library_ms",
+                "library_call")}})
     print(json.dumps({"kernels": table}), flush=True)
     print(card_line(), flush=True)
     print(json.dumps({"ok": True, "device": {

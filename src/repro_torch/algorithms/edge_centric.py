@@ -17,9 +17,11 @@ accelerator trace models consume.
 The stationary problems (PR, SpMV) run a fixed number of iterations of
 two kernels, on the card and (as their plain versions) on the CPU: the
 scatter ``edge_scatter(op="mul")``, ``values[src] * w``, and the gather
-``segment_reduce(op="sum")`` onto the destinations.  Their float sums
-are taken in another order than the JAX package's, so values agree to a
-tolerance, while the statistics (all-true every iteration) are equal.
+``segment_reduce(op="sum")`` onto the destinations, over edges sorted by
+destination once a run (the gather then sums runs of equal ids before
+it touches memory).  Their float sums are taken in another order than
+the JAX package's, so values agree to a tolerance, while the statistics
+(all-true every iteration) are equal.
 """
 
 from __future__ import annotations
@@ -111,15 +113,25 @@ def _min_run_torch(g: Graph, problem: Problem, w_np: np.ndarray,
     return RunResult(values.cpu().numpy(), it, per_iter)
 
 
+def sort_by_dst(src: torch.Tensor, dst: torch.Tensor, w: torch.Tensor):
+    """The edges ``(src, dst, w)`` in destination order, edge-list order
+    kept among equal destinations, on their device."""
+    dst, order = torch.sort(dst, stable=True)
+    return src[order], dst, w[order]
+
+
 def _stationary_run(g: Graph, problem: Problem, iters: int, device,
                     x0: Optional[np.ndarray]) -> RunResult:
     """PR / SpMV: each iteration scatters ``values[src] * w`` over the
-    edges and sums the updates onto their destinations; PR then damps."""
+    edges and sums the updates onto their destinations; PR then damps.
+    The edges are sorted by destination once, so that the gather sees
+    runs of equal ids."""
     n = g.n
     w_np, values_np = stationary_inputs(g, problem, x0)
-    src = torch.as_tensor(g.src.astype(np.int32), device=device)
-    dst = torch.as_tensor(g.dst.astype(np.int32), device=device)
-    w = torch.as_tensor(w_np, device=device)
+    src, dst, w = sort_by_dst(
+        torch.as_tensor(g.src.astype(np.int32), device=device),
+        torch.as_tensor(g.dst.astype(np.int32), device=device),
+        torch.as_tensor(w_np, device=device))
     values = torch.as_tensor(values_np, device=device)
     ones = torch.ones(n, dtype=torch.float32, device=device)
     per_iter = []

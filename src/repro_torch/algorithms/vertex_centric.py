@@ -14,8 +14,9 @@ one-thread CUDA kernel on the card, a plain loop on the CPU.
 Stationary problems (PR, SpMV) use synchronous pull semantics (two value
 arrays), matching the original article's fixed-iteration measurements:
 each iteration is ``y[v] = sum over in-edges u -> v of w * x[u]``, one
-:func:`repro_torch.kernels.spmv_ell.ops.spmv_ell` launch per in-degree
-bucket of the ELL-packed in-edges.
+:func:`repro_torch.kernels.spmv_ell.ops.spmv_sell` call (one kernel
+launch) over the in-edges packed once a run as a sliced ELL, on the run's
+device.
 """
 
 from __future__ import annotations
@@ -30,7 +31,7 @@ from repro_torch.algorithms.common import (DAMPING, INF32, IterStats, Problem,
 from repro_torch.device import resolve_device
 from repro_torch.graphs.formats import (CSRPartitions, Graph,
                                         partition_intervals)
-from repro_torch.kernels.spmv_ell.ops import pack_in_edges, spmv_ell
+from repro_torch.kernels.spmv_ell.ops import pack_in_edges, spmv_sell
 from repro_torch.kernels.sweep_min.ops import sweep_min
 
 
@@ -45,22 +46,17 @@ def _block_edges(parts: CSRPartitions, k: int):
 
 def _stationary_run(g: Graph, problem: Problem, p: int, iters: int,
                     device) -> RunResult:
-    """PR / SpMV by pull: each iteration rebuilds ``y`` from the in-edge
-    ELL buckets, one ``spmv_ell`` a bucket; PR then damps.  The JAX
+    """PR / SpMV by pull: each iteration computes the whole ``y`` from
+    the sliced in-edge ELL in one ``spmv_sell``; PR then damps.  The JAX
     package starts SpMV from ones here (it takes no ``x0``)."""
     n = g.n
     w, values_np = stationary_inputs(g, problem)
-    buckets = [(torch.as_tensor(b.rows, device=device),
-                torch.as_tensor(b.cols, device=device),
-                torch.as_tensor(b.vals, device=device))
-               for b in pack_in_edges(g.src, g.dst, n, w)]
+    a = pack_in_edges(g.src, g.dst, n, w, device=device)
     values = torch.as_tensor(values_np, device=device)
     blocks_all = [np.ones(n, dtype=bool) for _ in range(p)]
     per_iter: List[IterStats] = []
     for _ in range(iters):
-        y = torch.zeros(n, dtype=torch.float32, device=device)
-        for rows, cols, vals in buckets:
-            y[rows] = spmv_ell(cols, vals, values)
+        y = spmv_sell(a, values)
         values = (y if problem == Problem.SPMV
                   else (1.0 - DAMPING) / n + DAMPING * y)
         per_iter.append(IterStats(np.ones(n, bool), np.ones(n, bool),

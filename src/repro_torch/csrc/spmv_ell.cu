@@ -1,139 +1,166 @@
-// SpMV in ELL layout on the card.
+// SpMV in sliced ELL (SELL-32) layout on the card, one launch a pull step.
 //
 // Replaces the Pallas kernel spmv_ell_kernel
 // (src/repro/kernels/spmv_ell/kernel.py:46, pallas_call at :55):
 //     y[r] = sum_k vals[r, k] * x[cols[r, k]]
 // where a column id outside [0, len(x)) adds 0, whatever vals holds.  On
-// the stationary path it is AccuGraph's pull, y[v] = sum over the
-// in-edges u -> v of w * x[u], one launch per in-degree bucket (each
-// bucket's rows padded to one power-of-two width).
+// the stationary path it is AccuGraph's whole pull, y[v] = sum over the
+// in-edges u -> v of w * x[u], for every destination v at once.
 //
-// What bounds it.  Bytes: cols and vals read once (8 B a slot, padding
-// included), x read once and y written once; about 0.04 ms over 3.35 TB/s
-// for the 22 buckets of the wiki-talk stand-in (13.9 M slots).
+// The layout (built by kernels/spmv_ell/ops.py::pack_in_edges):
+//   - light rows (in-degree below a threshold, 32 by default), sorted by
+//     in-degree, widest first, cut into slices of 32 rows; a slice is
+//     padded to its widest row and stored column-major, so slot j of its
+//     32 rows is 32 consecutive words at slice_ptr[s] + 32 j;
+//   - heavy rows (the hub of the wiki-talk stand-in is one row of
+//     1,540,932) stored unpadded after the slices, their edges sorted by
+//     source, cut into chunks of slots (4,096 by default), chunk c =
+//     [chunk_ptr[c], chunk_ptr[c + 1]) of row chunk_rows[c].
+// The Pallas counterpart's row-major [n, k] ELL is the same layout with
+// no heavy rows and a uniform width: slice s is rows 32 s .. 32 s + 31 and
+// slot j of row r lies at r k + j (slice_ptr == nullptr).
 //
-// What the design does about it.  The TPU kernel gathers x with a one-hot
-// matmul per slot on its matrix unit; the card gathers directly, from an x
-// that fits the 50 MB L2, so cols and vals stream through once.  A row is
-// worked by a group of G lanes of one warp, G the power of two >= k capped
-// at 32: lane j takes slots j, j + G, ..., so adjacent lanes read adjacent
-// words of the row-major [n, k] arrays, and the group sums with a shuffle
-// tree (k = 1 is one thread a row, k >= 32 one warp a row).  Rows of
-// kSplitSlots slots or more (the hub on the main path is one row of 2^21)
-// are cut into chunks of kSplitSlots, one block of 256 threads each, whose
-// sums are added into y atomically after y is zeroed, so a hub row does
-// not sit on one warp.  Sums are f32 fused multiply-adds, in another order
-// than the plain version's.
+// What bounds it.  Bytes: cols and vals read once (8 B an edge, plus the
+// slices' padding), y written once, a destination id a row; about
+// 0.028 ms over 3.35 TB/s for the stand-in's 10.04 M in-edges.  x (9.6 MB)
+// stays in the 50 MB L2, but each 4-byte gather from it moves a 32-byte
+// sector from L2 to the SM: ~320 MB of L2 traffic a step, beside the
+// 80 MB streamed: that traffic, more than the device-memory bytes, is
+// what the step's time on an H100 follows (PERF.md).
+//
+// What the design does about it.  One launch computes the whole y, after
+// one cudaMemsetAsync that zeroes it (destinations with no in-edge stay 0,
+// heavy rows start from 0 for their atomics).  Blocks [0, H) work the H
+// heavy chunks: 256 threads stride over the chunk's contiguous slots, sum
+// over the block and add into y atomically; sorted by source, a dense
+// row's neighbouring lanes gather neighbouring words of x, so the hub's
+// gathers share sectors.  Blocks [H, ...) work the slices, one warp a
+// slice and one thread a row: a warp's load of cols and vals for slot j
+// is one coalesced 128-byte line, streamed past L2 (evict-first) so that
+// x stays resident; x is gathered through the read-only path, and each
+// thread stores its row's y directly.  The light threshold bounds the
+// longest walk of one thread (31 slots): at 256 the widest slices set the
+// step's time (chip_smoke.py's ms_by_heavy_threshold).  Loads do not
+// depend on the running sum: a padding slot gathers x[0] and its product
+// is dropped by a select, so the unrolled loop keeps several slots in
+// flight.  Sums are f32 fused multiply-adds, in another order than the
+// plain version's.
 
 #include <cuda_runtime.h>
 
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kSplitSlots = 4096;
+constexpr int kSliceRows = 32;
+constexpr int kWarps = kThreads / 32;
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float add_slot(const int* __restrict__ cols,
                                           const float* __restrict__ vals,
                                           const float* __restrict__ x,
                                           long long at, int nx, float acc) {
-  const int c = cols[at];
-  if (static_cast<unsigned>(c) < static_cast<unsigned>(nx))
-    acc = fmaf(vals[at], x[c], acc);
-  return acc;
+  const int c = __ldcs(cols + at);
+  const float v = __ldcs(vals + at);
+  const bool inside = static_cast<unsigned>(c) < static_cast<unsigned>(nx);
+  const float p = fmaf(v, __ldg(x + (inside ? c : 0)), acc);
+  return inside ? p : acc;
 }
 
-template <int G>
-__global__ void spmv_ell_rows_kernel(const int* __restrict__ cols,
-                                     const float* __restrict__ vals,
-                                     const float* __restrict__ x,
-                                     float* __restrict__ y, long long n,
-                                     int k, int nx) {
-  const long long t = blockIdx.x * static_cast<long long>(blockDim.x) +
-                      threadIdx.x;
-  const long long row = t / G;
-  const int lane = static_cast<int>(t % G);
-  float acc = 0.0f;
-  if (row < n) {
-    const long long base = row * k;
-    for (int s = lane; s < k; s += G)
-      acc = add_slot(cols, vals, x, base + s, nx, acc);
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(kFull, v, off);
+  return v;
+}
+
+__global__ void __launch_bounds__(kThreads)
+    spmv_sell_kernel(const int* __restrict__ cols,
+                     const float* __restrict__ vals,
+                     const float* __restrict__ x, float* __restrict__ y,
+                     const long long* __restrict__ slice_ptr,
+                     const int* __restrict__ slice_rows, long long n_slices,
+                     const long long* __restrict__ chunk_ptr,
+                     const int* __restrict__ chunk_rows, int n_chunks,
+                     long long n_rows, int k, int nx) {
+  const int lane = threadIdx.x & 31;
+  if (static_cast<int>(blockIdx.x) < n_chunks) {
+    // a heavy chunk: the whole block, one atomic
+    const long long lo = chunk_ptr[blockIdx.x];
+    const long long hi = chunk_ptr[blockIdx.x + 1];
+    float acc = 0.0f;
+#pragma unroll 4
+    for (long long at = lo + threadIdx.x; at < hi; at += kThreads)
+      acc = add_slot(cols, vals, x, at, nx, acc);
+    acc = warp_sum(acc);
+    __shared__ float part[kWarps];
+    if (lane == 0) part[threadIdx.x >> 5] = acc;
+    __syncthreads();
+    if (threadIdx.x < 32) {
+      acc = warp_sum(lane < kWarps ? part[lane] : 0.0f);
+      if (lane == 0) atomicAdd(y + chunk_rows[blockIdx.x], acc);
+    }
+    return;
   }
-  // every lane of the warp reaches the shuffles: rows past n add 0
-#pragma unroll
-  for (int off = G / 2; off > 0; off >>= 1)
-    acc += __shfl_down_sync(kFull, acc, off, G);
-  if (row < n && lane == 0) y[row] = acc;
-}
-
-__global__ void spmv_ell_split_kernel(const int* __restrict__ cols,
-                                      const float* __restrict__ vals,
-                                      const float* __restrict__ x,
-                                      float* __restrict__ y, int k, int nx,
-                                      int chunks) {
-  const long long row = blockIdx.x / chunks;
-  const int lo = static_cast<int>(blockIdx.x % chunks) * kSplitSlots;
-  const int hi = min(k, lo + kSplitSlots);
-  const long long base = row * k;
-  float acc = 0.0f;
-  for (int s = lo + threadIdx.x; s < hi; s += kThreads)
-    acc = add_slot(cols, vals, x, base + s, nx, acc);
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    acc += __shfl_down_sync(kFull, acc, off);
-  __shared__ float part[kThreads / 32];
-  if ((threadIdx.x & 31) == 0) part[threadIdx.x >> 5] = acc;
-  __syncthreads();
-  if (threadIdx.x < 32) {
-    acc = threadIdx.x < kThreads / 32 ? part[threadIdx.x] : 0.0f;
-#pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      acc += __shfl_down_sync(kFull, acc, off);
-    if (threadIdx.x == 0) atomicAdd(y + row, acc);
+  const long long s =
+      (static_cast<long long>(blockIdx.x) - n_chunks) * kWarps +
+      (threadIdx.x >> 5);
+  if (s >= n_slices) return;
+  long long at;
+  int width, step, dst;
+  if (slice_ptr != nullptr) {
+    at = slice_ptr[s] + lane;
+    width = static_cast<int>((slice_ptr[s + 1] - slice_ptr[s]) / kSliceRows);
+    step = kSliceRows;
+    dst = slice_rows[s * kSliceRows + lane];
+  } else {
+    const long long row = s * kSliceRows + lane;
+    dst = row < n_rows ? static_cast<int>(row) : -1;
+    width = dst >= 0 ? k : 0;
+    at = row * k;
+    step = 1;
   }
-}
-
-template <int G>
-void launch_rows(const int* cols, const float* vals, const float* x,
-                 float* y, long long n, int k, int nx, cudaStream_t s) {
-  const long long blocks = (n * G + kThreads - 1) / kThreads;
-  spmv_ell_rows_kernel<G><<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-      cols, vals, x, y, n, k, nx);
+  float acc = 0.0f;
+#pragma unroll 8
+  for (int j = 0; j < width; ++j, at += step)
+    acc = add_slot(cols, vals, x, at, nx, acc);
+  if (dst >= 0) y[dst] = acc;
 }
 
 }  // namespace
 
-// cols int32[n, k] and vals float32[n, k], row-major; x float32[nx];
-// y float32[n].
+// cols int32 and vals float32 [slots]; x float32[nx]; y float32[ny].
+// Sliced layout: slice_ptr int64[n_slices + 1], slice_rows int32[32
+// n_slices] (-1 for no row), chunk_ptr int64[n_chunks + 1], chunk_rows
+// int32[n_chunks]; y is zeroed first.  Row-major [ny, k] ELL: slice_ptr,
+// slice_rows and the chunk arrays null, n_chunks 0, n_slices = ceil(ny /
+// 32); every row of y is written.
 extern "C" int repro_spmv_ell(const void* cols, const void* vals,
-                              const void* x, void* y, long long n, int k,
-                              int nx, void* stream) {
-  if (n <= 0) return static_cast<int>(cudaGetLastError());
+                              const void* x, void* y, const void* slice_ptr,
+                              const void* slice_rows, long long n_slices,
+                              const void* chunk_ptr, const void* chunk_rows,
+                              int n_chunks, long long ny, int k, int nx,
+                              void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int* c = static_cast<const int*>(cols);
-  const float* v = static_cast<const float*>(vals);
-  const float* xp = static_cast<const float*>(x);
   float* yp = static_cast<float*>(y);
-  if (k == 0 || k >= kSplitSlots) {
-    cudaError_t err = cudaMemsetAsync(yp, 0, n * sizeof(float), s);
-    if (err != cudaSuccess || k == 0) return static_cast<int>(err);
-    const int chunks = (k + kSplitSlots - 1) / kSplitSlots;
-    const long long blocks = n * chunks;
-    if (blocks > 0x7fffffffLL)
-      return static_cast<int>(cudaErrorInvalidConfiguration);
-    spmv_ell_split_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
-        c, v, xp, yp, k, nx, chunks);
+  if (slice_ptr != nullptr && ny > 0) {
+    const cudaError_t err = cudaMemsetAsync(yp, 0, ny * sizeof(float), s);
+    if (err != cudaSuccess) return static_cast<int>(err);
+  }
+  if (nx <= 0) {
+    // nothing to gather: every sum is 0
+    if (slice_ptr == nullptr && ny > 0)
+      return static_cast<int>(cudaMemsetAsync(yp, 0, ny * sizeof(float), s));
     return static_cast<int>(cudaGetLastError());
   }
-  int g = 1;
-  while (g < k && g < 32) g <<= 1;
-  switch (g) {
-    case 1: launch_rows<1>(c, v, xp, yp, n, k, nx, s); break;
-    case 2: launch_rows<2>(c, v, xp, yp, n, k, nx, s); break;
-    case 4: launch_rows<4>(c, v, xp, yp, n, k, nx, s); break;
-    case 8: launch_rows<8>(c, v, xp, yp, n, k, nx, s); break;
-    case 16: launch_rows<16>(c, v, xp, yp, n, k, nx, s); break;
-    default: launch_rows<32>(c, v, xp, yp, n, k, nx, s); break;
-  }
+  const long long blocks = n_chunks + (n_slices + kWarps - 1) / kWarps;
+  if (blocks <= 0) return static_cast<int>(cudaGetLastError());
+  if (blocks > 0x7fffffffLL)
+    return static_cast<int>(cudaErrorInvalidConfiguration);
+  spmv_sell_kernel<<<static_cast<unsigned>(blocks), kThreads, 0, s>>>(
+      static_cast<const int*>(cols), static_cast<const float*>(vals),
+      static_cast<const float*>(x), yp,
+      static_cast<const long long*>(slice_ptr),
+      static_cast<const int*>(slice_rows), n_slices,
+      static_cast<const long long*>(chunk_ptr),
+      static_cast<const int*>(chunk_rows), n_chunks, ny, k, nx);
   return static_cast<int>(cudaGetLastError());
 }

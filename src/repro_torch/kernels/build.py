@@ -46,8 +46,9 @@ SIGNATURES = {
     "repro_segment_reduce": ([_P] * 4 + [_L, _I, _I, _I, _I, _P], _I),
     # src, w, values, active, upd, valid, m, q, op, stream
     "repro_edge_scatter": ([_P] * 6 + [_L, _I, _I, _P], _I),
-    # cols, vals, x, y, n, k, nx, stream
-    "repro_spmv_ell": ([_P] * 4 + [_L, _I, _I, _P], _I),
+    # cols, vals, x, y, slice_ptr, slice_rows, n_slices, chunk_ptr,
+    # chunk_rows, n_chunks, ny, k, nx, stream
+    "repro_spmv_ell": ([_P] * 6 + [_L, _P, _P, _I, _L, _I, _I, _P], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -1,3 +1,3 @@
-"""SpMV in ELL layout: ``ops.spmv_ell`` (kernel wrapper),
-``ref.spmv_ell_ref`` (plain version), and the packers ``ops.csr_to_ell``
-and ``ops.pack_in_edges``."""
+"""SpMV in ELL layouts: ``ops.spmv_ell`` (row-major ELL) and
+``ops.spmv_sell`` (sliced ELL, the pull step), the plain versions in
+``ref``, and the packers ``ops.csr_to_ell`` and ``ops.pack_in_edges``."""

@@ -20,8 +20,9 @@ from repro_torch.kernels.edge_scatter.ops import edge_scatter
 from repro_torch.kernels.edge_scatter.ref import edge_scatter_ref
 from repro_torch.kernels.segment_reduce.ops import segment_reduce
 from repro_torch.kernels.segment_reduce.ref import segment_reduce_ref
-from repro_torch.kernels.spmv_ell.ops import pack_in_edges, spmv_ell
-from repro_torch.kernels.spmv_ell.ref import spmv_ell_ref
+from repro_torch.kernels.spmv_ell.ops import (pack_in_edges, spmv_ell,
+                                              spmv_sell)
+from repro_torch.kernels.spmv_ell.ref import spmv_ell_ref, spmv_sell_ref
 from repro_torch.kernels.sweep_min.ops import sweep_min, sweep_min_ref
 from repro_torch.algorithms import edge_centric, vertex_centric
 from repro_torch.algorithms.common import Problem
@@ -185,6 +186,62 @@ def test_segment_reduce_kernel_equals_plain(cuda, op, dtype, m, n, d):
         assert torch.equal(out, ref)
 
 
+def _run_ids(layout, rng):
+    """Segment ids of a run layout, and the segment count: ``sorted``
+    (destination order, a long hub run), ``unsorted`` (the same ids
+    shuffled), ``one-run`` (one id over many 4,096-update tiles) and
+    ``edges`` (runs ending one before, at and one after the 16-update
+    thread, 512-update warp and 4,096-update tile boundaries); out-of-
+    range ids lie inside runs."""
+    n = 300
+    if layout == "one-run":
+        ids = np.full(50_000, 7)
+    elif layout == "edges":
+        lengths = np.array([15, 1, 16, 17, 511, 1, 513, 4095, 2, 4097,
+                            8192, 3, 4096])
+        ids = np.repeat(rng.permutation(n)[:len(lengths)], lengths)
+    else:
+        lengths = rng.integers(0, 60, n)
+        lengths[5] = 20_000
+        ids = np.repeat(np.arange(n), lengths)
+    ids = ids.astype(np.int32)
+    inside = rng.random(len(ids)) < 0.002
+    ids[inside] = rng.choice([-1, n, n + 9], size=int(inside.sum()))
+    if layout == "unsorted":
+        ids = rng.permutation(ids)
+    return ids, n
+
+
+@pytest.mark.parametrize("d", [1, 3])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+@pytest.mark.parametrize("layout", ["sorted", "unsorted", "one-run",
+                                    "edges"])
+def test_segment_reduce_kernel_runs_equal_plain(cuda, layout, op, dtype, d):
+    """The run-combining kernel on sorted and unsorted ids: sums to the
+    tolerances of the JAX package's kernel tests, min/max exactly."""
+    rng = np.random.default_rng(len(layout) * 10 + d)
+    ids_np, n = _run_ids(layout, rng)
+    ids = torch.as_tensor(ids_np, device=cuda)
+    vals = torch.as_tensor(rng.normal(size=(len(ids_np), d)).astype(
+        np.float32), device=cuda).to(dtype)
+    if d == 1:
+        vals = vals[:, 0].contiguous()
+    before = segment_reduce.launches
+    out = segment_reduce(ids, vals, n, op)
+    torch.cuda.synchronize()
+    assert segment_reduce.launches == before + 1
+    ref = segment_reduce_ref(ids, vals, n, op)
+    assert out.dtype == dtype and out.shape == ref.shape
+    if op == "sum":
+        tol = 1e-5 if dtype == torch.float32 else 5e-2
+        atol = 1e-4 if dtype == torch.float32 else 5e-2
+        torch.testing.assert_close(out.float(), ref.float(), rtol=tol,
+                                   atol=atol)
+    else:
+        assert torch.equal(out, ref)
+
+
 @pytest.mark.parametrize("op", ["copy", "add", "mul"])
 @pytest.mark.parametrize("m,q", [(500, 256), (77, 33), (300_000, 1000)])
 def test_edge_scatter_kernel_equals_plain(cuda, op, m, q):
@@ -209,9 +266,9 @@ def test_edge_scatter_kernel_equals_plain(cuda, op, m, q):
                                     (5, 1000, 3000), (3, 9000, 5000),
                                     (4, 0, 10)])
 def test_spmv_ell_kernel_equals_plain(cuda, n, k, nx):
-    """Every lane-group width (k = 1 to 32), one warp a row (k >= 32),
-    rows split over blocks (k >= 4096) and k = 0; padding ids with
-    nonzero values add nothing."""
+    """The row-major entry point (the kernel's uniform layout: a slice of
+    32 rows, one thread a row) at narrow and wide k, a partly full slice
+    and k = 0; padding ids with nonzero values add nothing."""
     rng = np.random.default_rng(n * 7 + k)
     cols = rng.integers(0, nx, (n, k)).astype(np.int32)
     pad = rng.random((n, k)) < 0.2
@@ -219,22 +276,37 @@ def test_spmv_ell_kernel_equals_plain(cuda, n, k, nx):
     vals = rng.normal(size=(n, k)).astype(np.float32)
     x = rng.normal(size=nx).astype(np.float32)
     args = [torch.as_tensor(a, device=cuda) for a in (cols, vals, x)]
+    before = spmv_ell.launches
     y = spmv_ell(*args)
     torch.cuda.synchronize()
+    assert spmv_ell.launches == before + 1
     torch.testing.assert_close(y, spmv_ell_ref(*args), rtol=1e-5,
                                atol=1e-4)
 
 
-def test_spmv_ell_buckets_equal_dense_on_card(cuda):
-    g = rmat(10, 8, seed=5)
+@pytest.mark.parametrize("heavy,chunk", [(32, 4096), (256, 100), (4, 3)])
+def test_spmv_ell_buckets_equal_dense_on_card(cuda, heavy, chunk):
+    """The one-launch pull over a sliced ELL packed on the card: the
+    packer's tensors equal the CPU packer's, one launch a call, and y
+    equals the plain version and a float64 product (heavy rows, rows with
+    no in-edge and a partly full slice included)."""
+    g = rmat(12, 8, seed=5)
     w = np.random.default_rng(1).random(g.m).astype(np.float32)
     x = np.random.default_rng(2).random(g.n).astype(np.float32)
-    y = torch.zeros(g.n, dtype=torch.float32, device=cuda)
+    a = pack_in_edges(g.src, g.dst, g.n, w, device=cuda, heavy=heavy,
+                      chunk=chunk)
+    b = pack_in_edges(g.src, g.dst, g.n, w, heavy=heavy, chunk=chunk)
+    for name in ("cols", "vals", "slice_ptr", "slice_rows", "chunk_ptr",
+                 "chunk_rows"):
+        assert torch.equal(getattr(a, name).cpu(), getattr(b, name)), name
+    assert a.n_chunks > 0 and (g.in_degrees() == 0).any()
     xt = torch.as_tensor(x, device=cuda)
-    for b in pack_in_edges(g.src, g.dst, g.n, w):
-        y[torch.as_tensor(b.rows, device=cuda)] = spmv_ell(
-            torch.as_tensor(b.cols, device=cuda),
-            torch.as_tensor(b.vals, device=cuda), xt)
+    before = spmv_ell.launches
+    y = spmv_sell(a, xt)
+    torch.cuda.synchronize()
+    assert spmv_ell.launches == before + 1
+    torch.testing.assert_close(y, spmv_sell_ref(a, xt), rtol=1e-5,
+                               atol=1e-6)
     want = np.zeros(g.n)
     np.add.at(want, g.dst, w.astype(np.float64) * x[g.src])
     np.testing.assert_allclose(y.cpu().numpy(), want, rtol=1e-5, atol=1e-6)
@@ -245,15 +317,19 @@ def test_spmv_ell_buckets_equal_dense_on_card(cuda):
 def test_stationary_simulate_on_card_equals_cpu(cuda, accelerator,
                                                 problem):
     """The report is equal field for field; the values (the engines'
-    float sums, in another order on the card) to rtol 1e-5."""
+    float sums, in another order on the card) to rtol 1e-5; one gather
+    (HitGraph) or one pull launch (AccuGraph) an iteration."""
     g = rmat(8, 5, seed=102).undirected_view()
     kw = dict(accelerator=accelerator, partition_elements=64,
               fixed_iters=3)
     assert simulate(g, problem, **kw) == simulate(g, problem,
                                                   device="cpu", **kw)
-    engine = (edge_centric.run if accelerator == "hitgraph"
-              else vertex_centric.run)
+    engine, kernel = ((edge_centric.run, segment_reduce)
+                      if accelerator == "hitgraph"
+                      else (vertex_centric.run, spmv_ell))
     gw = g.with_unit_weights()
+    before = kernel.launches
     a = engine(gw, Problem(problem), fixed_iters=3)
+    assert kernel.launches == before + 3
     b = engine(gw, Problem(problem), fixed_iters=3, device="cpu")
     np.testing.assert_allclose(a.values, b.values, rtol=1e-5)

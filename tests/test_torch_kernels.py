@@ -1,8 +1,10 @@
 """The plain versions of the port's segment_reduce, edge_scatter and
-spmv_ell kernels (and the ELL packers) against the JAX package's Pallas
-kernels, run through their ``ops.py`` in interpret mode on the same seeded
+spmv_ell kernels (and the ELL packers, the sliced one included) against
+the JAX package's Pallas kernels, run through their ``ops.py`` in interpret mode on the same seeded
 inputs, at the shapes, ops, dtypes and tolerances of
 ``tests/test_kernels.py``; and the wrappers' input checks."""
+
+import dataclasses
 
 import numpy as np
 import jax.numpy as jnp
@@ -24,9 +26,10 @@ from repro_torch.kernels.edge_scatter.ops import edge_scatter
 from repro_torch.kernels.edge_scatter.ref import edge_scatter_ref
 from repro_torch.kernels.segment_reduce.ops import segment_reduce
 from repro_torch.kernels.segment_reduce.ref import segment_reduce_ref
-from repro_torch.kernels.spmv_ell.ops import (csr_to_ell, pack_in_edges,
-                                              spmv_ell)
-from repro_torch.kernels.spmv_ell.ref import spmv_ell_ref
+from repro_torch.kernels.spmv_ell.ops import (CHUNK_SLOTS, HEAVY_SLOTS,
+                                              csr_to_ell, pack_in_edges,
+                                              spmv_ell, spmv_sell)
+from repro_torch.kernels.spmv_ell.ref import spmv_ell_ref, spmv_sell_ref
 
 DTYPES = {"float32": (jnp.float32, torch.float32),
           "bfloat16": (jnp.bfloat16, torch.bfloat16)}
@@ -170,30 +173,93 @@ def test_csr_spmv_end_to_end_vs_pallas():
                                rtol=1e-5)
 
 
-def test_pack_in_edges_equals_dense_product():
-    """The degree-bucket packer on a skewed rmat: every bucket's width is
-    the power of two at or above its rows' in-degrees, every edge lands
-    in exactly one slot, and the buckets' SpMV equals a dense product."""
-    g = rmat(9, 8, seed=11)
+def _in_edge_graph(n, hub_in, seed):
+    """A small directed graph with one destination of ``hub_in``
+    in-edges, a spread of light in-degrees, vertices with no in-edge and
+    a light-row count that leaves the last slice partly full."""
+    rng = np.random.default_rng(seed)
+    light = rng.integers(0, n // 2, 5 * n)          # dsts < n / 2 only
+    dst = np.concatenate([np.full(hub_in, n - 1), light,
+                          np.arange(n // 2, n // 2 + 7)])
+    src = rng.integers(0, n, len(dst))
+    perm = rng.permutation(len(dst))
+    return src[perm], dst[perm]
+
+
+def _slot_rows(a):
+    """The destination of every slot of a SlicedEll (-1 for padding
+    rows), as the kernel reads the layout."""
+    width = np.diff(a.slice_ptr.numpy()) // 32
+    light = np.repeat(a.slice_rows.numpy().reshape(-1, 32), width, axis=0)
+    heavy = np.repeat(a.chunk_rows.numpy(), np.diff(a.chunk_ptr.numpy()))
+    return np.concatenate([light.ravel(), heavy])
+
+
+@pytest.mark.parametrize("heavy,chunk", [(8, 4), (8, 32), (16, 1000),
+                                         (4, 7)])
+def test_pack_in_edges_spmv_vs_pallas(heavy, chunk):
+    """The sliced ELL's plain SpMV against the JAX package's Pallas SpMV
+    (interpret mode) over a ``csr_to_ell`` of the same in-edges, at the
+    tolerance of ``test_csr_spmv_end_to_end_vs_pallas``; one in-degree
+    far above the heavy threshold, empty rows, a partly full slice."""
+    n = 300
+    src, dst = _in_edge_graph(n, hub_in=heavy * 12, seed=heavy + chunk)
+    w = np.random.default_rng(1).integers(1, 5, len(dst)).astype(
+        np.float32)
+    x = np.random.default_rng(2).random(n).astype(np.float32)
+    a = pack_in_edges(src, dst, n, w, heavy=heavy, chunk=chunk)
+    deg = np.bincount(dst, minlength=n)
+    assert (deg == 0).any() and deg.max() >= 12 * heavy
+    assert int((a.slice_rows < 0).sum()) > 0       # last slice partly full
+    assert a.n_chunks >= 1 and a.n_slices >= 1
+    order = np.argsort(dst, kind="stable")
+    pointers = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum(deg, out=pointers[1:])
+    cols, vals = r_csr_to_ell(RCSR(n, pointers, src[order], w[order]))
+    want = np.asarray(r_spmv_ell(cols, vals, x))
+    got = spmv_sell(a, _t(x))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5)
+    assert torch.equal(spmv_sell_ref(a, _t(x)), got)
+
+
+@pytest.mark.parametrize("scale,heavy,chunk", [
+    (9, 64, 50), (12, HEAVY_SLOTS, CHUNK_SLOTS), (12, HEAVY_SLOTS, 300)])
+def test_pack_in_edges_equals_dense_product(scale, heavy, chunk):
+    """The sliced-ELL packer on a skewed rmat: light slices of 32 rows,
+    widest first, each padded to its widest row; heavy rows unpadded in
+    chunks; every edge in exactly one slot; the SpMV equals a dense
+    product."""
+    g = rmat(scale, 8, seed=11)
     rng = np.random.default_rng(12)
     w = rng.random(g.m).astype(np.float32)
     x = rng.random(g.n).astype(np.float32)
     deg = g.in_degrees()
-    buckets = pack_in_edges(g.src, g.dst, g.n, w)
-    assert len(buckets) >= 5                  # skewed: many widths
-    widths = [b.cols.shape[1] for b in buckets]
-    assert widths == sorted(widths)
-    seen = np.concatenate([b.rows for b in buckets])
+    a = pack_in_edges(g.src, g.dst, g.n, w, heavy=heavy, chunk=chunk)
+    assert a.n_slices >= 5 and a.n_chunks >= int((deg >= heavy).sum()) > 0
+    width = np.diff(a.slice_ptr.numpy()) // 32
+    assert np.all(np.diff(width) <= 0)
+    rows = a.slice_rows.numpy().reshape(-1, 32)
+    for s, k in enumerate(width):
+        r = rows[s][rows[s] >= 0]
+        assert deg[r].max() == k and np.all(deg[r] < heavy)
+    heavy_rows = a.chunk_rows.numpy()
+    assert np.all(deg[heavy_rows] >= heavy)
+    assert np.all(np.diff(heavy_rows) >= 0)
+    assert np.all(np.diff(a.chunk_ptr.numpy()) <= chunk)
+    lo = int(a.chunk_ptr[0])
+    hcols = a.cols.numpy()[lo:]
+    hrows = np.repeat(heavy_rows, np.diff(a.chunk_ptr.numpy()))
+    assert np.all(np.diff(hrows * g.n + hcols) >= 0)  # by source in a row
+    seen = np.concatenate([rows[rows >= 0], np.unique(heavy_rows)])
     np.testing.assert_array_equal(np.sort(seen), np.flatnonzero(deg))
-    y = np.zeros(g.n, dtype=np.float32)
-    for b in buckets:
-        k = b.cols.shape[1]
-        assert k & (k - 1) == 0
-        assert np.all(deg[b.rows] <= k) and np.all(2 * deg[b.rows] > k)
-        assert np.all(np.diff(b.rows) > 0)
-        assert int((b.cols < g.n).sum()) == int(deg[b.rows].sum())
-        assert np.all(b.vals[b.cols == g.n] == 0)
-        y[b.rows] = spmv_ell(_t(b.cols), _t(b.vals), _t(x)).numpy()
+    slot_rows = _slot_rows(a)
+    cols = a.cols.numpy()
+    real = cols < g.n
+    assert int(real.sum()) == g.m
+    np.testing.assert_array_equal(np.bincount(slot_rows[real],
+                                              minlength=g.n), deg)
+    assert np.all(a.vals.numpy()[~real] == 0)
+    y = spmv_sell(a, _t(x)).numpy()
     dense = np.zeros((g.n, g.n))
     np.add.at(dense, (g.dst, g.src), w.astype(np.float64))
     np.testing.assert_allclose(y, dense @ x.astype(np.float64), rtol=1e-5,
@@ -201,17 +267,67 @@ def test_pack_in_edges_equals_dense_product():
 
 
 def test_pack_in_edges_keeps_edge_order_in_a_row():
+    """Rows 0 (3 in-edges) and 2 (2 in-edges) share one column-major
+    slice, each in edge-list order; with ``heavy=3`` row 0 is heavy and
+    goes to chunks, its edges sorted by source."""
     src = np.array([5, 1, 4, 2, 3], dtype=np.int64)
     dst = np.array([0, 2, 0, 0, 2], dtype=np.int64)
     w = np.arange(1, 6, dtype=np.float32)
-    b4, = [b for b in pack_in_edges(src, dst, 6, w)
-           if b.cols.shape[1] == 4]
-    np.testing.assert_array_equal(b4.rows, [0])
-    np.testing.assert_array_equal(b4.cols, [[5, 4, 2, 6]])
-    np.testing.assert_array_equal(b4.vals, [[1, 3, 4, 0]])
-    b2, = [b for b in pack_in_edges(src, dst, 6, w)
-           if b.cols.shape[1] == 2]
-    np.testing.assert_array_equal(b2.cols, [[1, 3]])
+    a = pack_in_edges(src, dst, 6, w)
+    assert a.n_slices == 1 and a.n_chunks == 0
+    np.testing.assert_array_equal(a.slice_rows[:3], [0, 2, -1])
+    np.testing.assert_array_equal(a.slice_ptr, [0, 96])
+    cols = a.cols.numpy().reshape(3, 32)           # [slot, row]
+    vals = a.vals.numpy().reshape(3, 32)
+    np.testing.assert_array_equal(cols[:, 0], [5, 4, 2])
+    np.testing.assert_array_equal(vals[:, 0], [1, 3, 4])
+    np.testing.assert_array_equal(cols[:, 1], [1, 3, 6])
+    np.testing.assert_array_equal(vals[:, 1], [2, 5, 0])
+    assert np.all(cols[:, 2:] == 6)
+    b = pack_in_edges(src, dst, 6, w, heavy=3, chunk=2)
+    np.testing.assert_array_equal(b.slice_rows[:2], [2, -1])
+    np.testing.assert_array_equal(b.chunk_rows, [0, 0])
+    np.testing.assert_array_equal(b.chunk_ptr, [64, 66, 67])
+    np.testing.assert_array_equal(b.cols[64:], [2, 4, 5])
+    np.testing.assert_array_equal(b.vals[64:], [4, 3, 1])
+
+
+def test_pack_in_edges_of_no_edges():
+    a = pack_in_edges(np.zeros(0, np.int64), np.zeros(0, np.int64), 4,
+                      np.zeros(0, np.float32))
+    assert a.n_slices == 0 and a.n_chunks == 0 and a.cols.numel() == 0
+    assert torch.equal(spmv_sell(a, torch.ones(4)), torch.zeros(4))
+
+
+@pytest.mark.parametrize("op", ["sum", "min", "max"])
+@pytest.mark.parametrize("sorted_ids", [True, False])
+def test_segment_reduce_long_runs_vs_pallas(op, sorted_ids):
+    """Destination-sorted ids with runs longer than the card's 4,096-
+    update tile (and out-of-range ids inside a run), as the HitGraph
+    gather feeds them; the same ids shuffled.  Tolerances as
+    ``test_segment_reduce_vs_pallas``."""
+    rng = np.random.default_rng(7)
+    n = 40
+    lengths = rng.integers(0, 300, n)
+    lengths[[3, 17]] = [9000, 5000]
+    ids = np.repeat(np.arange(n), lengths).astype(np.int32)
+    ids[rng.random(len(ids)) < 0.01] = -1
+    ids[rng.random(len(ids)) < 0.01] = n + 3
+    if not sorted_ids:
+        ids = rng.permutation(ids)
+    vals = rng.normal(size=len(ids)).astype(np.float32)
+    want = np.asarray(r_segment_reduce(ids, vals, n, op=op), np.float32)
+    got = segment_reduce(_t(ids), _t(vals), n, op)
+    assert torch.equal(segment_reduce_ref(_t(ids), _t(vals), n, op), got)
+    if op == "sum":
+        np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+    else:
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _sell():
+    return pack_in_edges(np.array([0, 1, 2]), np.array([1, 1, 2]), 3,
+                         np.ones(3, np.float32), heavy=2, chunk=1)
 
 
 def _i32(*a):
@@ -258,6 +374,21 @@ def _f32(*a):
      ValueError),
     (lambda: spmv_ell(torch.zeros(2, 4, dtype=torch.int32)[:, ::2],
                       torch.zeros(2, 2), _f32(1)), ValueError),
+    # the sliced ELL: x's dtype, shape and device, and the tables
+    (lambda: spmv_sell(_sell(), torch.ones(3).double()), TypeError),
+    (lambda: spmv_sell(_sell(), torch.ones(3, 1)), ValueError),
+    (lambda: spmv_sell(_sell(), torch.ones(3).to("meta")), ValueError),
+    (lambda: spmv_sell(dataclasses.replace(
+        _sell(), slice_ptr=_sell().slice_ptr.int()), torch.ones(3)),
+     ValueError),
+    (lambda: spmv_sell(dataclasses.replace(
+        _sell(), chunk_rows=_sell().chunk_rows.long()), torch.ones(3)),
+     ValueError),
+    (lambda: spmv_sell(dataclasses.replace(
+        _sell(), chunk_rows=_sell().chunk_rows[:0]), torch.ones(3)),
+     ValueError),
+    (lambda: pack_in_edges(_i32(0), _i32(1), 3, _f32(1), heavy=0),
+     ValueError),
 ])
 def test_wrappers_reject_bad_inputs(call, exc):
     with pytest.raises(exc):
