@@ -9,11 +9,14 @@ Phases, one JSON line each:
 2. build    — compile ``src/repro_torch/csrc/*.cu`` with nvcc (sm_90a).
 3. kernels  — each CUDA kernel against its plain PyTorch version on the
               card: ``dram_serve`` on seeded random programs (4 memories x
-              block widths K=1/8, carry chained across two calls),
+              block widths K=1/8, carry chained across two calls) and on
+              blocks the packer never makes (several misses, banks past
+              the channel's), its pre-pass's records against theirs,
               ``dram_timing`` on seeded random traces (DDR3, DDR4, HBM2, a
               2-rank DDR4, and one bulk trace that trips the tFAW window;
-              carry chained across two calls) and ``sweep_min`` on a random
-              graph, bit for bit; ``segment_reduce`` (sum/min/max in f32,
+              carry chained across two calls), the round sweep
+              (``sweep_min_block``) and the serial sweep on rmat(12, 4)
+              (add 0 and 1, from ``arange`` and a warm start), bit for bit; ``segment_reduce`` (sum/min/max in f32,
               sum in bf16; and on run layouts: sorted, unsorted, one
               run over many tiles, runs ending at thread, warp and tile
               edges, d = 1 and 3), ``edge_scatter`` (copy/add/mul) and
@@ -22,13 +25,17 @@ Phases, one JSON line each:
               cases with out-of-range ids, to the stated tolerances.
 4. goldens  — the 20 rmat7/rmat8 HitGraph/AccuGraph keys of
               ``tests/goldens/simreports.json`` through ``simulate`` on
-              the card.
+              the card; then the sweep's worst case, an ascending path of
+              2^20 vertices (the route, the rounds, the time of each
+              route), and a descending path (one round).
 5. main     — the main path at full size: the paper's Tab. 1 wiki-talk
               stand-in (2,394,385 vertices, 10 M undirected edges), WCC on
               HitGraph (Tab. 4: q = 256,000, 4 DDR3 channels) and on
               AccuGraph (q = n, 1 DDR4 channel), through
               ``SimSession.run``, with the kernel launch counts zeroed
-              just before and read just after.
+              just before and read just after: 5 round sweeps, no serial
+              one, one pre-pass and one serve a program; the reports'
+              runtimes as the serve's first design gave them.
 6. dynamic  — the dynamic-graph path at full size on the same graph,
               through ``run_dynamic(..., verify=True)``: HitGraph WCC under
               ``uniform-churn`` (3 epochs, inserts and deletes) and
@@ -46,7 +53,11 @@ Phases, one JSON line each:
 8. compare  — every kernel against its plain version on the paths' own
               inputs: a window of each packed wiki-talk program that
               crosses a phase boundary (served as two chained kernel
-              calls), one full sweep of the AccuGraph block, a window of
+              calls; the pre-pass's records too), each full program
+              (pre-pass and serve timed apart, finishes and carry held to
+              their pinned digest), the AccuGraph block's 5 WCC sweeps
+              (each held to the serial kernel; the first also on the
+              serial route and by the plain loop), a window of
               the HitGraph ``ep1_apply`` phase's per-channel streams (two
               chained kernel calls), and the full-size PR scatter and
               gather (destination-sorted, and in raw edge order) and the
@@ -66,6 +77,7 @@ CUDA device.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import json
 import subprocess
 import sys
@@ -82,6 +94,20 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM device memory (data sheet)
 #: WCC): iterations and packed serve steps, per accelerator
 MAIN_EXPECT = {"hitgraph": (8, 743_776), "accugraph": (5, 859_351)}
 
+#: the full-size reports' simulated runtimes (ns) as the serve kernel of
+#: the port's first design (one CTA a program, held bit for bit to its
+#: plain version on windows of these programs) gave them on the H100
+#: (chip_smoke.py, final run of the commit before the serve's redesign):
+#: the redesigned serve must give them again.  Keys: (path, accelerator)
+#: and, for the stationary path, the problem.
+PINNED_RUNTIME_NS = {
+    ("main", "hitgraph"): 22798622.5, ("main", "accugraph"): 18188865.0,
+    ("dynamic", "hitgraph"): 117134917.5,
+    ("dynamic", "accugraph"): 75154640.83333334,
+    ("stationary", "hitgraph"): 11096311.25,
+    ("stationary", "accugraph"): 10913661.666666668,
+}
+
 #: the dynamic path: accelerator -> update stream (3 epochs each)
 DYNAMIC_CASES = {"hitgraph": "uniform-churn", "accugraph": "pa-growth"}
 
@@ -96,8 +122,23 @@ DYNAMIC_PINNED = {
     "accugraph": [(5, 4_958_483), (4, 4_565_454), (5, 5_582_023),
                   (4, 4_695_464)],
 }
-KERNELS = ("dram_serve", "dram_timing", "sweep_min", "segment_reduce",
-           "edge_scatter", "spmv_ell")
+KERNELS = ("dram_serve", "dram_serve_prepass", "dram_timing", "sweep_min",
+           "sweep_min_serial", "segment_reduce", "edge_scatter", "spmv_ell")
+
+#: vertices of the sweep's worst case, an ascending path
+PATH_N = 1 << 20
+#: the worst case may cost at most this many times the serial route
+PATH_SLOWDOWN = 2.2
+
+#: SHA-256 of the finishes and final carry of the full main-path programs
+#: served from a cold carry, as the serve's first design gave them on the
+#: H100 (the plain version would take about 20 minutes a program)
+PINNED_SERVE_DIGEST = {
+    "hitgraph":
+        "65e3b2a45ea9c00b2550e5e4d4e36bd3fcfe83465f98ca5e7451f687033f6fa3",
+    "accugraph":
+        "c910845c7354b013e83a6061b26b9b5418b69a49a46aad5c9a3ede6a2189bef2",
+}
 
 #: the stationary path: problems, iterations, and the largest relative
 #: error of the values against a float64 recompute.  HitGraph's gather
@@ -170,6 +211,21 @@ def serve_bytes(S, C, K, B, R) -> int:
     out."""
     carry = 2 * C * B + 2 * C + 5 * C * R
     return S * C * K * 12 + S * 4 + 7 * 4 + 2 * carry * 4
+
+
+def prepass_bytes(S, C, K, T) -> int:
+    """Bytes the serve's pre-pass must move: issue and meta in (8 B a
+    lane-step), the boundary flags, and the records out (8 B a lane-step
+    over the steps rounded up to whole chunks of ``T``)."""
+    return S * C * K * 8 + S * 4 + -(-S // T) * T * C * K * 8
+
+
+def serve_digest(fin, state) -> str:
+    """SHA-256 of a serve's finishes and its 6-tuple carry, as bytes."""
+    h = hashlib.sha256(fin.cpu().numpy().tobytes())
+    for x in state:
+        h.update(x.cpu().numpy().tobytes())
+    return h.hexdigest()
 
 
 def timing_bytes(C, L, B, R) -> int:
@@ -470,6 +526,8 @@ def run_stationary_path(wt, sessions, card, dev):
                  **{setup_key: setup_ms}, card=card)
             assert err <= STATIONARY_RTOL, (acc, prob, err)
             assert r.iterations == STATIONARY_ITERS, r.iterations
+            assert r.runtime_ns == PINNED_RUNTIME_NS["stationary", acc], (
+                acc, prob, r.runtime_ns)
             assert np.isfinite(r.runtime_ns) and r.runtime_ns > 0
             assert counts["dram_serve"] > 0
             need = (("edge_scatter", "segment_reduce") if acc == "hitgraph"
@@ -674,6 +732,8 @@ def run_dynamic_path(wt, acc, session, main_report, card):
                               for k in KERNELS},
              stage_seconds=r.stage_seconds)
     agg = res.report
+    assert agg.runtime_ns == PINNED_RUNTIME_NS["dynamic", acc], (
+        acc, agg.runtime_ns)
     emit(phase="dynamic", accelerator=acc, updates=preset,
          epochs=res.n_epochs, iterations=agg.iterations,
          requests=agg.total_requests, runtime_ns=agg.runtime_ns,
@@ -752,7 +812,10 @@ def serve_both(packed, lo, hi, split, state, dev):
     (one call) on steps ``[lo, hi)`` from ``state``; returns the max
     absolute difference over finishes and carry, and the inputs on the
     card (streams, timing)."""
-    from repro_torch.kernels.dram_timing.ops import dram_serve
+    from repro_torch.kernels.dram_timing.ops import (chunk_steps, dram_serve,
+                                                     serve_prepass,
+                                                     serve_records)
+    from repro_torch.kernels.dram_timing.ref import serve_prepass_ref
     from repro_torch.kernels.dram_timing.ref import dram_serve_ref
     streams = [i32(a[lo:hi], dev) for a in (packed.issue, packed.meta,
                                              packed.boundary)]
@@ -768,6 +831,185 @@ def serve_both(packed, lo, hi, split, state, dev):
     diff = max([max_abs_diff(fin_k, fin_p)]
                + [max_abs_diff(a, b) for a, b in zip(k_state, p_state)])
     return diff, streams, timing
+
+
+def check_sweep(dev) -> dict:
+    """The round kernel (``sweep_min_block``) and the serial kernel
+    (``sweep_min``) against the plain sequential sweep on rmat(12, 4)
+    (destination-sorted, self-loops and duplicate edges kept), for add 0
+    and 1, from the WCC start values and from a warm start holding
+    INF32; the round kernel's rounds beside the synchronous rounds'
+    (never more)."""
+    from repro_torch.graphs.generators import rmat
+    from repro_torch.kernels.sweep_min.ops import (pack_sweep_block,
+                                                   sweep_min,
+                                                   sweep_min_block,
+                                                   sweep_min_ref,
+                                                   sweep_min_rounds_ref)
+    g = rmat(12, 4, seed=9)
+    order = np.argsort(g.dst, kind="stable")
+    block = pack_sweep_block(g.src[order], g.dst[order], g.n, device=dev)
+    worst, cases = 0, []
+    for add in (0, 1):
+        for start in ("arange", "warm"):
+            rng = np.random.default_rng(add)
+            x0 = (np.arange(g.n) if start == "arange" else np.where(
+                rng.random(g.n) < 0.3, 2**31 - 2**24,
+                rng.integers(0, 1000, g.n)))
+            vk = i32(x0, dev)
+            vs, vp, vr = vk.clone(), vk.clone(), vk.clone()
+            res = sweep_min_block(vk, block, add)
+            sweep_min(vs, block.src, block.dst, add)
+            sweep_min_ref(vp, block.src, block.dst, add)
+            rounds = sweep_min_rounds_ref(vr, block.src, block.dst, add)
+            torch.cuda.synchronize()
+            worst = max(worst, max_abs_diff(vk, vp), max_abs_diff(vs, vp),
+                        max_abs_diff(vr, vp))
+            assert res.route == "rounds" and res.rounds <= rounds, res
+            cases.append({"add": add, "start": start, "rounds": res.rounds,
+                          "synchronous_rounds": rounds})
+    assert worst == 0, f"sweep_min differs from its plain version: {worst}"
+    return {"sweep_min_cases": cases, "sweep_min_max_abs_diff": worst}
+
+
+def sweep_paths(dev, card) -> dict:
+    """The sweep's worst case, an ascending path of ``PATH_N`` vertices
+    from the WCC start values (every value improves along the whole
+    chain: ~n rounds), and a descending path (1 round): the route taken,
+    the rounds, and the time of the whole call beside the serial route's
+    alone; the ascending call must cost at most ``PATH_SLOWDOWN`` times
+    the serial route.  Both exact against the plain sweep."""
+    from repro_torch.kernels.sweep_min.ops import (pack_sweep_block,
+                                                   round_budget, sweep_min,
+                                                   sweep_min_block,
+                                                   sweep_min_ref)
+    out = {}
+    v = np.arange(1, PATH_N)
+    for name, (src, dst) in (("ascending", (v - 1, v)),
+                             ("descending", (v, v - 1))):
+        order = np.argsort(dst, kind="stable")
+        block = pack_sweep_block(src[order], dst[order], PATH_N, device=dev)
+        x0 = torch.arange(PATH_N, dtype=torch.int32, device=dev)
+        got, want = x0.clone(), x0.clone()
+        res = sweep_min_block(got, block, 0)
+        sweep_min_ref(want, block.src, block.dst, 0)
+        assert torch.equal(got, want), f"the {name} path's sweep differs"
+        ms = cuda_ms(lambda: sweep_min_block(x0.clone(), block, 0), reps=2)
+        serial_ms = cuda_ms(
+            lambda: sweep_min(x0.clone(), block.src, block.dst, 0), reps=2)
+        out[name] = {"route": res.route, "rounds": res.rounds,
+                     "budget": round_budget(block), "ms": ms,
+                     "serial_route_ms": serial_ms,
+                     "rounds_route_ms": ms - serial_ms
+                     if res.route == "serial" else ms,
+                     "slowdown_vs_serial": ms / serial_ms}
+    emit(phase="sweep_paths", vertices=PATH_N, card=card, **out)
+    assert out["descending"]["route"] == "rounds"
+    assert out["descending"]["rounds"] == 1
+    assert out["ascending"]["slowdown_vs_serial"] <= PATH_SLOWDOWN, out
+    return out
+
+
+def sweep_main_block(wt, sessions, dev, card) -> dict:
+    """The AccuGraph main-path block (q = n): the 5 WCC sweeps of the run
+    in order, each by the round kernel (its rounds and time) and held to
+    the serial kernel's result; the first sweep also on the serial route
+    and by the plain loop (host clock).  Bound: the rounds times one
+    pass's bytes (the sliced ELL's sources, the row ids, the values read
+    and written), beside one pass's."""
+    from repro_torch.algorithms.vertex_centric import _block_edges
+    from repro_torch.kernels.sweep_min.ops import (pack_sweep_block,
+                                                   sweep_min,
+                                                   sweep_min_block,
+                                                   sweep_min_ref)
+    from repro_torch.sim import get_accelerator
+    from repro_torch.sim.session import resolve_run_config
+    accu = get_accelerator("accugraph")
+    parts = sessions["accugraph"].model_for(
+        accu, resolve_run_config(accu)).parts
+    s_np, d_np = _block_edges(parts, 0)
+    pack_ms = host_ms(lambda: pack_sweep_block(
+        s_np.astype(np.int32), d_np.astype(np.int32), wt.n, device=dev))
+    block = pack_sweep_block(s_np.astype(np.int32), d_np.astype(np.int32),
+                             wt.n, device=dev)
+    a = block.ell
+    rows = int((a.slice_rows >= 0).sum()) + a.n_chunks
+    pass_bytes = 4 * block.slots + 4 * rows + 8 * wt.n
+    values = torch.arange(wt.n, dtype=torch.int32, device=dev)
+    sweeps = []
+    while True:
+        before = values.clone()
+        res = sweep_min_block(values, block, 0)
+        ms = cuda_ms(lambda: sweep_min_block(before.clone(), block, 0), 2)
+        serial = before.clone()
+        sweep_min(serial, block.src, block.dst, 0)
+        diff = max_abs_diff(values, serial)
+        assert diff == 0, f"sweep {len(sweeps)} differs from the serial one"
+        assert res.route == "rounds", res
+        sweeps.append({"rounds": res.rounds, "ms": ms,
+                       "changed": int((values != before).sum())})
+        if torch.equal(values, before):
+            break
+    assert len(sweeps) == MAIN_EXPECT["accugraph"][0], sweeps
+    v0 = torch.arange(wt.n, dtype=torch.int32, device=dev)
+    serial_ms = cuda_ms(lambda: sweep_min(v0.clone(), block.src, block.dst,
+                                          0), reps=1)
+    vp = v0.clone()
+    plain_ms = host_ms(lambda: sweep_min_ref(vp, block.src, block.dst, 0))
+    vk = v0.clone()
+    sweep_min_block(vk, block, 0)
+    err = max_abs_diff(vk, vp)
+    assert err == 0, "sweep_min differs from its plain version"
+    first = sweeps[0]
+    emit(phase="main_block", sweeps=sweeps, pack_ms=pack_ms,
+         serial_route_ms=serial_ms, plain_ms=plain_ms, card=card)
+    return {"max_abs_err": err, "ms": first["ms"], "rounds": first["rounds"],
+            "plain_ms": plain_ms, "serial_route_ms": serial_ms,
+            "bound_ms": first["rounds"] * pass_bytes / HBM_BYTES_PER_S * 1e3,
+            "one_pass_bound_ms": pass_bytes / HBM_BYTES_PER_S * 1e3,
+            "serial_bound_ms": (8 * block.m + 8 * wt.n)
+            / HBM_BYTES_PER_S * 1e3,
+            "sweeps": sweeps, "pack_ms": pack_ms,
+            "shape": {"edges": block.m, "slots": block.slots,
+                      "vertices": wt.n, "slices": a.n_slices,
+                      "heavy_chunks": a.n_chunks}}
+
+
+def any_meta_serve(dev) -> int:
+    """``dram_serve`` on blocks the packer never makes (several misses,
+    invalid miss lanes, banks past the channel's; 4 channels of 2 ranks,
+    K = 8), against its plain version; the pre-pass's records against
+    theirs."""
+    from repro_torch.core import vectorized as vec
+    from repro_torch.core.dram import PRESETS
+    from repro_torch.kernels.dram_timing.ops import (chunk_steps, dram_serve,
+                                                     serve_prepass)
+    from repro_torch.kernels.dram_timing.ref import (dram_serve_ref,
+                                                     serve_prepass_ref)
+    worst = 0
+    for seed in range(3):
+        rng = np.random.default_rng(seed)
+        S, C, K, B, R = 400, 4, 8, 8, 2
+        meta = (rng.integers(0, B + 2, (S, C, K))
+                | rng.choice([0, vec.META_MISS], (S, C, K))
+                | rng.choice([0, vec.META_CONFL], (S, C, K))
+                | rng.choice([0, vec.META_VALID, vec.META_VALID], (S, C, K))
+                | (rng.integers(0, K, (S, C, K)) << vec.META_RB_SHIFT))
+        args = [i32(a, dev) for a in (
+            rng.integers(0, 500, (S, C, K)), meta, rng.random(S) < 0.1,
+            vec.timing_params(PRESETS["accugraph"]().timing))]
+        state = tuple(vec.init_lean_carry(C, B, B // R, dev)) + (
+            torch.zeros(C, dtype=torch.int32, device=dev),)
+        fin_k, st_k = dram_serve(*args, state)
+        fin_p, st_p = dram_serve_ref(*args, state)
+        T = chunk_steps(C, K)
+        rec = serve_prepass(*args, B // R, R, T)
+        rec_p = serve_prepass_ref(*args, B // R, R, rec.shape[1])
+        torch.cuda.synchronize()
+        worst = max([worst, max_abs_diff(fin_k, fin_p),
+                     max_abs_diff(rec, rec_p)]
+                    + [max_abs_diff(a, b) for a, b in zip(st_k, st_p)])
+    return worst
 
 
 def main() -> int:
@@ -786,11 +1028,12 @@ def main() -> int:
     from repro_torch.graphs.datasets import instantiate
     from repro_torch.graphs.generators import rmat
     from repro_torch.kernels import build, launch_counts, zero_launch_counts
-    from repro_torch.kernels.dram_timing.ops import dram_serve
-    from repro_torch.kernels.sweep_min.ops import sweep_min, sweep_min_ref
+    from repro_torch.kernels.dram_timing.ops import (chunk_steps, dram_serve,
+                                                     serve_prepass,
+                                                     serve_records)
+    from repro_torch.kernels.dram_timing.ref import serve_prepass_ref
     from repro_torch.sim import SimSession, get_accelerator, simulate
     from repro_torch.sim.session import resolve_run_config
-    from repro_torch.algorithms.vertex_centric import _block_edges
     from repro_torch.kernels.dram_timing.ref import dram_serve_ref
 
     dev = torch.device("cuda")
@@ -821,21 +1064,14 @@ def main() -> int:
             worst = max(worst, diff)
             cases += 1
     assert worst == 0, f"dram_serve differs from its plain version: {worst}"
-    g = rmat(12, 4, seed=9).undirected_view()
-    order = np.argsort(g.dst, kind="stable")
-    src, dst = i32(g.src[order], dev), i32(g.dst[order], dev)
-    sweep_worst = 0
-    for add in (0, 1):
-        vk = torch.arange(g.n, dtype=torch.int32, device=dev)
-        vp = vk.clone()
-        sweep_min(vk, src, dst, add)
-        sweep_min_ref(vp, src, dst, add)
-        sweep_worst = max(sweep_worst, max_abs_diff(vk, vp))
-    assert sweep_worst == 0, "sweep_min differs from its plain version"
+    meta_worst = any_meta_serve(dev)
+    assert meta_worst == 0, (
+        f"dram_serve differs from its plain version on any-meta blocks: "
+        f"{meta_worst}")
     emit(phase="kernels", tolerance="exact", dram_serve_cases=cases,
          dram_serve_launches=dram_serve.launches - launches0,
-         max_abs_diff=worst, sweep_min_max_abs_diff=sweep_worst,
-         **check_dram_timing(dev))
+         max_abs_diff=worst, any_meta_max_abs_diff=meta_worst,
+         **check_sweep(dev), **check_dram_timing(dev))
     emit(phase="kernels", kernels=["segment_reduce", "edge_scatter",
                                    "spmv_ell"],
          tolerance={"min/max, edge_scatter": "exact",
@@ -864,6 +1100,7 @@ def main() -> int:
                     checked += 1
     assert not bad, f"golden digests differ on the card: {bad}"
     emit(phase="goldens", checked=checked, mismatched=len(bad))
+    paths = sweep_paths(dev, card)
 
     # ---- 5. the main path at full size --------------------------------
     t0 = time.perf_counter()
@@ -878,9 +1115,17 @@ def main() -> int:
         reports[acc] = sessions[acc].run("wcc", acc)
         reports[acc].stage_seconds["total"] = time.perf_counter() - t0
     launches = {"main": launch_counts()}
-    for name in ("dram_serve", "sweep_min"):
+    for name in ("dram_serve", "dram_serve_prepass", "sweep_min"):
         assert launches["main"][name] > 0, (
             f"{name} was never launched on the main path")
+    # one round-kernel launch a sweep (AccuGraph's 5 WCC sweeps of its one
+    # block), never the serial route; one serve a program
+    want = {"sweep_min": MAIN_EXPECT["accugraph"][0], "sweep_min_serial": 0,
+            "dram_serve": 2, "dram_serve_prepass": 2}
+    assert {k: launches["main"][k] for k in want} == want, launches["main"]
+    for acc, r in reports.items():
+        assert r.runtime_ns == PINNED_RUNTIME_NS["main", acc], (
+            acc, r.runtime_ns)
 
     # ---- 6. the dynamic path at full size -------------------------------
     zero_launch_counts()
@@ -924,6 +1169,20 @@ def main() -> int:
         cold = cold_state(packed, C, dev)
         full_ms = cuda_ms(lambda: dram_serve(*full, cold), reps=2)
         B, R = packed.n_banks, cold[3].shape[1]
+        # its two launches apart, and its finishes and carry against
+        # those of the serve's first design on the card
+        T = chunk_steps(C, K)
+        rec = serve_prepass(*full, B // R, R, T)
+        prepass_ms = cuda_ms(
+            lambda: serve_prepass(*full, B // R, R, T), reps=5)
+        records_ms = cuda_ms(lambda: serve_records(rec, full[3], cold, S),
+                             reps=2)
+        fin_full, st_full = serve_records(rec, full[3], cold, S)
+        got_digest = serve_digest(fin_full, st_full)
+        assert got_digest == PINNED_SERVE_DIGEST[acc], (
+            f"dram_serve's full {acc} program differs from the pinned "
+            f"finishes: {got_digest}")
+        del rec, fin_full
         # a window of the real program crossing its first phase boundary,
         # started from the kernel's own carry at the window's start
         W = 8192
@@ -936,6 +1195,15 @@ def main() -> int:
         assert diff == 0, f"dram_serve differs on the {acc} window: {diff}"
         win_ms = cuda_ms(lambda: dram_serve(*win, timing, st), reps=5)
         plain_ms = host_ms(lambda: dram_serve_ref(*win, timing, st))
+        win_rec = serve_prepass(*win, timing, B // R, R, T)
+        rec_p = serve_prepass_ref(*win, timing, B // R, R, win_rec.shape[1])
+        diff = max(diff, max_abs_diff(win_rec, rec_p))
+        assert diff == 0, f"serve_prepass differs on the {acc} window"
+        prepass_win_ms = cuda_ms(
+            lambda: serve_prepass(*win, timing, B // R, R, T), reps=5)
+        prepass_plain_ms = cuda_ms(
+            lambda: serve_prepass_ref(*win, timing, B // R, R,
+                                      win_rec.shape[1]), reps=3)
         k = kernels.setdefault("dram_serve", {"max_abs_err": 0,
                                               "windows": {}})
         k["max_abs_err"] = max(k["max_abs_err"], diff)
@@ -943,31 +1211,22 @@ def main() -> int:
             "steps": W, "shape": [W, C, K], "ms": win_ms,
             "plain_ms": plain_ms,
             "bound_ms": serve_bytes(W, C, K, B, R) / HBM_BYTES_PER_S * 1e3,
+            "prepass_ms": prepass_win_ms,
+            "prepass_plain_ms": prepass_plain_ms,
+            "prepass_bound_ms": prepass_bytes(W, C, K, T)
+            / HBM_BYTES_PER_S * 1e3,
             "full_program": {"shape": [S, C, K], "ms": full_ms,
+                             "prepass_ms": prepass_ms,
+                             "records_ms": records_ms,
+                             "us_per_step": records_ms * 1e3 / S,
+                             "digest": got_digest,
                              "bound_ms": serve_bytes(S, C, K, B, R)
+                             / HBM_BYTES_PER_S * 1e3,
+                             "prepass_bound_ms": prepass_bytes(S, C, K, T)
                              / HBM_BYTES_PER_S * 1e3}}
         del full, win
 
-    # sweep_min: one full sweep of the AccuGraph wiki-talk block, from the
-    # WCC start values
-    accu = get_accelerator("accugraph")
-    parts = sessions["accugraph"].model_for(
-        accu, resolve_run_config(accu)).parts
-    s_np, d_np = _block_edges(parts, 0)
-    src, dst = i32(s_np, dev), i32(d_np, dev)
-    v0 = torch.arange(wt.n, dtype=torch.int32, device=dev)
-    sweep_ms = cuda_ms(lambda: sweep_min(v0.clone(), src, dst, 0), reps=2)
-    vk, vp = v0.clone(), v0.clone()
-    sweep_min(vk, src, dst, 0)
-    sweep_plain_ms = host_ms(lambda: sweep_min_ref(vp, src, dst, 0))
-    sweep_diff = max_abs_diff(vk, vp)
-    assert sweep_diff == 0, "sweep_min differs on the main-path block"
-    m = int(src.numel())
-    kernels["sweep_min"] = {
-        "max_abs_err": sweep_diff, "ms": sweep_ms,
-        "plain_ms": sweep_plain_ms,
-        "bound_ms": (m * 8 + wt.n * 8) / HBM_BYTES_PER_S * 1e3,
-        "shape": {"edges": m, "vertices": wt.n}}
+    kernels["sweep_min"] = sweep_main_block(wt, sessions, dev, card)
 
     # ---- CPU cross-check of the card's edge-centric run at full size ---
     t0 = time.perf_counter()
@@ -989,6 +1248,7 @@ def main() -> int:
     ds = kernels["dram_serve"]
     hw = ds["windows"]["hitgraph"]
     dt = kernels["dram_timing"]
+    sw = kernels["sweep_min"]
     by_path = {name: {path: counts[name] for path, counts in launches.items()}
                for name in KERNELS}
     table = [
@@ -1012,18 +1272,43 @@ def main() -> int:
          "bound_by": "bytes", "library_ms": None,
          "inputs": "hitgraph ep1_apply window", "window": dt["window"],
          "full_phase": dt["full_phase"]},
+        {"name": "dram_serve_prepass", "route": "cuda",
+         "source": "src/repro_torch/csrc/dram_serve.cu",
+         "replaces": "src/repro/kernels/dram_timing/kernel.py:210",
+         "launches": launches["main"]["dram_serve_prepass"],
+         "launches_by_path": by_path["dram_serve_prepass"],
+         "max_abs_err": ds["max_abs_err"],
+         "ms": hw["prepass_ms"], "plain_ms": hw["prepass_plain_ms"],
+         "bound_ms": hw["prepass_bound_ms"], "bound_by": "bytes",
+         "library_ms": None, "inputs": "hitgraph main-path window",
+         "full_program_ms": {acc: w["full_program"]["prepass_ms"]
+                             for acc, w in ds["windows"].items()},
+         "full_program_bound_ms": {
+             acc: w["full_program"]["prepass_bound_ms"]
+             for acc, w in ds["windows"].items()}},
         {"name": "sweep_min", "route": "cuda",
-         "source": "src/repro_torch/csrc/sweep_min.cu",
+         "source": "src/repro_torch/csrc/sweep_min_rounds.cu",
          "replaces": "src/repro/algorithms/vertex_centric.py:41",
          "launches": launches["main"]["sweep_min"],
          "launches_by_path": by_path["sweep_min"],
-         "max_abs_err": kernels["sweep_min"]["max_abs_err"],
-         "ms": kernels["sweep_min"]["ms"],
-         "plain_ms": kernels["sweep_min"]["plain_ms"],
-         "bound_ms": kernels["sweep_min"]["bound_ms"],
+         "max_abs_err": sw["max_abs_err"], "ms": sw["ms"],
+         "rounds": sw["rounds"], "plain_ms": sw["plain_ms"],
+         "bound_ms": sw["bound_ms"], "bound_by": "bytes",
+         "one_pass_bound_ms": sw["one_pass_bound_ms"],
+         "library_ms": None,
+         "inputs": "accugraph main-path block, first WCC sweep",
+         "sweeps": sw["sweeps"], "pack_ms": sw["pack_ms"],
+         "paths": paths, "shape": sw["shape"]},
+        {"name": "sweep_min_serial", "route": "cuda",
+         "source": "src/repro_torch/csrc/sweep_min.cu",
+         "replaces": "src/repro/algorithms/vertex_centric.py:41",
+         "launches": launches["main"]["sweep_min_serial"],
+         "launches_by_path": by_path["sweep_min_serial"],
+         "max_abs_err": sw["max_abs_err"], "ms": sw["serial_route_ms"],
+         "plain_ms": sw["plain_ms"], "bound_ms": sw["serial_bound_ms"],
          "bound_by": "bytes", "library_ms": None,
-         "inputs": "accugraph main-path block, one sweep",
-         "shape": kernels["sweep_min"]["shape"]},
+         "inputs": "accugraph main-path block, first WCC sweep",
+         "shape": sw["shape"]},
     ]
     replaces = {"segment_reduce": "segment_reduce/kernel.py:60",
                 "edge_scatter": "edge_scatter/kernel.py:63",

@@ -8,8 +8,10 @@ against the *current* value array, exactly like AccuGraph's sequential
 accumulator.  This is what makes AccuGraph converge in fewer iterations
 than HitGraph (Fig. 12b) — an effect the trace models depend on.
 
-The sweep is :func:`repro_torch.kernels.sweep_min.ops.sweep_min`: a
-one-thread CUDA kernel on the card, a plain loop on the CPU.
+The sweep is :func:`repro_torch.kernels.sweep_min.ops.sweep_min_block`
+over each block's in-edges, packed on the run's device once a run: on the
+card exact parallel rounds (the serial one-thread kernel past a budget of
+rounds), a plain loop on the CPU.
 
 Stationary problems (PR, SpMV) use synchronous pull semantics (two value
 arrays), matching the original article's fixed-iteration measurements:
@@ -32,7 +34,8 @@ from repro_torch.device import resolve_device
 from repro_torch.graphs.formats import (CSRPartitions, Graph,
                                         partition_intervals)
 from repro_torch.kernels.spmv_ell.ops import pack_in_edges, spmv_sell
-from repro_torch.kernels.sweep_min.ops import sweep_min
+from repro_torch.kernels.sweep_min.ops import (pack_sweep_block,
+                                               sweep_min_block)
 
 
 def _block_edges(parts: CSRPartitions, k: int):
@@ -92,7 +95,7 @@ def run(
     path): values start from ``x0`` and only blocks containing an
     ``active0`` vertex start dirty.  Correctness needs ``L <= x0 <=
     init`` pointwise (see :mod:`repro_torch.algorithms.incremental`).
-    The sweeps of the repair go through the same ``sweep_min`` kernel.
+    The sweeps of the repair go through the same ``sweep_min_block``.
     The stationary problems ignore ``x0`` and ``active0``, as the JAX
     package does.
     """
@@ -119,13 +122,10 @@ def run(
                 "a min-problem warm start (x0=) needs active0=")
         values = torch.as_tensor(np.asarray(x0, dtype=np.int32).copy(),
                                  device=device)
-    block_arrays = []
-    for k in range(parts.p):
-        s, d = _block_edges(parts, k)
-        block_arrays.append((
-            torch.as_tensor(s.astype(np.int32), device=device),
-            torch.as_tensor(d.astype(np.int32), device=device),
-        ))
+    blocks = [pack_sweep_block(*(a.astype(np.int32)
+                                 for a in _block_edges(parts, k)), n,
+                               device=device)
+              for k in range(parts.p)]
     dirty = np.ones(parts.p, dtype=bool)
     changed_prev = np.ones(n, dtype=bool)
     if active0 is not None:
@@ -144,8 +144,7 @@ def run(
             any_processed = True
             dirty[k] = False
             before_k = values.clone()
-            s, d = block_arrays[k]
-            sweep_min(values, s, d, add)
+            sweep_min_block(values, blocks[k], add)
             changed_k = (values != before_k).cpu().numpy()
             changed_blocks.append(changed_k)
             if block_skipping and changed_k.any():

@@ -34,14 +34,22 @@ _L = ctypes.c_longlong
 #: would be passed as a 32-bit int and cut.  The launchers return the
 #: CUDA error code of the launch (0 on success).
 SIGNATURES = {
-    # issue, meta, boundary, timing, 6 carry inputs, finish, 6 carry
-    # outputs, S, C, K, B, R, banks_per_rank, stream
-    "repro_dram_serve": ([_P] * 17 + [_L, _I, _I, _I, _I, _I, _P], _I),
+    # issue, meta, boundary, timing, records, S, S_pad, C, K, R,
+    # banks_per_rank, stream
+    "repro_dram_serve_prepass": ([_P] * 5 + [_L, _L, _I, _I, _I, _I, _P],
+                                 _I),
+    # records, timing, 6 carry inputs, finish, 6 carry outputs, S, S_pad,
+    # T, C, K, B, R, stream
+    "repro_dram_serve": ([_P] * 15 + [_L, _L, _I, _I, _I, _I, _I, _P], _I),
     # issue, bank, row, valid, timing, 7 carry inputs, finish, kind,
     # 7 carry outputs, C, L, B, R, banks_per_rank, stream
     "repro_dram_timing": ([_P] * 21 + [_I, _L, _I, _I, _I, _P], _I),
     # values, src, dst, m, add, stream
     "repro_sweep_min": ([_P, _P, _P, _L, _I, _P], _I),
+    # values, x0, cols, slice_ptr, slice_rows, n_slices, chunk_ptr,
+    # chunk_rows, n_chunks, n, add, max_rounds, status, stream
+    "repro_sweep_min_rounds": ([_P] * 5 + [_L, _P, _P, _L, _I, _I, _I, _P,
+                                           _P], _I),
     # ids, values, out, scratch, m, d, num_segments, op, bf16, stream
     "repro_segment_reduce": ([_P] * 4 + [_L, _I, _I, _I, _I, _P], _I),
     # src, w, values, active, upd, valid, m, q, op, stream

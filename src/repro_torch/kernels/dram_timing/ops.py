@@ -1,15 +1,17 @@
 """Public wrappers of the two DRAM-timing kernels.
 
 * ``dram_serve`` — the blocked ``[S, C, K]`` multi-phase serve
-  (``csrc/dram_serve.cu``);
+  (``csrc/dram_serve.cu``): a carry-free pre-pass (``serve_prepass``)
+  and the carry chain over its records (``serve_records``);
 * ``dram_timing`` — the per-channel ``[C, L]`` scan of one phase
   (``csrc/dram_timing.cu``), and :func:`simulate_trace` around it.
 
 Each wrapper checks its inputs, then launches the CUDA kernel for CUDA
 tensors or runs the plain version (``ref.py``) for CPU tensors.  There
 is no fallback: a CUDA tensor goes to the kernel or the call raises.
-``dram_serve.launches`` and ``dram_timing.launches`` count kernel
-launches.
+``dram_serve.launches`` (the serve's carry chain, from ``dram_serve``
+or ``serve_records``), ``serve_prepass.launches`` and
+``dram_timing.launches`` count kernel launches.
 """
 
 from __future__ import annotations
@@ -27,7 +29,9 @@ from repro_torch.core.vectorized import (MAX_PHASE_ISSUE, NEG_INF32,
 from repro_torch.device import resolve_device
 from repro_torch.kernels.build import check_launch, library
 from repro_torch.kernels.dram_timing.ref import (dram_serve_ref,
-                                                 dram_timing_ref)
+                                                 dram_timing_ref,
+                                                 serve_prepass_ref,
+                                                 serve_records_ref)
 
 State = Tuple[torch.Tensor, ...]
 
@@ -66,8 +70,6 @@ def _check(issue, meta, boundary, timing, state):
     if C < 1 or K < 1 or K > 32 or K & (K - 1):
         raise ValueError(f"need C >= 1 and K a power of two <= 32, got "
                          f"C={C}, K={K}")
-    if C * K > 1024:
-        raise ValueError(f"C*K = {C * K} lanes exceed one thread block")
     if R < 1 or B % R:
         raise ValueError(f"banks ({B}) must split evenly over ranks ({R})")
     # the kernel's int32 contract, as the packer asserts it: issues are
@@ -82,6 +84,23 @@ def _check(issue, meta, boundary, timing, state):
     return S, C, K, B, R
 
 
+#: records a ring slot of the serve holds, and the shared memory the
+#: rings may take (``csrc/dram_serve.cu``)
+RING_SLOTS = 4
+RING_BYTES = 96 * 1024
+MAX_CHUNK_STEPS = 64
+
+
+def chunk_steps(C: int, K: int) -> int:
+    """Steps a ring slot of the serve holds for ``C`` channels of ``K``
+    lanes: a power of two, at most 64, at least 2 (a bulk copy moves a
+    multiple of 16 bytes), so the rings fit in ``RING_BYTES``."""
+    T = MAX_CHUNK_STEPS
+    while T > 2 and C * RING_SLOTS * T * K * 8 > RING_BYTES:
+        T //= 2
+    return T
+
+
 def dram_serve(issue: torch.Tensor, meta: torch.Tensor,
                boundary: torch.Tensor, timing: torch.Tensor,
                state: State):
@@ -90,23 +109,77 @@ def dram_serve(issue: torch.Tensor, meta: torch.Tensor,
     pmf[C])``), all int32; ``boundary[S]`` is nonzero on each phase's last
     step, ``timing`` the int32[7] vector (tCL, tRCD, tRP, tRAS, tBL, tRRD,
     tFAW).  Returns ``(finish[S, C, K], state)``, bit-identical to the JAX
-    package's fused scan."""
+    package's fused scan.  On the card: the carry-free pre-pass
+    (:func:`serve_prepass`), then the serve over its records
+    (:func:`serve_records`); on the CPU the plain step loop."""
     S, C, K, B, R = _check(issue, meta, boundary, timing, state)
     if issue.device.type == "cpu":
         return dram_serve_ref(issue, meta, boundary, timing, state)
     if issue.device.type != "cuda":
         raise ValueError(f"dram_serve runs on CUDA or CPU, not "
                          f"{issue.device}")
+    if C > 32:
+        raise ValueError(f"the serve runs a warp a channel: C = {C} > 32")
+    if S == 0:
+        return torch.empty_like(issue), tuple(x.clone() for x in state)
+    rec = serve_prepass(issue, meta, boundary, timing, B // R, R,
+                        chunk_steps(C, K))
+    return serve_records(rec, timing, state, S)
+
+
+def serve_prepass(issue: torch.Tensor, meta: torch.Tensor,
+                  boundary: torch.Tensor, timing: torch.Tensor,
+                  banks_per_rank: int, R: int, T: int) -> torch.Tensor:
+    """The carry-free part of every step: int32 records ``[C, S_pad, K,
+    2]`` (``S_pad`` = S rounded up to ``T``), lane ``k`` of channel ``c``
+    at step ``s`` holding ``(x, meta')`` as :func:`~.ref.serve_prepass_ref`
+    defines them.  One launch on the card; the plain version for CPU
+    tensors.  Inputs as :func:`dram_serve` takes them (checked there)."""
+    S, C, K = issue.shape
+    S_pad = -(-S // T) * T
+    if issue.device.type == "cpu":
+        return serve_prepass_ref(issue, meta, boundary, timing,
+                                 banks_per_rank, R, S_pad)
+    rec = torch.empty((C, S_pad, K, 2), dtype=torch.int32,
+                      device=issue.device)
     lib = library()
-    fin = torch.empty_like(issue)
-    out = tuple(torch.empty_like(x) for x in state)
     with torch.cuda.device(issue.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.repro_dram_serve(
+        code = lib.repro_dram_serve_prepass(
             issue.data_ptr(), meta.data_ptr(), boundary.data_ptr(),
-            timing.data_ptr(), *(x.data_ptr() for x in state),
-            fin.data_ptr(), *(x.data_ptr() for x in out),
-            S, C, K, B, R, B // R, stream)
+            timing.data_ptr(), rec.data_ptr(), S, S_pad, C, K, R,
+            banks_per_rank, stream)
+    check_launch(code, "dram_serve_prepass")
+    serve_prepass.launches += 1
+    return rec
+
+
+serve_prepass.launches = 0
+
+
+def serve_records(rec: torch.Tensor, timing: torch.Tensor, state: State,
+                  S: int):
+    """The serve's carry chain over the first ``S`` steps of the records
+    ``rec`` (:func:`serve_prepass`) from ``state``; returns ``(finish[S,
+    C, K], state)``.  One launch on the card (counted in
+    ``dram_serve.launches``); the plain record walk for CPU tensors."""
+    C, S_pad, K, _ = rec.shape
+    B, R = state[0].shape[1], state[3].shape[1]
+    if rec.device.type == "cpu":
+        return serve_records_ref(rec, timing, state, S)
+    T = chunk_steps(C, K)
+    if S_pad % T or S_pad < S:
+        raise ValueError(f"records of {S_pad} steps do not cover {S} steps "
+                         f"in chunks of {T}")
+    fin = torch.empty((S, C, K), dtype=torch.int32, device=rec.device)
+    out = tuple(torch.empty_like(x) for x in state)
+    lib = library()
+    with torch.cuda.device(rec.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.repro_dram_serve(
+            rec.data_ptr(), timing.data_ptr(),
+            *(x.data_ptr() for x in state), fin.data_ptr(),
+            *(x.data_ptr() for x in out), S, S_pad, T, C, K, B, R, stream)
     check_launch(code, "dram_serve")
     dram_serve.launches += 1
     return fin, out

@@ -16,6 +16,11 @@ equals a step-by-step run over the whole padded stream.
 279``) in torch, channels side by side, one Python-loop iteration per
 slot.  Invalid slots leave the carry untouched, so it stops at the last
 slot that is valid in any channel.
+
+:func:`serve_prepass_ref` and :func:`serve_records_ref` are the two
+halves of the card's serve (``csrc/dram_serve.cu``) in torch: the
+carry-free records of every step, and the carry chain that walks them;
+composed, they equal :func:`dram_serve_ref`.
 """
 
 from __future__ import annotations
@@ -214,3 +219,130 @@ def dram_serve_ref(issue: torch.Tensor, meta: torch.Tensor,
         pmf = torch.clamp_min(pmf, 0)
         state = (avail, act, bus, hist, ptr, pmf)
     return fin, state
+
+
+#: record-only bits of the serve's pre-pass (``csrc/dram_serve.cu``): the
+#: block holds a valid miss, the miss's rank (8 bits), the step ends a
+#: phase, the block holds no valid lane
+REC_M_ANY = 1 << 16
+REC_RANK_SHIFT = 17
+REC_BOUNDARY = 1 << 25
+REC_EMPTY = 1 << 26
+
+
+def serve_prepass_ref(issue: torch.Tensor, meta: torch.Tensor,
+                      boundary: torch.Tensor, timing: torch.Tensor,
+                      banks_per_rank: int, R: int,
+                      S_pad: int) -> torch.Tensor:
+    """The carry-free part of every step of a ``[S, C, K]`` program, as
+    int32 records ``[C, S_pad, K, 2]``: lane ``k`` of channel ``c`` at
+    step ``s`` holds ``x`` (the lane's issue for a miss, else ``own``, the
+    max over lanes ``j <= k`` on its bank of ``iss_j - rank_j * tBL``) and
+    ``meta'`` (meta's low 16 bits, ``REC_M_ANY``, the miss rank, the
+    boundary flag, ``REC_EMPTY``).  Steps past S are empty blocks."""
+    S, C, K = issue.shape
+    tBL = int(timing[4])
+    b = meta & 0xFF
+    ms = (meta & META_MISS) != 0
+    v = (meta & META_VALID) != 0
+    rb_tbl = ((meta >> META_RB_SHIFT) & META_RB_MASK) * tBL
+    lane = torch.arange(K, device=issue.device)
+    tril = lane[:, None] >= lane[None, :]
+    same = (b[..., :, None] == b[..., None, :]) & tril        # [S, C, K, K]
+    own = torch.where(same, (issue - rb_tbl)[..., None, :],
+                      NEG_INF32).amax(dim=-1)
+    mv = ms & v
+    rank = (torch.div(b, banks_per_rank, rounding_mode="floor") if R > 1
+            else torch.zeros_like(b))
+    rank_m = torch.where(mv, rank, 0).amax(dim=-1, keepdim=True)
+    flags = (torch.where(mv.any(dim=-1, keepdim=True), REC_M_ANY, 0)
+             | ((rank_m & 0xFF) << REC_RANK_SHIFT)
+             | torch.where(boundary != 0, REC_BOUNDARY, 0)[:, None, None]
+             | torch.where(v.any(dim=-1, keepdim=True), 0, REC_EMPTY))
+    rec = torch.zeros((C, S_pad, K, 2), dtype=torch.int32,
+                      device=issue.device)
+    rec[:, S:, :, 1] = REC_EMPTY
+    rec[:, :S, :, 0] = torch.where(ms, issue, own).transpose(0, 1)
+    rec[:, :S, :, 1] = ((meta & 0xFFFF) | flags).transpose(0, 1).to(
+        torch.int32)
+    return rec
+
+
+def serve_records_ref(rec: torch.Tensor, timing: torch.Tensor,
+                      state: State, S: int):
+    """The serve's carry chain over the first ``S`` steps of the records
+    of :func:`serve_prepass_ref`, one Python-loop iteration a step, from
+    the 6-tuple carry ``state``; returns ``(finish[S, C, K], state)``,
+    equal to :func:`dram_serve_ref` on the program the records came
+    from."""
+    tCL, tRCD, tRP, tRAS, tBL, tRRD, tFAW = (int(t) for t in
+                                             timing.tolist())
+    C, _, K, _ = rec.shape
+    avail, act, bus, hist, ptr, pmf = (x.clone() for x in state)
+    B, R = avail.shape[1], hist.shape[1]
+    dev = rec.device
+    bank_ids = torch.arange(B, device=dev)
+    rank_ids = torch.arange(R, device=dev)
+    ptr_ids = torch.arange(4, device=dev)
+    lane = torch.arange(K, device=dev, dtype=torch.int32)
+    lane_tbl, lane_tbl1 = lane * tBL, (lane + 1) * tBL
+    tril = lane[:, None] >= lane[None, :]
+    ch = torch.arange(C, device=dev)
+    fin = torch.zeros((S, C, K), dtype=torch.int32, device=dev)
+    for s in range(S):
+        x, mt = rec[:, s, :, 0], rec[:, s, :, 1]
+        b = mt & 0xFF
+        ms = (mt & META_MISS) != 0
+        cf = (mt & META_CONFL) != 0
+        v = (mt & META_VALID) != 0
+        rb_tbl = ((mt >> META_RB_SHIFT) & META_RB_MASK) * tBL
+        m_any = (mt[:, 0] & REC_M_ANY) != 0                 # [C]
+        rank_m = (mt[:, 0] >> REC_RANK_SHIFT) & 0xFF        # [C]
+        ohb = b[:, :, None] == bank_ids                     # [C, K, B]
+        avail_b = torch.where(ohb, avail[:, None, :], NEG_INF32).amax(2)
+        act_b = torch.where(ohb, act[:, None, :], NEG_INF32).amax(2)
+        if R == 1:
+            ptr_m, hist_m = ptr[:, 0], hist[:, 0]
+        else:
+            ohr = rank_m[:, None] == rank_ids               # [C, R]
+            ptr_m = torch.where(ohr, ptr, 0).amax(1)
+            hist_m = torch.where(ohr[:, :, None], hist, NEG_INF32).amax(1)
+        hist_p = torch.where(ptr_m[:, None] == ptr_ids, hist_m,
+                             NEG_INF32).amax(1)
+        last_r = torch.where(torch.remainder(ptr_m + 3, 4)[:, None]
+                             == ptr_ids, hist_m, NEG_INF32).amax(1)
+        floor = torch.maximum(last_r + tRRD, hist_p + tFAW)
+        base = torch.maximum(x, avail_b)
+        pre = torch.where(cf, torch.maximum(base, act_b + tRAS) + tRP, base)
+        a = torch.maximum(pre, floor[:, None])
+        col = torch.where(ms & m_any[:, None], a + tRCD,
+                          rb_tbl + torch.maximum(x, avail_b))
+        cadj = torch.where(v, col + tCL - lane_tbl, NEG_INF32)
+        ccm = torch.where(tril, cadj[:, None, :], NEG_INF32).amax(2)
+        fin_out = torch.where(v, lane_tbl1 + torch.maximum(bus[:, None],
+                                                           ccm), 0)
+        fin[s] = fin_out
+        mx = fin_out.amax(1)
+        bus = torch.maximum(bus, mx)
+        pmf = torch.maximum(pmf, mx)
+        mv = ms & v
+        avail = torch.maximum(avail, torch.where(
+            ohb & v[:, :, None], (col + tBL)[:, :, None], NEG_INF32).amax(1))
+        act = torch.maximum(act, torch.where(
+            ohb & mv[:, :, None], a[:, :, None], NEG_INF32).amax(1))
+        a_m = torch.where(mv, a, NEG_INF32).amax(1)
+        r = rank_m if R > 1 else torch.zeros_like(rank_m)
+        hit = m_any & (r < R)
+        if hit.any():
+            c, rr, p = ch[hit], r[hit].long(), ptr_m[hit]
+            ok = (p >= 0) & (p < 4)
+            hist[c[ok], rr[ok], p[ok].long()] = torch.maximum(
+                hist[c[ok], rr[ok], p[ok].long()], a_m[hit][ok])
+            ptr[c, rr] = torch.remainder(p + 1, 4).to(ptr.dtype)
+        if int(mt[0, 0]) & REC_BOUNDARY:
+            shift = pmf.max()
+            lo = shift + NEG_INF32
+            avail, act, bus, hist = (torch.maximum(t, lo) - shift
+                                     for t in (avail, act, bus, hist))
+            pmf = torch.zeros_like(pmf)
+    return fin, (avail, act, bus, hist, ptr, pmf)

@@ -77,7 +77,7 @@ class SlicedEll:
 
     n: int
     cols: torch.Tensor          # int32[slots]
-    vals: torch.Tensor          # float32[slots]
+    vals: Optional[torch.Tensor]  # float32[slots]; None: sources only
     slice_ptr: torch.Tensor     # int64[slices + 1]
     slice_rows: torch.Tensor    # int32[32 slices]
     chunk_ptr: torch.Tensor     # int64[chunks + 1]
@@ -102,7 +102,7 @@ def pack_in_edges(src, dst, n: int, weights, device=None,
     """The in-edges ``src -> dst`` (weight ``weights``) of every
     destination as a :class:`SlicedEll`, built with torch tensor ops on
     ``device`` (default: ``dst``'s device if it is a tensor, else the
-    CPU).
+    CPU).  ``weights=None`` packs the sources alone (``vals`` None).
 
     Rows with at least one in-edge and fewer than ``heavy`` are light:
     sorted by in-degree, widest first (ties by id), cut into slices of 32
@@ -120,7 +120,8 @@ def pack_in_edges(src, dst, n: int, weights, device=None,
         device = dst.device if isinstance(dst, torch.Tensor) else "cpu"
     src = torch.as_tensor(src, device=device)
     dst = torch.as_tensor(dst, device=device).long()
-    w = torch.as_tensor(weights, device=device).float()
+    w = (None if weights is None
+         else torch.as_tensor(weights, device=device).float())
     m = dst.numel()
     # edges grouped by destination, edge-list order kept within a row,
     # then a heavy row's edges sorted by source
@@ -130,7 +131,6 @@ def pack_in_edges(src, dst, n: int, weights, device=None,
     key = dst_s[on_heavy] * n + src[order[on_heavy]].long()
     order[on_heavy] = order[on_heavy[torch.sort(key, stable=True)[1]]]
     src_s = src[order].int()
-    w_s = w[order]
     row_start = _exclusive_cumsum(deg)
     slot = torch.arange(m, device=device) - row_start[dst_s]
 
@@ -166,7 +166,6 @@ def pack_in_edges(src, dst, n: int, weights, device=None,
     chunk_ptr[-1] = total
 
     cols = torch.full((total,), n, dtype=torch.int32, device=device)
-    vals = torch.zeros(total, dtype=torch.float32, device=device)
     r = rank[dst_s]
     on_slice = r >= 0
     r = r.clamp(min=0)
@@ -176,7 +175,10 @@ def pack_in_edges(src, dst, n: int, weights, device=None,
         + slot * SLICE_ROWS + r % SLICE_ROWS,
         hstart[dst_s] + slot)
     cols[pos] = src_s
-    vals[pos] = w_s
+    vals = None
+    if w is not None:
+        vals = torch.zeros(total, dtype=torch.float32, device=device)
+        vals[pos] = w[order]
     return SlicedEll(n, cols, vals, slice_ptr, slice_rows, chunk_ptr,
                      chunk_rows.int())
 

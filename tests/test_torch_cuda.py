@@ -23,7 +23,14 @@ from repro_torch.kernels.segment_reduce.ref import segment_reduce_ref
 from repro_torch.kernels.spmv_ell.ops import (pack_in_edges, spmv_ell,
                                               spmv_sell)
 from repro_torch.kernels.spmv_ell.ref import spmv_ell_ref, spmv_sell_ref
-from repro_torch.kernels.sweep_min.ops import sweep_min, sweep_min_ref
+from repro_torch.kernels.dram_timing.ops import (chunk_steps, serve_prepass,
+                                                 serve_records)
+from repro_torch.kernels.dram_timing.ref import serve_prepass_ref
+from repro_torch.kernels.sweep_min import ops as sweep_ops
+from repro_torch.kernels.sweep_min.ops import (pack_sweep_block, sweep_min,
+                                               sweep_min_block,
+                                               sweep_min_ref,
+                                               sweep_min_rounds_ref)
 from repro_torch.algorithms import edge_centric, vertex_centric
 from repro_torch.algorithms.common import Problem
 from repro_torch.sim import run_dynamic, simulate
@@ -85,6 +92,131 @@ def test_sweep_min_kernel_equals_plain(cuda):
         sweep_min(vals_k, src, dst, add)
         sweep_min_ref(vals_p, src, dst, add)
         assert torch.equal(vals_k, vals_p)
+
+
+@pytest.mark.parametrize("channels", [1, 2, 4, 8])
+@pytest.mark.parametrize("hit_heavy", [False, True])
+def test_dram_serve_channels_equal_plain(cuda, channels, hit_heavy):
+    """The pre-pass and the warp-a-channel serve on C = 1, 2, 4 and 8
+    DDR4 channels of 2 ranks, bit for bit against the plain serve, with
+    the carry chained across a split; the pre-pass's records equal their
+    plain version's."""
+    cfg = ddr4_2400r(channels=channels, ranks=2)
+    packed = accel.pack_program(_program(11 + channels, hit_heavy,
+                                         n_phases=6), cfg)
+    args = [torch.as_tensor(np.asarray(a, dtype=np.int32), device=cuda)
+            for a in (packed.issue, packed.meta, packed.boundary,
+                      packed.timing)]
+    S, C, K = packed.issue.shape
+    state = tuple(vec.init_lean_carry(C, packed.n_banks,
+                                      packed.banks_per_rank, cuda)) + (
+        torch.zeros(C, dtype=torch.int32, device=cuda),)
+    B, R = state[0].shape[1], state[3].shape[1]
+    T = chunk_steps(C, K)
+    before = (dram_serve.launches, serve_prepass.launches)
+    rec = serve_prepass(*args, B // R, R, T)
+    assert torch.equal(rec, serve_prepass_ref(
+        *args, B // R, R, rec.shape[1]))
+    split = packed.n_steps // 2 + 1
+    fins, st = [], state
+    for lo, hi in ((0, split), (split, S)):
+        f, st = dram_serve(*(a[lo:hi].contiguous() for a in args[:3]),
+                           args[3], st)
+        fins.append(f)
+    fin_r, st_r = serve_records(rec, args[3], state, S)
+    torch.cuda.synchronize()
+    assert (dram_serve.launches, serve_prepass.launches) == (
+        before[0] + 3, before[1] + 3)
+    fin_p, st_p = dram_serve_ref(*args, state)
+    assert torch.equal(torch.cat(fins), fin_p)
+    assert torch.equal(fin_r, fin_p)
+    for a, b, c in zip(st, st_r, st_p):
+        assert torch.equal(a, c) and torch.equal(b, c)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_dram_serve_any_meta_equals_plain(cuda, seed):
+    """Blocks the packer never makes (several misses, invalid miss lanes,
+    banks past the channel's) on 4 channels of 2 ranks, K = 8: the kernel
+    keeps the plain step's semantics bit for bit."""
+    rng = np.random.default_rng(seed)
+    S, C, K, B, R = 300, 4, 8, 8, 2
+    issue = rng.integers(0, 500, (S, C, K))
+    meta = (rng.integers(0, B + 2, (S, C, K))
+            | rng.choice([0, vec.META_MISS], (S, C, K))
+            | rng.choice([0, vec.META_CONFL], (S, C, K))
+            | rng.choice([0, vec.META_VALID, vec.META_VALID], (S, C, K))
+            | (rng.integers(0, K, (S, C, K)) << vec.META_RB_SHIFT))
+    args = [torch.as_tensor(np.asarray(a, dtype=np.int32), device=cuda)
+            for a in (issue, meta, rng.random(S) < 0.1,
+                      vec.timing_params(PRESETS["accugraph"]().timing))]
+    state = tuple(vec.init_lean_carry(C, B, B // R, cuda)) + (
+        torch.zeros(C, dtype=torch.int32, device=cuda),)
+    fin_k, st_k = dram_serve(*args, state)
+    fin_p, st_p = dram_serve_ref(*args, state)
+    assert torch.equal(fin_k, fin_p)
+    for a, b in zip(st_k, st_p):
+        assert torch.equal(a, b)
+
+
+def _path_block(n, ascending, device):
+    v = np.arange(1, n)
+    src, dst = (v - 1, v) if ascending else (v, v - 1)
+    order = np.argsort(dst, kind="stable")
+    return pack_sweep_block(src[order], dst[order], n, device=device)
+
+
+@pytest.mark.parametrize("add", [0, 1])
+@pytest.mark.parametrize("start", ["arange", "warm"])
+def test_sweep_min_block_equals_plain(cuda, add, start):
+    """The round kernel against the sequential sweep and the synchronous
+    rounds on rmat(12, 4) (destination-sorted, self-loops and duplicate
+    edges kept), from the WCC start values and from a warm start; it runs
+    at most as many rounds as the synchronous version, one launch a
+    sweep, never the serial route."""
+    g = rmat(12, 4, seed=9)
+    order = np.argsort(g.dst, kind="stable")
+    block = pack_sweep_block(g.src[order], g.dst[order], g.n, device=cuda)
+    rng = np.random.default_rng(add)
+    x0 = (np.arange(g.n) if start == "arange"
+          else rng.integers(0, 2**31 - 2**24, g.n))
+    vals_k = torch.as_tensor(x0.astype(np.int32), device=cuda)
+    vals_p, vals_r = vals_k.clone(), vals_k.clone()
+    before = (sweep_min_block.launches, sweep_min.launches)
+    res = sweep_min_block(vals_k, block, add)
+    assert (sweep_min_block.launches, sweep_min.launches) == (
+        before[0] + 1, before[1])
+    assert res.route == "rounds"
+    sweep_min_ref(vals_p, block.src, block.dst, add)
+    rounds = sweep_min_rounds_ref(vals_r, block.src, block.dst, add)
+    assert torch.equal(vals_k, vals_p) and torch.equal(vals_r, vals_p)
+    assert 1 <= res.rounds <= rounds
+
+
+@pytest.mark.parametrize("ascending", [True, False])
+def test_sweep_min_block_paths(cuda, monkeypatch, ascending):
+    """Paths of 4,096 vertices from the WCC start: descending converges in
+    one round; ascending needs many, and with a budget of 3 rounds the
+    wrapper restores the values and takes the serial route, still exact."""
+    n = 4096
+    block = _path_block(n, ascending, cuda)
+    for budget in (None, 3):
+        if budget is not None:
+            monkeypatch.setattr(sweep_ops, "round_budget",
+                                lambda block: budget)
+        vals = torch.arange(n, dtype=torch.int32, device=cuda)
+        want = vals.clone()
+        sweep_min_ref(want, block.src, block.dst, 0)
+        before = sweep_min.launches
+        res = sweep_min_block(vals, block, 0)
+        assert torch.equal(vals, want)
+        if not ascending:
+            assert res == (1, "rounds")
+        elif budget == 3:
+            assert res == (3, "serial")
+            assert sweep_min.launches == before + 1
+        else:
+            assert res.route in ("rounds", "serial") and res.rounds > 3
 
 
 @pytest.mark.parametrize("accelerator", ["hitgraph", "accugraph"])

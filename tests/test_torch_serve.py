@@ -21,8 +21,11 @@ from repro.kernels.dram_timing.ref import dram_serve_ref as r_serve_ref
 
 from repro_torch import interop
 from repro_torch.core import accel, vectorized as vec
-from repro_torch.kernels.dram_timing.ops import dram_serve
-from repro_torch.kernels.dram_timing.ref import dram_serve_ref
+from repro_torch.kernels.dram_timing.ops import chunk_steps, dram_serve
+from repro_torch.kernels.dram_timing.ref import (REC_BOUNDARY, REC_EMPTY,
+                                                 dram_serve_ref,
+                                                 serve_prepass_ref,
+                                                 serve_records_ref)
 
 
 def _random_serve_program(rng, n_phases=5, span=1 << 16, max_n=400,
@@ -211,3 +214,90 @@ def test_dram_serve_ref_is_the_cpu_path():
     assert dram_serve.launches == before
     assert torch.equal(fin_a, fin_b)
     assert all(torch.equal(a, b) for a, b in zip(st_a, st_b))
+
+
+def _serve_by_records(streams, timing, state, splits):
+    """The card's decomposition in plain torch: the carry-free pre-pass
+    and the record walk, in calls split at ``splits`` with the carry
+    chained from one to the next."""
+    S, C, K = streams[0].shape
+    B, R = state[0].shape[1], state[3].shape[1]
+    T = chunk_steps(C, K)
+    fins = []
+    for lo, hi in zip([0, *splits], [*splits, S]):
+        part = [x[lo:hi].contiguous() for x in streams]
+        rec = serve_prepass_ref(*part, timing, B // R, R,
+                                -(-(hi - lo) // T) * T)
+        assert rec.shape == (C, -(-(hi - lo) // T) * T, K, 2)
+        assert bool((rec[:, hi - lo:, :, 1] == REC_EMPTY).all())
+        f, state = serve_records_ref(rec, timing, state, hi - lo)
+        fins.append(f)
+    return torch.cat(fins), state
+
+
+@pytest.mark.parametrize("preset", ["hitgraph", "accugraph", "hbm2",
+                                    "hbm2e"])
+@pytest.mark.parametrize("hit_heavy", [False, True])
+def test_prepass_and_record_walk_vs_jax(preset, hit_heavy):
+    """The pre-pass composed with the record walk, over several phase
+    boundaries and with the carry chained across two splits, equals the
+    JAX package's ``make_serve_step`` scan and ``dram_serve_ref`` bit for
+    bit (finishes and the whole 6-tuple carry)."""
+    r_cfg = R_PRESETS[preset]()
+    r_prog = _random_serve_program(np.random.default_rng(31 + hit_heavy),
+                                   n_phases=6, hit_heavy=hit_heavy)
+    r_packed = r_accel.pack_program(r_prog, r_cfg)
+    C = r_cfg.channels
+    r_state = tuple(r_vec.init_lean_carry(C, r_packed.n_banks,
+                                          r_packed.banks_per_rank)) + (
+        jnp.zeros((C,), dtype=jnp.int32),)
+    fin_r, st_r = r_serve_ref(r_packed.issue, r_packed.meta,
+                              r_packed.boundary,
+                              r_vec.timing_params(r_cfg.timing), *r_state,
+                              banks_per_rank=r_packed.banks_per_rank)
+    packed = interop.packed_program(r_packed)
+    streams = [_t(packed.issue), _t(packed.meta), _t(packed.boundary)]
+    timing = _t(packed.timing)
+    state = _cold_state(packed, C)
+    assert int(streams[2].sum()) >= 6
+    n = packed.n_steps
+    fin, st_ = _serve_by_records(streams, timing, state, [n // 3 + 1,
+                                                          2 * n // 3])
+    fin_p, st_p = dram_serve_ref(*streams, timing, state)
+    np.testing.assert_array_equal(fin.numpy(), np.asarray(fin_r))
+    assert torch.equal(fin, fin_p)
+    for a, b, c in zip(st_, st_r, st_p):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+        assert torch.equal(a, c)
+
+
+@settings(max_examples=25, deadline=None)
+@given(seed=st.integers(0, 2**20), C=st.sampled_from([1, 2, 4]),
+       K=st.sampled_from([1, 4, 8]), R=st.sampled_from([1, 2]))
+def test_record_walk_exact_on_any_meta(seed, C, K, R):
+    """Blocks ``pack_program`` never makes — several misses in a block,
+    invalid lanes flagged as misses, banks past the channel's, hits after
+    a miss — still serve bit for bit like the plain step: the pre-pass
+    and record walk hold the step's semantics, not the packer's
+    guarantee."""
+    rng = np.random.default_rng(seed)
+    S, B = 40, 8
+    issue = rng.integers(0, 500, (S, C, K))
+    meta = (rng.integers(0, B + 2, (S, C, K))
+            | rng.choice([0, vec.META_MISS], (S, C, K))
+            | rng.choice([0, vec.META_CONFL], (S, C, K))
+            | rng.choice([0, vec.META_VALID, vec.META_VALID], (S, C, K))
+            | (rng.integers(0, K, (S, C, K)) << vec.META_RB_SHIFT))
+    boundary = rng.random(S) < 0.15
+    streams = [_t(issue), _t(meta), _t(boundary)]
+    timing = _t(vec.timing_params(R_PRESETS["accugraph"]().timing))
+    lean = vec.init_lean_carry(C, B, B // R, "cpu")
+    state = tuple(lean) + (torch.zeros(C, dtype=torch.int32),)
+    fin, st_ = _serve_by_records(streams, timing, state, [S // 2])
+    fin_p, st_p = dram_serve_ref(*streams, timing, state)
+    assert torch.equal(fin, fin_p)
+    for a, b in zip(st_, st_p):
+        assert torch.equal(a, b)
+    rec = serve_prepass_ref(*streams, timing, B // R, R, S)
+    assert bool(((rec[:, :, 0, 1] & REC_BOUNDARY) != 0).any(dim=0).eq(
+        torch.as_tensor(boundary)).all())
