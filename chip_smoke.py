@@ -122,8 +122,9 @@ DYNAMIC_PINNED = {
     "accugraph": [(5, 4_958_483), (4, 4_565_454), (5, 5_582_023),
                   (4, 4_695_464)],
 }
-KERNELS = ("dram_serve", "dram_serve_prepass", "dram_timing", "sweep_min",
-           "sweep_min_serial", "segment_reduce", "edge_scatter", "spmv_ell")
+KERNELS = ("dram_serve", "serve_prepass", "dram_timing",
+           "sweep_min_rounds", "sweep_min", "segment_reduce", "edge_scatter",
+           "spmv_ell")
 
 #: vertices of the sweep's worst case, an ascending path
 PATH_N = 1 << 20
@@ -195,6 +196,26 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def launch_ms(prep, fn, reps: int) -> float:
+    """Mean CUDA-event time of ``fn`` alone over ``reps`` runs, each after
+    ``prep`` (outside the events), after one warm-up run; enqueued behind
+    a sleep kernel, as in :func:`cuda_ms`, so the host's share of the call
+    does not show."""
+    prep()
+    fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(200_000_000)
+    for start, end in pairs:
+        prep()
+        start.record()
+        fn()
+        end.record()
+    pairs[-1][1].synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
 def host_ms(fn) -> float:
@@ -877,12 +898,15 @@ def sweep_paths(dev, card) -> dict:
     from the WCC start values (every value improves along the whole
     chain: ~n rounds), and a descending path (1 round): the route taken,
     the rounds, and the time of the whole call beside the serial route's
-    alone; the ascending call must cost at most ``PATH_SLOWDOWN`` times
-    the serial route.  Both exact against the plain sweep."""
+    alone and the round kernel's alone (its budget of rounds on the
+    ascending path); the ascending call must cost at most
+    ``PATH_SLOWDOWN`` times the serial route.  Both exact against the
+    plain sweep."""
     from repro_torch.kernels.sweep_min.ops import (pack_sweep_block,
                                                    round_budget, sweep_min,
                                                    sweep_min_block,
-                                                   sweep_min_ref)
+                                                   sweep_min_ref,
+                                                   sweep_min_rounds)
     out = {}
     v = np.arange(1, PATH_N)
     for name, (src, dst) in (("ascending", (v - 1, v)),
@@ -897,9 +921,19 @@ def sweep_paths(dev, card) -> dict:
         ms = cuda_ms(lambda: sweep_min_block(x0.clone(), block, 0), reps=2)
         serial_ms = cuda_ms(
             lambda: sweep_min(x0.clone(), block.src, block.dst, 0), reps=2)
+        vals, status = x0.clone(), torch.zeros(3, dtype=torch.int32,
+                                               device=dev)
+
+        def prep():
+            vals.copy_(x0)
+            status.zero_()
+
+        kernel_ms = launch_ms(prep, lambda: sweep_min_rounds(
+            vals, x0, block, 0, round_budget(block), status), reps=2)
         out[name] = {"route": res.route, "rounds": res.rounds,
                      "budget": round_budget(block), "ms": ms,
                      "serial_route_ms": serial_ms,
+                     "round_kernel_ms": kernel_ms,
                      "rounds_route_ms": ms - serial_ms
                      if res.route == "serial" else ms,
                      "slowdown_vs_serial": ms / serial_ms}
@@ -912,16 +946,20 @@ def sweep_paths(dev, card) -> dict:
 
 def sweep_main_block(wt, sessions, dev, card) -> dict:
     """The AccuGraph main-path block (q = n): the 5 WCC sweeps of the run
-    in order, each by the round kernel (its rounds and time) and held to
-    the serial kernel's result; the first sweep also on the serial route
-    and by the plain loop (host clock).  Bound: the rounds times one
+    in order, each by ``sweep_min_block`` (its rounds; the round kernel's
+    time alone, ``ms``, from a start copy made beforehand, and the whole
+    call's, ``call_ms``: the copy of x0, the launch, the status and peak
+    read) and held to the serial kernel's result; the first sweep also on
+    the serial route and by the plain loop (host clock).  Bound: one
     pass's bytes (the sliced ELL's sources, the row ids, the values read
-    and written), beside one pass's."""
+    and written once), what the function needs; beside it the rounds
+    times that (``rounds_bound_ms``), what this design needs."""
     from repro_torch.algorithms.vertex_centric import _block_edges
     from repro_torch.kernels.sweep_min.ops import (pack_sweep_block,
-                                                   sweep_min,
+                                                   round_budget, sweep_min,
                                                    sweep_min_block,
-                                                   sweep_min_ref)
+                                                   sweep_min_ref,
+                                                   sweep_min_rounds)
     from repro_torch.sim import get_accelerator
     from repro_torch.sim.session import resolve_run_config
     accu = get_accelerator("accugraph")
@@ -936,17 +974,29 @@ def sweep_main_block(wt, sessions, dev, card) -> dict:
     rows = int((a.slice_rows >= 0).sum()) + a.n_chunks
     pass_bytes = 4 * block.slots + 4 * rows + 8 * wt.n
     values = torch.arange(wt.n, dtype=torch.int32, device=dev)
+    budget = round_budget(block)
     sweeps = []
     while True:
         before = values.clone()
         res = sweep_min_block(values, block, 0)
-        ms = cuda_ms(lambda: sweep_min_block(before.clone(), block, 0), 2)
+        call_ms = cuda_ms(lambda: sweep_min_block(before.clone(), block, 0),
+                          2)
+        vals = before.clone()
+        status = torch.zeros(3, dtype=torch.int32, device=dev)
+
+        def prep():
+            vals.copy_(before)
+            status.zero_()
+
+        ms = launch_ms(prep, lambda: sweep_min_rounds(
+            vals, before, block, 0, budget, status), reps=2)
+        assert torch.equal(vals, values) and int(status[2]) == 1
         serial = before.clone()
         sweep_min(serial, block.src, block.dst, 0)
         diff = max_abs_diff(values, serial)
         assert diff == 0, f"sweep {len(sweeps)} differs from the serial one"
         assert res.route == "rounds", res
-        sweeps.append({"rounds": res.rounds, "ms": ms,
+        sweeps.append({"rounds": res.rounds, "ms": ms, "call_ms": call_ms,
                        "changed": int((values != before).sum())})
         if torch.equal(values, before):
             break
@@ -963,10 +1013,12 @@ def sweep_main_block(wt, sessions, dev, card) -> dict:
     first = sweeps[0]
     emit(phase="main_block", sweeps=sweeps, pack_ms=pack_ms,
          serial_route_ms=serial_ms, plain_ms=plain_ms, card=card)
-    return {"max_abs_err": err, "ms": first["ms"], "rounds": first["rounds"],
+    return {"max_abs_err": err, "ms": first["ms"],
+            "call_ms": first["call_ms"], "rounds": first["rounds"],
             "plain_ms": plain_ms, "serial_route_ms": serial_ms,
-            "bound_ms": first["rounds"] * pass_bytes / HBM_BYTES_PER_S * 1e3,
-            "one_pass_bound_ms": pass_bytes / HBM_BYTES_PER_S * 1e3,
+            "bound_ms": pass_bytes / HBM_BYTES_PER_S * 1e3,
+            "rounds_bound_ms": first["rounds"] * pass_bytes
+            / HBM_BYTES_PER_S * 1e3,
             "serial_bound_ms": (8 * block.m + 8 * wt.n)
             / HBM_BYTES_PER_S * 1e3,
             "sweeps": sweeps, "pack_ms": pack_ms,
@@ -1115,13 +1167,13 @@ def main() -> int:
         reports[acc] = sessions[acc].run("wcc", acc)
         reports[acc].stage_seconds["total"] = time.perf_counter() - t0
     launches = {"main": launch_counts()}
-    for name in ("dram_serve", "dram_serve_prepass", "sweep_min"):
+    for name in ("dram_serve", "serve_prepass", "sweep_min_rounds"):
         assert launches["main"][name] > 0, (
             f"{name} was never launched on the main path")
     # one round-kernel launch a sweep (AccuGraph's 5 WCC sweeps of its one
     # block), never the serial route; one serve a program
-    want = {"sweep_min": MAIN_EXPECT["accugraph"][0], "sweep_min_serial": 0,
-            "dram_serve": 2, "dram_serve_prepass": 2}
+    want = {"sweep_min_rounds": MAIN_EXPECT["accugraph"][0], "sweep_min": 0,
+            "dram_serve": 2, "serve_prepass": 2}
     assert {k: launches["main"][k] for k in want} == want, launches["main"]
     for acc, r in reports.items():
         assert r.runtime_ns == PINNED_RUNTIME_NS["main", acc], (
@@ -1132,7 +1184,7 @@ def main() -> int:
     dyn = {acc: run_dynamic_path(wt, acc, sessions[acc], reports[acc], card)
            for acc in DYNAMIC_CASES}
     launches["dynamic"] = launch_counts()
-    for name in ("dram_serve", "dram_timing", "sweep_min"):
+    for name in ("dram_serve", "dram_timing", "sweep_min_rounds"):
         assert launches["dynamic"][name] > 0, (
             f"{name} was never launched on the dynamic path")
 
@@ -1226,7 +1278,7 @@ def main() -> int:
                              / HBM_BYTES_PER_S * 1e3}}
         del full, win
 
-    kernels["sweep_min"] = sweep_main_block(wt, sessions, dev, card)
+    kernels["sweep_min_rounds"] = sweep_main_block(wt, sessions, dev, card)
 
     # ---- CPU cross-check of the card's edge-centric run at full size ---
     t0 = time.perf_counter()
@@ -1248,7 +1300,7 @@ def main() -> int:
     ds = kernels["dram_serve"]
     hw = ds["windows"]["hitgraph"]
     dt = kernels["dram_timing"]
-    sw = kernels["sweep_min"]
+    sw = kernels["sweep_min_rounds"]
     by_path = {name: {path: counts[name] for path, counts in launches.items()}
                for name in KERNELS}
     table = [
@@ -1272,11 +1324,11 @@ def main() -> int:
          "bound_by": "bytes", "library_ms": None,
          "inputs": "hitgraph ep1_apply window", "window": dt["window"],
          "full_phase": dt["full_phase"]},
-        {"name": "dram_serve_prepass", "route": "cuda",
+        {"name": "serve_prepass", "route": "cuda",
          "source": "src/repro_torch/csrc/dram_serve.cu",
          "replaces": "src/repro/kernels/dram_timing/kernel.py:210",
-         "launches": launches["main"]["dram_serve_prepass"],
-         "launches_by_path": by_path["dram_serve_prepass"],
+         "launches": launches["main"]["serve_prepass"],
+         "launches_by_path": by_path["serve_prepass"],
          "max_abs_err": ds["max_abs_err"],
          "ms": hw["prepass_ms"], "plain_ms": hw["prepass_plain_ms"],
          "bound_ms": hw["prepass_bound_ms"], "bound_by": "bytes",
@@ -1286,24 +1338,25 @@ def main() -> int:
          "full_program_bound_ms": {
              acc: w["full_program"]["prepass_bound_ms"]
              for acc, w in ds["windows"].items()}},
-        {"name": "sweep_min", "route": "cuda",
+        {"name": "sweep_min_rounds", "route": "cuda",
          "source": "src/repro_torch/csrc/sweep_min_rounds.cu",
          "replaces": "src/repro/algorithms/vertex_centric.py:41",
-         "launches": launches["main"]["sweep_min"],
-         "launches_by_path": by_path["sweep_min"],
+         "launches": launches["main"]["sweep_min_rounds"],
+         "launches_by_path": by_path["sweep_min_rounds"],
          "max_abs_err": sw["max_abs_err"], "ms": sw["ms"],
+         "call_ms": sw["call_ms"],
          "rounds": sw["rounds"], "plain_ms": sw["plain_ms"],
          "bound_ms": sw["bound_ms"], "bound_by": "bytes",
-         "one_pass_bound_ms": sw["one_pass_bound_ms"],
+         "rounds_bound_ms": sw["rounds_bound_ms"],
          "library_ms": None,
          "inputs": "accugraph main-path block, first WCC sweep",
          "sweeps": sw["sweeps"], "pack_ms": sw["pack_ms"],
          "paths": paths, "shape": sw["shape"]},
-        {"name": "sweep_min_serial", "route": "cuda",
+        {"name": "sweep_min", "route": "cuda",
          "source": "src/repro_torch/csrc/sweep_min.cu",
          "replaces": "src/repro/algorithms/vertex_centric.py:41",
-         "launches": launches["main"]["sweep_min_serial"],
-         "launches_by_path": by_path["sweep_min_serial"],
+         "launches": launches["main"]["sweep_min"],
+         "launches_by_path": by_path["sweep_min"],
          "max_abs_err": sw["max_abs_err"], "ms": sw["serial_route_ms"],
          "plain_ms": sw["plain_ms"], "bound_ms": sw["serial_bound_ms"],
          "bound_by": "bytes", "library_ms": None,

@@ -49,8 +49,10 @@
 //      shared memory, four chunks of T steps deep, by cp.async.bulk (the
 //      TMA's bulk copy) completing on an mbarrier per slot; lane 0
 //      refills a slot as soon as the warp has read it.  Finishes are
-//      stored straight from the lanes (fire-and-forget stores, off the
-//      chain), 4 B a lane a step into the [S, C, K] output.
+//      staged in shared memory, a chunk's T steps, and stored by the
+//      whole warp, coalesced, once a chunk into the [S, C, K] output (a
+//      store a lane a step straight from the lanes was 1-2 % slower on
+//      the full main-path programs on an H100: tools/serve_variants.py).
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -222,6 +224,7 @@ __global__ void __launch_bounds__(1024) serve_records_kernel(
   int* s_act = s_pmfx + 2 * C + C * B + c * B;
   int* s_hist = s_pmfx + 2 * C + 2 * C * B + c * R * 4;  // [R, 4]
   int* s_ptr = s_pmfx + 2 * C + 2 * C * B + C * R * 4 + c * R;
+  int* s_fin = s_pmfx + 2 * C + 2 * C * B + 5 * C * R + c * TK;  // [T, K]
 
   for (int i = lane; i < B; i += 32) {
     s_avail[i] = avail_in[c * B + i];
@@ -243,8 +246,7 @@ __global__ void __launch_bounds__(1024) serve_records_kernel(
   const long long n_chunks = (S + T - 1) / T;
   const int2* src = rec + static_cast<long long>(c) * S_pad * K;
   const int chunk_bytes = TK * 8;
-  // this lane's finish of step s is fin[s * C * K + c * K + k]
-  int* fout = fin + c * K + k;
+  // the finish of lane k at step s is fin[s * C * K + c * K + k]
   const long long fstride = static_cast<long long>(C) * K;
 
   if (lane == 0) {
@@ -262,14 +264,14 @@ __global__ void __launch_bounds__(1024) serve_records_kernel(
     const int2* buf = ring + slot * TK;
     const int steps = static_cast<int>(S - ch * T < T ? S - ch * T : T);
     int2 r_next = buf[k];
-    for (int i = 0; i < steps; ++i, fout += fstride) {
+    for (int i = 0; i < steps; ++i) {
       // the record of the next step is read while this one computes
       const int2 r = r_next;
       if (i + 1 < steps) r_next = buf[(i + 1) * K + k];
       const int x = r.x, mt = r.y;
       if (mt & REC_EMPTY) {
         // no valid lane: every finish 0, the step's makespan 0
-        if (writer) *fout = 0;
+        if (writer) s_fin[i * K + k] = 0;
         bus = max(bus, 0);
         pmf = max(pmf, 0);
       } else {
@@ -328,7 +330,7 @@ __global__ void __launch_bounds__(1024) serve_records_kernel(
           if (k >= off) ccm = max(ccm, up);
         }
         const int fin_out = v ? wadd(lane_tbl1, max(bus, ccm)) : 0;
-        if (writer) *fout = fin_out;
+        if (writer) s_fin[i * K + k] = fin_out;
         // every lane >= K replicates lane (lane % K), so the max over the
         // whole warp is the max over the block's K lanes
         const int mx = __reduce_max_sync(FULL, fin_out);
@@ -376,6 +378,11 @@ __global__ void __launch_bounds__(1024) serve_records_kernel(
       }
       __syncwarp();
     }
+    // the chunk's finishes, from shared memory, by the whole warp
+    __syncwarp();
+    for (int e = lane; e < steps * K; e += 32)
+      fin[(ch * T + e / K) * fstride + c * K + e % K] = s_fin[e];
+    __syncwarp();
     // refill the slot just read with the chunk kSlots ahead
     if (lane == 0 && ch + kSlots < n_chunks)
       bulk_load(ring + slot * TK, src + (ch + kSlots) * TK, chunk_bytes,
@@ -397,7 +404,8 @@ __global__ void __launch_bounds__(1024) serve_records_kernel(
 size_t records_smem(int C, int K, int T, int B, int R) {
   return static_cast<size_t>(C) * kSlots * T * K * 8 +
          static_cast<size_t>(C) * kSlots * 8 +
-         static_cast<size_t>(2 * C + 2 * C * B + 5 * C * R) * sizeof(int);
+         static_cast<size_t>(2 * C + 2 * C * B + 5 * C * R + C * T * K) *
+             sizeof(int);
 }
 
 template <int K>

@@ -27,13 +27,15 @@
 // F_v is the right-hand side; by induction over ascending v, y[u] = x'[u]
 // for u < v gives y[v] <= F_v(x') = x'[v] <= y[v].  That fixed point is x'.
 //
-// What bounds it.  Bytes: one round reads the sliced-ELL sources (4 B a
-// slot), the destination ids and the values; the sweep is rounds x that,
-// about 0.018 ms a round for the wiki-talk block over 3.35 TB/s.  Rounds
-// follow the longest ascending-id chain along which a value improves:
-// at most 8 (the synchronous count) for the first WCC sweep of the
-// wiki-talk block, ~n on an ascending path.  The wrapper caps the rounds by a budget and then runs the serial
-// route from x0, so the worst case costs about twice the serial sweep.
+// What bounds it.  Bytes: the sweep needs one pass, the sliced-ELL
+// sources (4 B a slot), the destination ids and the values read and
+// written once, about 0.018 ms for the wiki-talk block over 3.35 TB/s.
+// This design makes that pass once a round.  Rounds follow the longest
+// ascending-id chain along which a value improves: at most 8 (the
+// synchronous count) for the first WCC sweep of the wiki-talk block, ~n
+// on an ascending path.  The wrapper caps the rounds by a budget and
+// then runs the serial route from x0, so the worst case costs about
+// twice the serial sweep.
 //
 // What the design does about it.  One cooperative launch a sweep: a
 // persistent grid (as many blocks as fit on the card at once) walks the
@@ -90,8 +92,8 @@ __device__ __forceinline__ int warp_min(int v) {
   return v;
 }
 
-// status: [0] last round that lowered a value (-1 at the start),
-// [1] rounds run, [2] 1 if the last round changed nothing
+// status: [0] the last round that lowered a value, counted from 1 (0 at
+// the start), [1] rounds run, [2] 1 if the last round changed nothing
 __global__ void __launch_bounds__(kThreads)
     sweep_rounds_kernel(int* y, const int* __restrict__ x0, Sell a, int add,
                         int max_rounds, int* status) {
@@ -141,11 +143,11 @@ __global__ void __launch_bounds__(kThreads)
         changed = true;
       }
     }
-    if (__any_sync(kFull, changed) && lane == 0) atomicMax(status, r);
+    if (__any_sync(kFull, changed) && lane == 0) atomicMax(status, r + 1);
     grid.sync();
     // every thread reads the word after the same barrier; a round r that
-    // changed nothing leaves it below r, and no thread writes it again
-    if (*last_change < r) {
+    // changed nothing leaves it at most r, and no thread writes it again
+    if (*last_change <= r) {
       if (blockIdx.x == 0 && threadIdx.x == 0) {
         status[1] = r + 1;
         status[2] = 1;
@@ -165,8 +167,8 @@ __global__ void __launch_bounds__(kThreads)
 // the sliced ELL of the block's in-edges (cols int32[slots], slice_ptr
 // int64[n_slices + 1], slice_rows int32[32 n_slices], chunk_ptr
 // int64[n_chunks + 1], chunk_rows int32[n_chunks]); status int32[3] =
-// {-1, 0, 0} on entry, {last round that changed, rounds, converged} on
-// exit.  At most max_rounds rounds.
+// {0, 0, 0} on entry, {last round that changed (from 1), rounds,
+// converged} on exit.  At most max_rounds rounds.
 extern "C" int repro_sweep_min_rounds(
     void* values, const void* x0, const void* cols, const void* slice_ptr,
     const void* slice_rows, long long n_slices, const void* chunk_ptr,

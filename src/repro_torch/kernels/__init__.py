@@ -6,19 +6,19 @@ from typing import Callable, Dict
 
 def wrappers() -> Dict[str, Callable]:
     """Every kernel wrapper, by kernel name; each counts its launches in
-    ``<wrapper>.launches``.  ``sweep_min`` is the round kernel of
-    ``sweep_min_block`` and ``sweep_min_serial`` the serial route;
+    ``<wrapper>.launches``.  ``sweep_min_rounds`` is the round sweep and
+    ``sweep_min`` the serial one (the two routes of ``sweep_min_block``);
     ``dram_serve`` is the serve over the records that
-    ``dram_serve_prepass`` writes (one launch of each a serve)."""
+    ``serve_prepass`` writes (one launch of each a serve)."""
     from repro_torch.kernels.dram_timing.ops import (dram_serve, dram_timing,
                                                      serve_prepass)
     from repro_torch.kernels.edge_scatter.ops import edge_scatter
     from repro_torch.kernels.segment_reduce.ops import segment_reduce
     from repro_torch.kernels.spmv_ell.ops import spmv_ell
-    from repro_torch.kernels.sweep_min.ops import sweep_min, sweep_min_block
-    return {"dram_serve": dram_serve, "dram_serve_prepass": serve_prepass,
-            "dram_timing": dram_timing, "sweep_min": sweep_min_block,
-            "sweep_min_serial": sweep_min,
+    from repro_torch.kernels.sweep_min.ops import sweep_min, sweep_min_rounds
+    return {"dram_serve": dram_serve, "serve_prepass": serve_prepass,
+            "dram_timing": dram_timing, "sweep_min_rounds": sweep_min_rounds,
+            "sweep_min": sweep_min,
             "segment_reduce": segment_reduce, "edge_scatter": edge_scatter,
             "spmv_ell": spmv_ell}
 

@@ -149,7 +149,7 @@ def serve_prepass(issue: torch.Tensor, meta: torch.Tensor,
             issue.data_ptr(), meta.data_ptr(), boundary.data_ptr(),
             timing.data_ptr(), rec.data_ptr(), S, S_pad, C, K, R,
             banks_per_rank, stream)
-    check_launch(code, "dram_serve_prepass")
+    check_launch(code, "serve_prepass")
     serve_prepass.launches += 1
     return rec
 

@@ -1,28 +1,31 @@
 """Asynchronous min-relaxation sweep of one vertex-centric block.
 
-Two entry points, each a hand-written CUDA kernel on the card:
+Two hand-written CUDA kernels, each behind its own wrapper and counter:
 
-- ``sweep_min_block(values, block, add)``, the engine's: the sweep of one
+- ``sweep_min_rounds(values, x0, block, add, max_rounds, status)``: one
+  cooperative launch of ``csrc/sweep_min_rounds.cu``, the sweep of one
   :class:`SweepBlock` (destination-sorted in-edges) as exact parallel
-  rounds, one cooperative launch of ``csrc/sweep_min_rounds.cu``; past a
-  budget of rounds it restores the values and takes the serial route;
+  rounds, at most ``max_rounds`` of them; counted in
+  ``sweep_min_rounds.launches``;
 - ``sweep_min(values, src, dst, add)``, the serial route and the
   Pallas-free counterpart of the JAX package's scan: every edge in edge
   order, ``values[dst] = min(values[dst], values[src] + add)``, in place,
   against the current values, on one thread (``csrc/sweep_min.cu``); any
-  edge order.
+  edge order; counted in ``sweep_min.launches``.
 
-For CPU tensors both run the plain sequential loop :func:`sweep_min_ref`;
-:func:`sweep_min_rounds_ref` is the round algorithm in torch ops.  No
-fallback: a CUDA tensor goes to a kernel or the call raises.
-``sweep_min_block.launches`` counts the round kernel's launches and
-``sweep_min.launches`` the serial kernel's.
+``sweep_min_block(values, block, add)``, the engine's entry point, runs
+the rounds up to a budget and, if they do not converge, restores the
+values and takes the serial route.  For CPU tensors the kernels' wrappers
+run their plain versions (:func:`sweep_min_rounds_ref`, the round
+algorithm in torch ops, and :func:`sweep_min_ref`, the sequential loop)
+and ``sweep_min_block`` runs the sequential loop.  No fallback: a CUDA
+tensor goes to a kernel or the call raises.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -106,18 +109,25 @@ def _check_block(src: torch.Tensor, dst: torch.Tensor, n: int) -> None:
 class SweepBlock:
     """One block's in-edges ``src -> dst`` (int32[m] on one device,
     ``dst`` non-decreasing, endpoints in ``[0, n)``; checked, raises
-    otherwise) and, built from them, the same edges as a sources-only
-    :class:`SlicedEll` for the round kernel."""
+    otherwise) and, for a block on the card, the same edges as a
+    sources-only :class:`SlicedEll` for the round kernel (``ell``; None
+    on the CPU, where no round kernel runs).
+
+    The sliced ELL alone does not serve: it reorders rows by width and a
+    heavy row's edges by source, while the serial route and the
+    sequential sweep need the edges in their destination-sorted order,
+    and the round kernel's exactness rests on ``dst`` being sorted."""
 
     n: int
     src: torch.Tensor
     dst: torch.Tensor
-    ell: SlicedEll = dataclasses.field(init=False)
+    ell: Optional[SlicedEll] = dataclasses.field(init=False)
 
     def __post_init__(self):
         _check_block(self.src, self.dst, self.n)
         object.__setattr__(self, "ell", pack_in_edges(
-            self.src, self.dst, self.n, None, device=self.dst.device))
+            self.src, self.dst, self.n, None, device=self.dst.device)
+            if self.dst.device.type == "cuda" else None)
 
     @property
     def m(self) -> int:
@@ -125,6 +135,9 @@ class SweepBlock:
 
     @property
     def slots(self) -> int:
+        """The sliced ELL's slots (padding included); card blocks only."""
+        if self.ell is None:
+            raise ValueError("a CPU SweepBlock has no sliced ELL")
         return self.ell.cols.numel()
 
 
@@ -139,6 +152,7 @@ def pack_sweep_block(src, dst, n: int, device=None) -> SweepBlock:
 
 
 def _check_values(values: torch.Tensor, n: int, add: int, device) -> None:
+    """Everything but the values' peak, which needs a read of the card."""
     if values.dtype != torch.int32 or values.dim() != 1:
         raise TypeError("sweep values must be 1-D int32")
     if not values.is_contiguous():
@@ -150,9 +164,30 @@ def _check_values(values: torch.Tensor, n: int, add: int, device) -> None:
         raise ValueError(f"values on {values.device}, block on {device}")
     if int(add) < 0:
         raise ValueError(f"the round sweep needs add >= 0, got {add}")
-    if n and int(values.max()) + int(add) >= 2**31:
+
+
+def _check_peak(peak: int, add: int) -> None:
+    if peak + int(add) >= 2**31:
         raise ValueError("values.max() + add must stay below 2**31 (the "
                          "rounds are exact only where nothing wraps)")
+
+
+def _rounds(values, src, dst, add, max_rounds) -> tuple:
+    """The synchronous rounds, at most ``max_rounds`` (None: no limit):
+    (rounds run, whether the last one changed nothing)."""
+    s, d = src.long(), dst.long()
+    up, down = s > d, s < d
+    base = values.scatter_reduce(0, d[up], values[s[up]] + add, "amin")
+    d_down, s_down = d[down], s[down]
+    rounds = 0
+    while max_rounds is None or rounds < max_rounds:
+        rounds += 1
+        y = base.scatter_reduce(0, d_down, values[s_down] + add, "amin")
+        y = torch.minimum(y, values)
+        if torch.equal(y, values):
+            return rounds, True
+        values.copy_(y)
+    return rounds, False
 
 
 def sweep_min_rounds_ref(values: torch.Tensor, src: torch.Tensor,
@@ -166,18 +201,45 @@ def sweep_min_rounds_ref(values: torch.Tensor, src: torch.Tensor,
     too, so it needs at most as many."""
     _check_edges(values, src, dst)
     _check_values(values, values.shape[0], add, values.device)
-    s, d = src.long(), dst.long()
-    up, down = s > d, s < d
-    base = values.scatter_reduce(0, d[up], values[s[up]] + add, "amin")
-    d_down, s_down = d[down], s[down]
-    rounds = 0
-    while True:
-        rounds += 1
-        y = base.scatter_reduce(0, d_down, values[s_down] + add, "amin")
-        y = torch.minimum(y, values)
-        if torch.equal(y, values):
-            return rounds
-        values.copy_(y)
+    if values.numel():
+        _check_peak(int(values.max()), add)
+    return _rounds(values, src, dst, add, None)[0]
+
+
+def sweep_min_rounds(values: torch.Tensor, x0: torch.Tensor,
+                     block: SweepBlock, add: int, max_rounds: int,
+                     status: torch.Tensor) -> None:
+    """At most ``max_rounds`` rounds of ``block``'s sweep over ``values``
+    (int32[n], in place; ``x0`` an untouched copy of it), as the round
+    kernel runs them.  ``status`` (int32[3], zeros on entry) receives {the
+    last round that lowered a value, counted from 1 (0: none); the rounds
+    run; 1 if the last round changed nothing, else 0}; when it is 1,
+    ``values`` holds the serial sweep's result.  Checks no precondition
+    that needs a read of the card (``sweep_min_block`` does): ``add >=
+    0`` and ``x0.max() + add < 2**31`` are the caller's."""
+    if values.device.type == "cpu":
+        rounds, done = _rounds(values, block.src, block.dst, add,
+                               max_rounds)
+        status.copy_(torch.tensor([rounds - int(done), rounds, int(done)],
+                                  dtype=torch.int32))
+        return
+    if values.device.type != "cuda":
+        raise ValueError(f"sweep_min_rounds runs on CUDA or CPU, not "
+                         f"{values.device}")
+    a = block.ell
+    lib = library()
+    with torch.cuda.device(values.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.repro_sweep_min_rounds(
+            values.data_ptr(), x0.data_ptr(), a.cols.data_ptr(),
+            a.slice_ptr.data_ptr(), a.slice_rows.data_ptr(), a.n_slices,
+            a.chunk_ptr.data_ptr(), a.chunk_rows.data_ptr(), a.n_chunks,
+            block.n, int(add), int(max_rounds), status.data_ptr(), stream)
+    check_launch(code, "sweep_min_rounds")
+    sweep_min_rounds.launches += 1
+
+
+sweep_min_rounds.launches = 0
 
 
 class SweepResult(NamedTuple):
@@ -202,39 +264,35 @@ def sweep_min_block(values: torch.Tensor, block: SweepBlock,
     """The serial sweep of ``block`` over ``values`` (int32[n], in place),
     bit for bit.  On the card: the round kernel, at most
     :func:`round_budget` rounds; if they do not converge, the values are
-    restored and the serial kernel sweeps them.  Needs ``add >=
-    0`` and ``values.max() + add < 2**31``; raises otherwise."""
+    restored and the serial kernel sweeps them.  Needs ``add >= 0`` and
+    ``values.max() + add < 2**31``; raises otherwise (on the card after
+    the round launch, with the values restored: the peak is read in the
+    same synchronisation as the kernel's status)."""
     if not isinstance(block, SweepBlock):
         raise TypeError("sweep_min_block takes a SweepBlock "
                         "(pack_sweep_block)")
     _check_values(values, block.n, add, block.dst.device)
     if values.device.type == "cpu":
+        if block.n:
+            _check_peak(int(values.max()), add)
         sweep_min_ref(values, block.src, block.dst, add)
         return SweepResult(0, "plain")
     if values.device.type != "cuda":
         raise ValueError(f"sweep_min_block runs on CUDA or CPU, not "
                          f"{values.device}")
-    budget = round_budget(block)
-    a = block.ell
+    if block.n == 0:
+        return SweepResult(0, "rounds")
     x0 = values.clone()
-    status = torch.tensor([-1, 0, 0], dtype=torch.int32,
-                          device=values.device)
-    lib = library()
-    with torch.cuda.device(values.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.repro_sweep_min_rounds(
-            values.data_ptr(), x0.data_ptr(), a.cols.data_ptr(),
-            a.slice_ptr.data_ptr(), a.slice_rows.data_ptr(), a.n_slices,
-            a.chunk_ptr.data_ptr(), a.chunk_rows.data_ptr(), a.n_chunks,
-            block.n, int(add), budget, status.data_ptr(), stream)
-    check_launch(code, "sweep_min_block")
-    sweep_min_block.launches += 1
-    _, rounds, converged = status.tolist()
+    status = torch.zeros(4, dtype=torch.int32, device=values.device)
+    sweep_min_rounds(values, x0, block, add, round_budget(block),
+                     status[:3])
+    status[3:].copy_(x0.amax(0, keepdim=True))
+    _, rounds, converged, peak = status.tolist()
+    if peak + int(add) >= 2**31:
+        values.copy_(x0)
+        _check_peak(peak, add)
     if converged:
         return SweepResult(rounds, "rounds")
     values.copy_(x0)
     sweep_min(values, block.src, block.dst, add)
     return SweepResult(rounds, "serial")
-
-
-sweep_min_block.launches = 0

@@ -30,6 +30,7 @@ from repro_torch.kernels.sweep_min import ops as sweep_ops
 from repro_torch.kernels.sweep_min.ops import (pack_sweep_block, sweep_min,
                                                sweep_min_block,
                                                sweep_min_ref,
+                                               sweep_min_rounds,
                                                sweep_min_rounds_ref)
 from repro_torch.algorithms import edge_centric, vertex_centric
 from repro_torch.algorithms.common import Problem
@@ -182,9 +183,9 @@ def test_sweep_min_block_equals_plain(cuda, add, start):
           else rng.integers(0, 2**31 - 2**24, g.n))
     vals_k = torch.as_tensor(x0.astype(np.int32), device=cuda)
     vals_p, vals_r = vals_k.clone(), vals_k.clone()
-    before = (sweep_min_block.launches, sweep_min.launches)
+    before = (sweep_min_rounds.launches, sweep_min.launches)
     res = sweep_min_block(vals_k, block, add)
-    assert (sweep_min_block.launches, sweep_min.launches) == (
+    assert (sweep_min_rounds.launches, sweep_min.launches) == (
         before[0] + 1, before[1])
     assert res.route == "rounds"
     sweep_min_ref(vals_p, block.src, block.dst, add)
@@ -217,6 +218,38 @@ def test_sweep_min_block_paths(cuda, monkeypatch, ascending):
             assert sweep_min.launches == before + 1
         else:
             assert res.route in ("rounds", "serial") and res.rounds > 3
+
+
+def test_sweep_min_rounds_status_and_overflow(cuda):
+    """The round kernel's status words on an ascending path of 64
+    vertices (64 rounds at most; cut at 3 it has not converged, and the
+    values lie between the serial result and the start), one launch each;
+    and ``sweep_min_block`` on the card rejecting values whose peak + add
+    wraps, after the launch, with the values restored."""
+    n = 64
+    block = _path_block(n, True, cuda)
+    x0 = torch.arange(n, dtype=torch.int32, device=cuda)
+    want = x0.clone()
+    sweep_min_ref(want, block.src, block.dst, 0)
+    for max_rounds in (3, 1000):
+        vals = x0.clone()
+        status = torch.zeros(3, dtype=torch.int32, device=cuda)
+        before = sweep_min_rounds.launches
+        sweep_min_rounds(vals, x0.clone(), block, 0, max_rounds, status)
+        assert sweep_min_rounds.launches == before + 1
+        last, rounds, done = status.tolist()
+        if max_rounds == 3:
+            assert (last, rounds, done) == (3, 3, 0)
+            assert bool((vals >= want).all() & (vals <= x0).all())
+        else:
+            assert done == 1 and last == rounds - 1 and 1 <= rounds <= n
+            assert torch.equal(vals, want)
+    vals = x0.clone()
+    vals[5] = 2**31 - 1
+    kept = vals.clone()
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        sweep_min_block(vals, block, 1)
+    assert torch.equal(vals, kept)
 
 
 @pytest.mark.parametrize("accelerator", ["hitgraph", "accugraph"])

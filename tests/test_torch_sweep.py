@@ -24,6 +24,7 @@ from repro_torch.kernels.sweep_min import ops
 from repro_torch.kernels.sweep_min.ops import (SweepBlock, pack_sweep_block,
                                                sweep_min_block,
                                                sweep_min_ref,
+                                               sweep_min_rounds,
                                                sweep_min_rounds_ref)
 
 
@@ -115,14 +116,17 @@ def test_block_wrapper_runs_the_serial_sweep_on_cpu():
     g = r_gen.rmat(8, 4, seed=3)
     order = np.argsort(g.dst, kind="stable")
     block = pack_sweep_block(g.src[order], g.dst[order], g.n)
-    assert block.m == g.m and block.slots >= g.m
+    # no sliced ELL on the CPU: only the card's round kernel reads one
+    assert block.m == g.m and block.ell is None
+    with pytest.raises(ValueError, match="no sliced ELL"):
+        block.slots
     for add in (0, 1):
         vals = torch.arange(g.n, dtype=torch.int32)
         want = vals.clone()
         sweep_min_ref(want, block.src, block.dst, add)
-        before = (sweep_min_block.launches, ops.sweep_min.launches)
+        before = (sweep_min_rounds.launches, ops.sweep_min.launches)
         assert sweep_min_block(vals, block, add) == (0, "plain")
-        assert (sweep_min_block.launches, ops.sweep_min.launches) == before
+        assert (sweep_min_rounds.launches, ops.sweep_min.launches) == before
         assert torch.equal(vals, want)
 
 
@@ -151,6 +155,31 @@ def test_block_wrapper_rejects_its_preconditions():
         sweep_min_block(torch.zeros(4, dtype=torch.int32), good, 0)
     with pytest.raises(TypeError):
         sweep_min_block(vals, (good.src, good.dst), 0)
+
+
+@pytest.mark.parametrize("max_rounds", [1, 3, 2**20])
+def test_rounds_wrapper_status_on_cpu(max_rounds):
+    """``sweep_min_rounds`` on CPU tensors runs the synchronous rounds,
+    at most ``max_rounds``, and fills the kernel's status words: the last
+    round that lowered a value (from 1), the rounds run, converged.  An
+    ascending path of 12 vertices from the WCC start needs 12 rounds."""
+    n = 12
+    block = pack_sweep_block(np.arange(n - 1), np.arange(1, n), n)
+    x0 = torch.arange(n, dtype=torch.int32)
+    want = x0.clone()
+    sweep_min_ref(want, block.src, block.dst, 0)
+    vals, status = x0.clone(), torch.zeros(3, dtype=torch.int32)
+    before = sweep_min_rounds.launches
+    sweep_min_rounds(vals, x0.clone(), block, 0, max_rounds, status)
+    assert sweep_min_rounds.launches == before
+    if max_rounds >= n:
+        assert status.tolist() == [n - 1, n, 1]
+        assert torch.equal(vals, want)
+    else:
+        assert status.tolist() == [max_rounds, max_rounds, 0]
+        assert not torch.equal(vals, want)
+        # values only fall toward the serial result
+        assert bool((vals >= want).all()) and bool((vals <= x0).all())
 
 
 def _rounds_sweep(values, src, dst, add):
