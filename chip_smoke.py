@@ -14,7 +14,8 @@ Phases, one JSON line each:
               the channel's), its pre-pass's records against theirs,
               ``dram_timing`` on seeded random traces (DDR3, DDR4, HBM2, a
               2-rank DDR4, and one bulk trace that trips the tFAW window;
-              carry chained across two calls), the round sweep
+              carry chained across two calls; also at chunks of 64 slots,
+              and the serial kernel ``dram_timing_serial``), the round sweep
               (``sweep_min_block``) and the serial sweep on rmat(12, 4)
               (add 0 and 1, from ``arange`` and a warm start), bit for bit; ``segment_reduce`` (sum/min/max in f32,
               sum in bf16; and on run layouts: sorted, unsorted, one
@@ -41,7 +42,9 @@ Phases, one JSON line each:
               ``uniform-churn`` (3 epochs, inserts and deletes) and
               AccuGraph WCC under ``pa-growth`` (3 epochs), sharing the
               main path's sessions, with the launch counts zeroed just
-              before and read just after; one row per epoch.
+              before and read just after (one chunked ``dram_timing`` a
+              rewrite phase, no serial one); one row per epoch.  The
+              first rewrite phase's kernel inputs are kept for phase 8.
 7. stationary — the stationary path at full size on the same graph and
               sessions: PR and SpMV with ``fixed_iters=3`` on HitGraph
               (``edge_scatter`` + ``segment_reduce`` a step over the
@@ -57,9 +60,13 @@ Phases, one JSON line each:
               (pre-pass and serve timed apart, finishes and carry held to
               their pinned digest), the AccuGraph block's 5 WCC sweeps
               (each held to the serial kernel; the first also on the
-              serial route and by the plain loop), a window of
-              the HitGraph ``ep1_apply`` phase's per-channel streams (two
-              chained kernel calls), and the full-size PR scatter and
+              serial route and by the plain loop), the first rewrite
+              phase of each dynamic run, ``[4, 524288]`` (HitGraph) and
+              ``[1, 1048576]`` (AccuGraph), whole (the chunked scan held
+              bit for bit to the serial kernel, timed pass by pass and at
+              every chunk length) and as an 8,192-slot window (two
+              chained kernel calls, both kernels held to the plain
+              version), and the full-size PR scatter and
               gather (destination-sorted, and in raw edge order) and the
               whole pull step; kernel and plain times on the same
               inputs, one PyTorch call's time where one computes the
@@ -122,9 +129,13 @@ DYNAMIC_PINNED = {
     "accugraph": [(5, 4_958_483), (4, 4_565_454), (5, 5_582_023),
                   (4, 4_695_464)],
 }
-KERNELS = ("dram_serve", "serve_prepass", "dram_timing",
+KERNELS = ("dram_serve", "serve_prepass", "dram_timing", "dram_timing_serial",
            "sweep_min_rounds", "sweep_min", "segment_reduce", "edge_scatter",
            "spmv_ell")
+
+#: the carry scan's group lengths timed on the full rewrite phases (1: one
+#: serial walk over the chunks)
+GROUPS = (1, 8, 32, 64)
 
 #: vertices of the sweep's worst case, an ascending path
 PATH_N = 1 << 20
@@ -268,6 +279,12 @@ def channel_streams(cfg, rng, n=3000, bulk=False):
     return vec.pack_channels(Trace(lines, np.zeros(n, bool), issue), cfg)
 
 
+def timing_diff(got, want) -> int:
+    """Max absolute difference over two ``(finish, kind, carry)``."""
+    return max([max_abs_diff(got[0], want[0]), max_abs_diff(got[1], want[1])]
+               + [max_abs_diff(a, b) for a, b in zip(got[2], want[2])])
+
+
 def timing_both(streams, timing, carry, split):
     """Kernel (two chained calls split at slot ``split``) and plain
     version (one call) on per-channel streams from ``carry``; returns the
@@ -280,18 +297,20 @@ def timing_both(streams, timing, carry, split):
                                timing, st)
         fins.append(f)
         kinds.append(k)
-    fin_p, kind_p, st_p = dram_timing_ref(*streams, timing, carry)
+    want = dram_timing_ref(*streams, timing, carry)
     torch.cuda.synchronize()
-    return max([max_abs_diff(torch.cat(fins, 1), fin_p),
-                max_abs_diff(torch.cat(kinds, 1), kind_p)]
-               + [max_abs_diff(a, b) for a, b in zip(st, st_p)])
+    return timing_diff((torch.cat(fins, 1), torch.cat(kinds, 1), st), want)
 
 
 def check_dram_timing(dev) -> dict:
     """``dram_timing`` against its plain version on seeded random traces
-    of four memories and one bulk trace that trips the tFAW window."""
+    of four memories and one bulk trace that trips the tFAW window; also
+    at chunks of 64 slots, which split every trace into many chunks (the
+    tFAW trace's ACT ring crossing chunk edges), and the serial kernel."""
     from repro_torch.core import vectorized as vec
     from repro_torch.core.dram import PRESETS, ddr4_2400r
+    from repro_torch.kernels.dram_timing.ops import (dram_timing_chunks,
+                                                     dram_timing_serial)
     from repro_torch.kernels.dram_timing.ref import dram_timing_ref
     memories = {"ddr3": PRESETS["hitgraph"], "ddr4": PRESETS["accugraph"],
                 "hbm2": PRESETS["hbm2"],
@@ -311,6 +330,10 @@ def check_dram_timing(dev) -> dict:
                                        cfg.org.banks, dev)
         worst = max(worst, timing_both(streams, timing, carry,
                                        packed.issue.shape[1] // 2 + 1))
+        want = dram_timing_ref(*streams, timing, carry)
+        for got in (dram_timing_chunks(*streams, timing, carry, 64)[:3],
+                    dram_timing_serial(*streams, timing, carry)):
+            worst = max(worst, timing_diff(got, want))
         if bulk:
             no_faw = t_np.copy()
             no_faw[6] = 0
@@ -322,7 +345,9 @@ def check_dram_timing(dev) -> dict:
             assert binds, "the bulk trace does not reach the tFAW window"
     assert worst == 0, f"dram_timing differs from its plain version: {worst}"
     return {"dram_timing_cases": len(memories),
-            "dram_timing_max_abs_diff": worst, "faw_window_binds": True}
+            "dram_timing_max_abs_diff": worst, "faw_window_binds": True,
+            "dram_timing_chunk_lens": ["default", 64],
+            "dram_timing_serial_checked": True}
 
 
 def max_rel_err(got, want) -> float:
@@ -711,15 +736,29 @@ def compare_stationary(wt, runs, dev) -> dict:
     return out
 
 
-def run_dynamic_path(wt, acc, session, main_report, card):
+def run_dynamic_path(wt, acc, session, main_report, card, phases):
     """One full-size dynamic run through ``run_dynamic(verify=True)``,
     sharing the main path's session (so epoch 0 reuses its algorithm run
-    and model); one JSON row per epoch, then the run's totals."""
+    and model); one JSON row per epoch, then the run's totals.  The
+    per-channel streams and carry of its first ``ep{e}_apply`` phase, as
+    ``VectorizedDRAM.run_phase`` hands them to ``dram_timing``, go to
+    ``phases[acc]`` (kept by reference; no launch is added)."""
+    from repro_torch.core import vectorized as vec
     from repro_torch.sim import run_dynamic
     preset = DYNAMIC_CASES[acc]
+    serve = vec.simulate_packed
+
+    def keep(issue, bank, row, valid, timing, carry):
+        phases.setdefault(acc, (issue, bank, row, valid, timing, carry))
+        return serve(issue, bank, row, valid, timing, carry)
+
+    vec.simulate_packed = keep
     t0 = time.perf_counter()
-    res = run_dynamic(wt, "wcc", updates=preset, accelerator=acc,
-                      session=session, verify=True)
+    try:
+        res = run_dynamic(wt, "wcc", updates=preset, accelerator=acc,
+                          session=session, verify=True)
+    finally:
+        vec.simulate_packed = serve
     seconds = time.perf_counter() - t0
     assert res.n_epochs == 4, res.n_epochs
     # epoch 0 is the static main path, bit for bit (its ``phases`` list
@@ -763,56 +802,96 @@ def run_dynamic_path(wt, acc, session, main_report, card):
     return res
 
 
-def compare_dram_timing(wt, res, dev) -> dict:
-    """``dram_timing`` against its plain version on the HitGraph
-    ``ep1_apply`` phase's own per-channel streams, rebuilt from the
-    stream's seeded batch: a window of 8,192 slots per channel, entered
-    with the kernel's own carry and served as two chained kernel calls;
-    kernel and plain times on the window, and the kernel's time on the
-    whole phase."""
-    from repro_torch.core import accel, delta, vectorized as vec
-    from repro_torch.graphs.updates import UPDATE_PRESETS, apply_batch
-    from repro_torch.kernels.dram_timing.ops import dram_timing
+def chunked_ms(streams, timing, carry, T, group=None, reps=3):
+    """The chunked scan's launches (chunks of ``T``, the carry scan's
+    groups of ``group``, by default as ``dram_timing`` runs it), timed by
+    CUDA events around each (the wrapper's final read of ``kind`` left
+    out), over ``reps`` warmed runs: (mean total ms, mean ms of each launch
+    by name)."""
+    from repro_torch.kernels.dram_timing.ops import (GROUP, LAUNCHES,
+                                                     dram_timing_chunks)
+    group = GROUP if group is None else group
+    dram_timing_chunks(*streams, timing, carry, T, group)
+    runs = [dram_timing_chunks(*streams, timing, carry, T, group,
+                               time_passes=True)[3] for _ in range(reps)]
+    passes = {name: sum(r[i] for r in runs) / reps
+              for i, name in enumerate(LAUNCHES)}
+    return sum(passes.values()), passes
+
+
+def compare_dram_timing(phases, dev) -> dict:
+    """``dram_timing`` on the dynamic path's own inputs: the first
+    rewrite phase of each run (``phases``, the streams and carry that
+    ``run_phase`` gave the kernel).  On each full phase the chunked scan
+    is held bit for bit to the serial kernel (finish, kind, carry) and
+    both are timed, the chunked scan launch by launch, at every chunk
+    length it is built for, and with the carry scan's groups of 1 (one
+    serial walk over the chunks), 8, 32 and 64; on an 8,192-slot window of
+    each, entered
+    with the kernel's own carry and served as two chained calls, both
+    kernels are held to the plain version, whose time is taken there."""
+    from repro_torch.kernels.dram_timing.ops import (CHUNK_LENS, GROUP,
+                                                     chunk_len, dram_timing,
+                                                     dram_timing_chunks,
+                                                     dram_timing_serial)
     from repro_torch.kernels.dram_timing.ref import dram_timing_ref
-    from repro_torch.sim import get_accelerator
-    from repro_torch.sim.session import resolve_run_config
-    spec = get_accelerator("hitgraph")
-    cfg = resolve_run_config(spec)
-    dram = cfg.dram_config()
-    b1 = UPDATE_PRESETS[DYNAMIC_CASES["hitgraph"]].batch(wt, 1)
-    model1 = spec.build_model(apply_batch(wt, b1), cfg)
-    touched = delta.structural_partitions(b1, wt, model1.q, model1.p)
-    name, line, _, issue = delta.delta_phase(model1, 1, touched)
-    served = res.epochs[1].report.phases[0]
-    assert (name, len(line)) == (served.name, served.requests)
-    comps = dram.decode_lines(line)
-    ch, C = comps["channel"], dram.channels
-    L = accel._bucket(int(np.bincount(ch, minlength=C).max()))
-    streams = [torch.as_tensor(a, device=dev) for a in vec.pack_streams(
-        ch, issue, comps["bank_in_channel"], comps["row"], C, L)[:4]]
-    timing = torch.as_tensor(vec.timing_params(dram.timing), device=dev)
-    cold = vec.init_channel_carry(C, dram.banks_per_channel,
-                                  dram.org.banks, dev)
-    full_ms = cuda_ms(lambda: dram_timing(*streams, timing, cold), reps=3)
-    W = min(8192, L)
-    lo = max(0, min(W, L - W))
-    _, _, st = dram_timing(*(x[:, :lo].contiguous() for x in streams),
-                           timing, cold)
-    win = [x[:, lo:lo + W].contiguous() for x in streams]
-    diff = timing_both(win, timing, st, W // 2)
-    assert diff == 0, f"dram_timing differs on the ep1_apply window: {diff}"
-    win_ms = cuda_ms(lambda: dram_timing(*win, timing, st), reps=5)
-    plain_ms = host_ms(lambda: dram_timing_ref(*win, timing, st))
-    B, R = dram.banks_per_channel, dram.org.ranks
-    return {"max_abs_err": diff, "ms": win_ms, "plain_ms": plain_ms,
-            "bound_ms": timing_bytes(C, W, B, R) / HBM_BYTES_PER_S * 1e3,
+    out = {}
+    for acc, (*streams, timing, carry) in phases.items():
+        C, L = streams[0].shape
+        B, R = carry[0].shape[1], carry[5].shape[1]
+        T = chunk_len(C, L, R)
+        serial = dram_timing_serial(*streams, timing, carry)
+        got = dram_timing(*streams, timing, carry)
+        full_diff = timing_diff(got, serial)
+        assert full_diff == 0, (
+            f"dram_timing differs from the serial kernel on the full {acc} "
+            f"phase: {full_diff}")
+        del got
+        ms, passes = chunked_ms(streams, timing, carry, T)
+        by_len = {n: chunked_ms(streams, timing, carry, n, reps=2)[0]
+                  for n in CHUNK_LENS}
+        by_group = {g: chunked_ms(streams, timing, carry, T, g, reps=2)[0]
+                    for g in GROUPS}
+        for n, g in [(n, GROUP) for n in CHUNK_LENS] + [(T, g)
+                                                        for g in GROUPS]:
+            other = dram_timing_chunks(*streams, timing, carry, n, g)[:3]
+            full_diff = max(full_diff, timing_diff(other, serial))
+        assert full_diff == 0, f"a chunk length differs on {acc}: {full_diff}"
+        del serial, other
+        serial_ms = cuda_ms(
+            lambda: dram_timing_serial(*streams, timing, carry), reps=2)
+        call_ms = host_ms(lambda: dram_timing(*streams, timing, carry))
+        W = min(8192, L)
+        lo = max(0, min(W, L - W))
+        st = dram_timing(*(x[:, :lo].contiguous() for x in streams), timing,
+                         carry)[2]
+        win = [x[:, lo:lo + W].contiguous() for x in streams]
+        diff = timing_both(win, timing, st, W // 2)
+        want = dram_timing_ref(*win, timing, st)
+        diff = max(diff, timing_diff(dram_timing_serial(*win, timing, st),
+                                     want))
+        assert diff == 0, f"dram_timing differs on the {acc} window: {diff}"
+        win_ms = chunked_ms(win, timing, st, chunk_len(C, W, R))[0]
+        win_serial_ms = cuda_ms(lambda: dram_timing_serial(*win, timing, st),
+                                reps=5)
+        plain_ms = host_ms(lambda: dram_timing_ref(*win, timing, st))
+        out[acc] = {
+            "max_abs_err": diff, "full_phase_max_abs_err": full_diff,
+            "full_phase": {
+                "shape": [C, L], "valid_slots": int(streams[3].sum()),
+                "chunk_len": T, "ms": ms, "serial_ms": serial_ms,
+                "call_ms": call_ms,
+                "passes_ms": passes,
+                "ms_by_chunk_len": by_len, "group": GROUP,
+                "ms_by_group": by_group,
+                "bound_ms": timing_bytes(C, L, B, R) / HBM_BYTES_PER_S * 1e3},
             "window": {"shape": [C, W], "start": lo,
-                       "valid_slots": int(win[3].sum())},
-            "full_phase": {"shape": [C, L], "requests": len(line),
-                           "touched_partitions": len(touched),
-                           "ms": full_ms,
-                           "bound_ms": timing_bytes(C, L, B, R)
-                           / HBM_BYTES_PER_S * 1e3}}
+                       "valid_slots": int(win[3].sum()), "ms": win_ms,
+                       "serial_ms": win_serial_ms, "plain_ms": plain_ms,
+                       "bound_ms": timing_bytes(C, W, B, R)
+                       / HBM_BYTES_PER_S * 1e3}}
+        emit(phase="dram_timing", accelerator=acc, **out[acc])
+    return out
 
 
 def random_program(rng, hit_heavy, n_phases=4, max_n=300):
@@ -1181,12 +1260,18 @@ def main() -> int:
 
     # ---- 6. the dynamic path at full size -------------------------------
     zero_launch_counts()
-    dyn = {acc: run_dynamic_path(wt, acc, sessions[acc], reports[acc], card)
+    apply_phases = {}
+    dyn = {acc: run_dynamic_path(wt, acc, sessions[acc], reports[acc], card,
+                                 apply_phases)
            for acc in DYNAMIC_CASES}
     launches["dynamic"] = launch_counts()
     for name in ("dram_serve", "dram_timing", "sweep_min_rounds"):
         assert launches["dynamic"][name] > 0, (
             f"{name} was never launched on the dynamic path")
+    # one chunked scan a rewrite phase, never the serial kernel
+    assert launches["dynamic"]["dram_timing_serial"] == 0, launches["dynamic"]
+    assert launches["dynamic"]["dram_timing"] == sum(
+        len(r.epochs) - 1 for r in dyn.values()), launches["dynamic"]
 
     # ---- 7. the stationary path at full size ----------------------------
     launches["stationary"], stat_runs = run_stationary_path(
@@ -1294,7 +1379,8 @@ def main() -> int:
     emit(phase="edge_centric_cross_check", iterations=run_gpu.iterations,
          seconds=time.perf_counter() - t0)
 
-    kernels["dram_timing"] = compare_dram_timing(wt, dyn["hitgraph"], dev)
+    kernels["dram_timing"] = compare_dram_timing(apply_phases, dev)
+    del apply_phases
     kernels.update(compare_stationary(wt, stat_runs, dev))
 
     ds = kernels["dram_serve"]
@@ -1319,11 +1405,27 @@ def main() -> int:
          "replaces": "src/repro/kernels/dram_timing/kernel.py:117",
          "launches": launches["dynamic"]["dram_timing"],
          "launches_by_path": by_path["dram_timing"],
-         "max_abs_err": dt["max_abs_err"], "ms": dt["ms"],
-         "plain_ms": dt["plain_ms"], "bound_ms": dt["bound_ms"],
+         "max_abs_err": max(d["max_abs_err"] for d in dt.values()),
+         "ms": dt["hitgraph"]["window"]["ms"],
+         "plain_ms": dt["hitgraph"]["window"]["plain_ms"],
+         "bound_ms": dt["hitgraph"]["window"]["bound_ms"],
          "bound_by": "bytes", "library_ms": None,
-         "inputs": "hitgraph ep1_apply window", "window": dt["window"],
-         "full_phase": dt["full_phase"]},
+         "inputs": "hitgraph ep1_apply window",
+         "full_phases": {acc: d["full_phase"] for acc, d in dt.items()},
+         "windows": {acc: d["window"] for acc, d in dt.items()}},
+        {"name": "dram_timing_serial", "route": "cuda",
+         "source": "src/repro_torch/csrc/dram_timing_serial.cu",
+         "replaces": "src/repro/kernels/dram_timing/kernel.py:117",
+         "launches": launches["dynamic"]["dram_timing_serial"],
+         "launches_by_path": by_path["dram_timing_serial"],
+         "max_abs_err": max(d["max_abs_err"] for d in dt.values()),
+         "ms": dt["hitgraph"]["window"]["serial_ms"],
+         "plain_ms": dt["hitgraph"]["window"]["plain_ms"],
+         "bound_ms": dt["hitgraph"]["window"]["bound_ms"],
+         "bound_by": "bytes", "library_ms": None,
+         "inputs": "hitgraph ep1_apply window",
+         "full_phase_ms": {acc: d["full_phase"]["serial_ms"]
+                           for acc, d in dt.items()}},
         {"name": "serve_prepass", "route": "cuda",
          "source": "src/repro_torch/csrc/dram_serve.cu",
          "replaces": "src/repro/kernels/dram_timing/kernel.py:210",

@@ -44,6 +44,14 @@ SIGNATURES = {
     # issue, bank, row, valid, timing, 7 carry inputs, finish, kind,
     # 7 carry outputs, C, L, B, R, banks_per_rank, stream
     "repro_dram_timing": ([_P] * 21 + [_I, _L, _I, _I, _I, _P], _I),
+    # the same, then the chunk length T, the carry scan's group length G
+    # and float[7] launch times (or null)
+    "repro_dram_timing_chunks": ([_P] * 21 + [_I, _L, _I, _I, _I, _I, _I,
+                                              _P, _P], _I),
+    # C, L, R -> the chunk length repro_dram_timing takes
+    "repro_dram_timing_chunk_len": ([_I, _L, _I], _I),
+    # as repro_dram_timing
+    "repro_dram_timing_serial": ([_P] * 21 + [_I, _L, _I, _I, _I, _P], _I),
     # values, src, dst, m, add, stream
     "repro_sweep_min": ([_P, _P, _P, _L, _I, _P], _I),
     # values, x0, cols, slice_ptr, slice_rows, n_slices, chunk_ptr,

@@ -3,19 +3,26 @@
 * ``dram_serve`` — the blocked ``[S, C, K]`` multi-phase serve
   (``csrc/dram_serve.cu``): a carry-free pre-pass (``serve_prepass``)
   and the carry chain over its records (``serve_records``);
-* ``dram_timing`` — the per-channel ``[C, L]`` scan of one phase
-  (``csrc/dram_timing.cu``), and :func:`simulate_trace` around it.
+* ``dram_timing`` — the per-channel ``[C, L]`` scan of one phase as a
+  chunked max-plus scan (``csrc/dram_timing.cu``; :func:`dram_timing_chunks`
+  takes the chunk length), and :func:`simulate_trace` around it;
+* ``dram_timing_serial`` — the same scan by one lane a channel
+  (``csrc/dram_timing_serial.cu``), which the chunked scan is held
+  against; no path calls it.
 
 Each wrapper checks its inputs, then launches the CUDA kernel for CUDA
 tensors or runs the plain version (``ref.py``) for CPU tensors.  There
 is no fallback: a CUDA tensor goes to the kernel or the call raises.
 ``dram_serve.launches`` (the serve's carry chain, from ``dram_serve``
-or ``serve_records``), ``serve_prepass.launches`` and
-``dram_timing.launches`` count kernel launches.
+or ``serve_records``), ``serve_prepass.launches``,
+``dram_timing.launches`` (from ``dram_timing`` or
+``dram_timing_chunks``) and ``dram_timing_serial.launches`` count kernel
+launches.
 """
 
 from __future__ import annotations
 
+import ctypes
 from typing import Tuple
 
 import numpy as np
@@ -29,6 +36,7 @@ from repro_torch.core.vectorized import (MAX_PHASE_ISSUE, NEG_INF32,
 from repro_torch.device import resolve_device
 from repro_torch.kernels.build import check_launch, library
 from repro_torch.kernels.dram_timing.ref import (dram_serve_ref,
+                                                 dram_timing_chunked_ref,
                                                  dram_timing_ref,
                                                  serve_prepass_ref,
                                                  serve_records_ref)
@@ -236,6 +244,54 @@ def _check_timing(issue, bank, row, valid, timing, carry):
     return C, L, B, R
 
 
+#: chunk lengths the chunked scan is built for, the chunks its carry scan
+#: composes at a time (as ``dram_timing`` runs it, and at most), the kind
+#: it gives a slot whose step leaves the int32 range, and its launches, in
+#: order (``csrc/dram_timing.cu``)
+CHUNK_LENS = (64, 128, 256, 512, 1024, 2048, 4096)
+GROUP, MAX_GROUP = 32, 64
+KIND_WRAPPED = 3
+LAUNCHES = ("summary", "entry_scan", "transfer", "compose", "chain",
+            "expand", "emit")
+
+
+def _check_chunked(C, B, R):
+    if R > 32 or B > 256 or B // R > 32:
+        raise ValueError(f"the chunked scan takes at most 32 ranks, 256 "
+                         f"banks a channel and 32 banks a rank, got R={R}, "
+                         f"B={B}")
+
+
+def chunk_len(C: int, L: int, R: int) -> int:
+    """The chunk length ``dram_timing`` runs a ``[C, L]`` phase of ``R``
+    ranks a channel with on the card."""
+    return int(library().repro_dram_timing_chunk_len(C, L, R))
+
+
+def _launch_timing(entry, args, carry, C, L, extra=()):
+    issue = args[0]
+    finish = torch.empty_like(issue)
+    kind = torch.empty((C, L), dtype=torch.int8, device=issue.device)
+    out = tuple(torch.empty_like(x) for x in carry)
+    B, R = carry[0].shape[1], carry[5].shape[1]
+    with torch.cuda.device(issue.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = entry(*(a.data_ptr() for a in args),
+                     *(x.data_ptr() for x in carry),
+                     finish.data_ptr(), kind.data_ptr(),
+                     *(x.data_ptr() for x in out),
+                     C, L, B, R, B // R, *extra, stream)
+    return code, finish, kind, out
+
+
+def _check_wrapped(kind: torch.Tensor) -> None:
+    """The chunked scan's one departure: raise where a valid slot's step
+    left the int32 range (the int32 scan would wrap there)."""
+    if kind.numel() and int(kind.max()) == KIND_WRAPPED:
+        raise ValueError("a step leaves the int32 range (the int32 scan "
+                         "would wrap); chunk the trace")
+
+
 def dram_timing(issue: torch.Tensor, bank: torch.Tensor, row: torch.Tensor,
                 valid: torch.Tensor, timing: torch.Tensor, carry: State):
     """Serve one phase of per-channel ``[C, L]`` streams (issue, bank,
@@ -244,32 +300,86 @@ def dram_timing(issue: torch.Tensor, bank: torch.Tensor, row: torch.Tensor,
     act_ptr[C,R], last_act[C,R])``, all int32; ``timing`` is the int32[7]
     vector (tCL, tRCD, tRP, tRAS, tBL, tRRD, tFAW).  Returns
     ``(finish int32[C, L], kind int8[C, L], carry)``, bit-identical to
-    the JAX package's per-channel scan."""
+    the JAX package's per-channel scan.  On the card the chunked scan
+    (chunks of :func:`chunk_len` slots) computes in int64 and raises
+    ``ValueError`` where a step leaves the int32 range, the one place the
+    int32 scan would wrap; on the CPU the plain per-slot scan."""
     C, L, B, R = _check_timing(issue, bank, row, valid, timing, carry)
     if issue.device.type == "cpu":
         return dram_timing_ref(issue, bank, row, valid, timing, carry)
     if issue.device.type != "cuda":
         raise ValueError(f"dram_timing runs on CUDA or CPU, not "
                          f"{issue.device}")
-    lib = library()
-    finish = torch.empty_like(issue)
-    kind = torch.empty((C, L), dtype=torch.int8, device=issue.device)
-    out = tuple(torch.empty_like(x) for x in carry)
-    with torch.cuda.device(issue.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.repro_dram_timing(
-            issue.data_ptr(), bank.data_ptr(), row.data_ptr(),
-            valid.data_ptr(), timing.data_ptr(),
-            *(x.data_ptr() for x in carry),
-            finish.data_ptr(), kind.data_ptr(),
-            *(x.data_ptr() for x in out),
-            C, L, B, R, B // R, stream)
+    _check_chunked(C, B, R)
+    code, finish, kind, out = _launch_timing(
+        library().repro_dram_timing, (issue, bank, row, valid, timing),
+        carry, C, L)
     check_launch(code, "dram_timing")
     dram_timing.launches += 1
+    _check_wrapped(kind)
     return finish, kind, out
 
 
 dram_timing.launches = 0
+
+
+def dram_timing_chunks(issue: torch.Tensor, bank: torch.Tensor,
+                       row: torch.Tensor, valid: torch.Tensor,
+                       timing: torch.Tensor, carry: State, T: int,
+                       group: int = GROUP, time_passes: bool = False):
+    """:func:`dram_timing` with chunks of ``T`` slots (one of
+    :data:`CHUNK_LENS`), the carry scan composing ``group`` chunks'
+    matrices at a time (1 to :data:`MAX_GROUP`; 1 walks the chunks one by
+    one); returns ``(finish, kind, carry, pass_ms)``, where
+    ``pass_ms`` is, with ``time_passes`` on the card, the milliseconds of
+    each launch (:data:`LAUNCHES`; compose, chain and expand make the carry
+    scan) by CUDA events, else None.  Counted in ``dram_timing.launches``;
+    for CPU tensors the plain chunked version
+    (:func:`~.ref.dram_timing_chunked_ref`)."""
+    C, L, B, R = _check_timing(issue, bank, row, valid, timing, carry)
+    if T not in CHUNK_LENS:
+        raise ValueError(f"chunk length must be one of {CHUNK_LENS}, got {T}")
+    if not 1 <= group <= MAX_GROUP:
+        raise ValueError(f"group must lie in [1, {MAX_GROUP}], got {group}")
+    if issue.device.type == "cpu":
+        return dram_timing_chunked_ref(issue, bank, row, valid, timing,
+                                       carry, T) + (None,)
+    if issue.device.type != "cuda":
+        raise ValueError(f"dram_timing runs on CUDA or CPU, not "
+                         f"{issue.device}")
+    _check_chunked(C, B, R)
+    ms = (ctypes.c_float * len(LAUNCHES))() if time_passes else None
+    code, finish, kind, out = _launch_timing(
+        library().repro_dram_timing_chunks,
+        (issue, bank, row, valid, timing), carry, C, L,
+        (T, group, ctypes.cast(ms, ctypes.c_void_p) if ms else None))
+    check_launch(code, "dram_timing")
+    dram_timing.launches += 1
+    _check_wrapped(kind)
+    return finish, kind, out, list(ms) if ms else None
+
+
+def dram_timing_serial(issue: torch.Tensor, bank: torch.Tensor,
+                       row: torch.Tensor, valid: torch.Tensor,
+                       timing: torch.Tensor, carry: State):
+    """:func:`dram_timing` by the serial kernel: one lane a channel walks
+    its slots in int32 that wraps as the JAX scan does.  The plain
+    version for CPU tensors."""
+    C, L, B, R = _check_timing(issue, bank, row, valid, timing, carry)
+    if issue.device.type == "cpu":
+        return dram_timing_ref(issue, bank, row, valid, timing, carry)
+    if issue.device.type != "cuda":
+        raise ValueError(f"dram_timing_serial runs on CUDA or CPU, not "
+                         f"{issue.device}")
+    code, finish, kind, out = _launch_timing(
+        library().repro_dram_timing_serial,
+        (issue, bank, row, valid, timing), carry, C, L)
+    check_launch(code, "dram_timing_serial")
+    dram_timing_serial.launches += 1
+    return finish, kind, out
+
+
+dram_timing_serial.launches = 0
 
 
 def simulate_trace(trace: Trace, cfg: DRAMConfig, device=None):

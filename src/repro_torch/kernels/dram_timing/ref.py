@@ -11,11 +11,13 @@ effect, which is not a no-op — the bus time and the phase makespan clamp
 at 0, because such a step's makespan ``mx`` is 0 — so the returned carry
 equals a step-by-step run over the whole padded stream.
 
-:func:`dram_timing_ref` (for ``csrc/dram_timing.cu``) is
-``_request_step``/``_channel_scan`` (``src/repro/core/vectorized.py:227,
-279``) in torch, channels side by side, one Python-loop iteration per
-slot.  Invalid slots leave the carry untouched, so it stops at the last
-slot that is valid in any channel.
+:func:`dram_timing_ref` (for ``csrc/dram_timing.cu`` and
+``csrc/dram_timing_serial.cu``) is ``_request_step``/``_channel_scan``
+(``src/repro/core/vectorized.py:227, 279``) in torch, channels side by
+side, one Python-loop iteration per slot.  Invalid slots leave the carry
+untouched, so it stops at the last slot that is valid in any channel.
+:func:`dram_timing_chunked_ref` computes the same by the card's chunked
+max-plus passes, with the chunk length a parameter.
 
 :func:`serve_prepass_ref` and :func:`serve_records_ref` are the two
 halves of the card's serve (``csrc/dram_serve.cu``) in torch: the
@@ -34,6 +36,11 @@ from repro_torch.core.vectorized import (META_CONFL, META_MISS,
                                          META_VALID, NEG_INF32)
 
 State = Tuple[torch.Tensor, ...]
+
+#: the max-plus zero (-infinity) of the chunked scan's int64 matrices, far
+#: below any time: a chunk adds at most T times the timing sum to it
+NEG64 = -(1 << 62)
+I32_MIN, I32_MAX = -(1 << 31), (1 << 31) - 1
 
 
 def dram_timing_ref(issue: torch.Tensor, bank: torch.Tensor,
@@ -92,6 +99,243 @@ def dram_timing_ref(issue: torch.Tensor, bank: torch.Tensor,
             -1).to(torch.int8)
     return finish, kind, (open_row, act_time, bank_avail, bus_free,
                           act_hist, act_ptr, last_act)
+
+
+def timing_state_width(banks_per_rank: int) -> int:
+    """D, the length of a rank's state vector in the chunked scan: its
+    banks' ``bank_avail`` and ``act_time``, its 4-deep ACT history (in
+    ring order from the chunk's entry pointer), ``last_act``, and a
+    constant 0 (through which the slots' issue cycles enter)."""
+    return 2 * banks_per_rank + 6
+
+
+def _chunked(x: torch.Tensor, n_chunks: int, T: int, fill) -> torch.Tensor:
+    C, L = x.shape
+    pad = torch.full((C, n_chunks * T - L), fill, dtype=x.dtype,
+                     device=x.device)
+    return torch.cat([x, pad], 1).view(C, n_chunks, T)
+
+
+def dram_timing_chunked_ref(issue: torch.Tensor, bank: torch.Tensor,
+                            row: torch.Tensor, valid: torch.Tensor,
+                            timing: torch.Tensor, carry: State, T: int):
+    """The card's chunked max-plus scan (``csrc/dram_timing.cu``) in torch:
+    what :func:`dram_timing_ref` computes, in int64, by its five passes
+    over chunks of ``T`` slots, each pass a loop over chunks or over a
+    chunk's slots with every chunk side by side.
+
+    1. summary: per chunk, each bank's first and last valid row, the ACTs
+       of slots that are not the first to their bank, the valid count;
+    2. entry scan: each chunk's open rows, ACT-ring pointers and valid
+       count before it (and so the carry's ``open_row``, ``act_ptr``);
+    3. transfer: with its selections fixed (hit / empty / conflict and the
+       ring slot of every ACT follow from the open rows alone), a chunk
+       maps each rank's state vector ``s`` (:func:`timing_state_width`)
+       max-plus linearly; lane ``j`` runs the chunk from the basis vector
+       ``e_j`` and gives column ``j`` of the matrix, plus the bus row: the
+       chunk's max of ``col + tCL + tBL - n * tBL`` (``n`` counting the
+       chunk's valid slots up to and including this one);
+    4. carry scan: ``s <- M_k (x) s`` chunk by chunk gives each chunk's
+       entry state and the carry out (the card first multiplies groups of
+       chunks' matrices, which max-plus associativity allows); the bus is
+       a prefix max over the chunks' bus rows, for ``finish_i = n_i * tBL
+       + max(bus_in, max_{j <= i} (col_j + tCL + tBL - n_j * tBL))``;
+    5. emit: each chunk walked once more from its entry state, writing
+       ``finish`` (the card in int32 that wraps as the per-slot scan
+       does, flagging the wrap).
+
+    Returns ``(finish, kind, carry)`` as :func:`dram_timing_ref` does.
+    Raises ``ValueError`` where a valid slot's step leaves the int32
+    range, that is, where the int32 reference would wrap."""
+    tCL, tRCD, tRP, tRAS, tBL, tRRD, tFAW = (int(x) for x in
+                                             timing.tolist())
+    (open_row, act_time, bank_avail, bus_free,
+     act_hist, act_ptr, last_act) = carry
+    C, L = issue.shape
+    B, R = open_row.shape[1], act_ptr.shape[1]
+    bpr = B // R
+    D = timing_state_width(bpr)
+    A, H, LAST, Z = bpr, 2 * bpr, 2 * bpr + 4, 2 * bpr + 5
+    dev = issue.device
+    i64 = dict(dtype=torch.int64, device=dev)
+    if L == 0:
+        return (torch.empty_like(issue),
+                torch.empty((C, 0), dtype=torch.int8, device=dev),
+                tuple(x.clone() for x in carry))
+    nK = -(-L // T)
+    iss, bnk, rw = (_chunked(x.long(), nK, T, 0) for x in (issue, bank, row))
+    v = _chunked(valid, nK, T, False)
+    bank_ids = torch.arange(B, device=dev)
+    rank_ids = torch.arange(R, device=dev)
+
+    # 1. summary, every chunk side by side
+    has = torch.zeros((C, nK, B), dtype=torch.bool, device=dev)
+    first = torch.zeros((C, nK, B), **i64)
+    last = torch.zeros((C, nK, B), **i64)
+    nf_acts = torch.zeros((C, nK, R), **i64)
+    for t in range(T):
+        vt, bt, rt = v[..., t], bnk[..., t], rw[..., t]
+        oh = (bt[..., None] == bank_ids) & vt[..., None]
+        seen = (has & oh).any(-1)
+        prev = torch.gather(last, 2, bt[..., None]).squeeze(-1)
+        acts = vt & seen & (prev != rt)
+        nf_acts += ((torch.div(bt, bpr, rounding_mode="floor")[..., None]
+                     == rank_ids) & acts[..., None])
+        first = torch.where(oh & ~has, rt[..., None], first)
+        last = torch.where(oh, rt[..., None], last)
+        has |= oh
+    nvalid = v.sum(2)
+
+    # 2. entry scan over the chunks
+    opn, ptr = open_row.long(), act_ptr.long()
+    n = torch.zeros(C, **i64)
+    open_entry = torch.empty((C, nK, B), **i64)
+    ptr_entry = torch.empty((C, nK, R), **i64)
+    N = torch.empty((C, nK), **i64)
+    for k in range(nK):
+        open_entry[:, k], ptr_entry[:, k], N[:, k] = opn, ptr, n
+        fa = has[:, k] & (first[:, k] != opn)
+        ptr = (ptr + nf_acts[:, k] + fa.view(C, R, bpr).sum(-1)) % 4
+        opn = torch.where(has[:, k], last[:, k], opn)
+        n = n + nvalid[:, k]
+
+    # 3. transfer: lane j of chunk k (per rank) runs from e_j
+    shape = (C, R, nK, D)
+    eye = torch.arange(D, device=dev)
+    S = torch.where(eye[:, None] == eye, 0, NEG64).to(torch.int64).expand(
+        *shape, D).clone()                                  # [.., j, i]
+    G = torch.full(shape, NEG64, **i64)
+    cur = open_entry.view(C, nK, R, bpr).permute(0, 2, 1, 3).clone()
+    p = torch.zeros((C, R, nK), **i64)
+    nloc = torch.zeros((C, nK), **i64)
+    live = torch.zeros((C, R, nK), dtype=torch.bool, device=dev)
+    kind = torch.full((C, nK, T), -1, dtype=torch.int8, device=dev)
+
+    def comp(idx):
+        return torch.gather(S, 4, idx[..., None, None].expand(
+            *shape, 1)).squeeze(-1)
+
+    def put(idx, val, mask):
+        S.scatter_(4, idx[..., None, None].expand(*shape, 1),
+                   torch.where(mask, val, comp(idx))[..., None])
+
+    for t in range(T):
+        vt, bt, rt, it = v[..., t], bnk[..., t], rw[..., t], iss[..., t]
+        nloc = nloc + vt
+        rk = torch.div(bt, bpr, rounding_mode="floor")
+        mine = vt[:, None] & (rk[:, None] == rank_ids[:, None])
+        live |= mine
+        bl = torch.remainder(bt, bpr)[:, None].expand(C, R, nK)
+        o = torch.gather(cur, 3, bl[..., None]).squeeze(-1)
+        rtx = rt[:, None].expand(C, R, nK)
+        hit, empty = o == rtx, o == -1
+        av, at, hp = comp(bl), comp(bl + A), comp(p + H)
+        la = S[..., LAST].clone()
+        base = torch.maximum(it[:, None, :, None] + S[..., Z], av)
+        floor = torch.maximum(la + tRRD, hp + tFAW)
+        act = torch.where(
+            empty[..., None], torch.maximum(base, floor),
+            torch.maximum(torch.maximum(base, at + tRAS) + tRP, floor))
+        col = torch.where(hit[..., None], base, act + tRCD)
+        G = torch.where(mine[..., None], torch.maximum(
+            G, col + tCL + tBL - nloc[:, None, :, None] * tBL), G)
+        miss = mine & ~hit
+        put(bl + A, act, miss[..., None])
+        put(p + H, act, miss[..., None])
+        S[..., LAST] = torch.where(miss[..., None], act, la)
+        put(bl, col + tBL, mine[..., None])
+        cur.scatter_(3, bl[..., None], torch.where(miss, rtx, o)[..., None])
+        p = torch.where(miss, torch.remainder(p + 1, 4), p)
+        kt = torch.where(hit, 0, torch.where(empty, 1, 2))
+        kind[..., t] = torch.where(vt, torch.where(mine, kt, 0).sum(1),
+                                   -1).to(torch.int8)
+
+    # 4. carry scan over the chunks, each rank on its own
+    s = torch.cat([bank_avail.view(C, R, bpr).long(),
+                   act_time.view(C, R, bpr).long(), act_hist.long(),
+                   last_act.long()[..., None],
+                   torch.zeros((C, R, 1), **i64)], -1)
+    entry = torch.empty(shape, **i64)
+    h = torch.full((C, R, nK), NEG64, **i64)
+    q = torch.arange(4, device=dev)
+    for k in range(nK):
+        entry[:, :, k] = s
+        ring = torch.remainder(ptr_entry[:, k][..., None] + q, 4)
+        s_rel = s.clone()
+        s_rel[..., H:H + 4] = torch.gather(s[..., H:H + 4], 2, ring)
+        new = (S[:, :, k] + s_rel[..., :, None]).amax(-2)
+        hk = (G[:, :, k] + s_rel).amax(-1)
+        new[..., H:H + 4] = torch.empty_like(ring).scatter_(
+            2, ring, new[..., H:H + 4].clone())
+        lv = live[:, :, k]
+        s = torch.where(lv[..., None], new, s)
+        h[:, :, k] = torch.where(lv, hk, NEG64)
+    F = bus_free.long()
+    f_entry = torch.empty((C, nK), **i64)
+    for k in range(nK):
+        f_entry[:, k] = F
+        F = torch.maximum(F, h[:, :, k].amax(1) - N[:, k] * tBL)
+    bus_out = F + n * tBL
+
+    # 5. emit: every chunk walked from its true entry state
+    def by_bank(x):
+        return x.permute(0, 2, 1, 3).reshape(C, nK, B).clone()
+
+    av, at = by_bank(entry[..., :A]), by_bank(entry[..., A:H])
+    hist = entry[..., H:H + 4].permute(0, 2, 1, 3).reshape(C, nK, R * 4)
+    hist = hist.clone()
+    la = entry[..., LAST].permute(0, 2, 1).clone()
+    cur, pt = open_entry.clone(), ptr_entry.clone()
+    Fc, nc = f_entry.clone(), N.clone()
+    fin = torch.zeros((C, nK, T), **i64)
+    wrapped = torch.zeros((C, nK), dtype=torch.bool, device=dev)
+    for t in range(T):
+        vt, bt, rt, it = v[..., t], bnk[..., t], rw[..., t], iss[..., t]
+        rk = torch.div(bt, bpr, rounding_mode="floor")
+        b1, r1 = bt[..., None], rk[..., None]
+        o = torch.gather(cur, 2, b1).squeeze(-1)
+        a_v = torch.gather(av, 2, b1).squeeze(-1)
+        a_t = torch.gather(at, 2, b1).squeeze(-1)
+        pp = torch.gather(pt, 2, r1).squeeze(-1)
+        hi = (rk * 4 + pp)[..., None]
+        hp = torch.gather(hist, 2, hi).squeeze(-1)
+        lr = torch.gather(la, 2, r1).squeeze(-1)
+        hit, empty = o == rt, o == -1
+        base = torch.maximum(it, a_v)
+        x_ras = a_t + tRAS
+        x_rp = torch.maximum(base, x_ras) + tRP
+        f_rrd, f_faw = lr + tRRD, hp + tFAW
+        floor = torch.maximum(f_rrd, f_faw)
+        act = torch.where(empty, torch.maximum(base, floor),
+                          torch.maximum(x_rp, floor))
+        x_rcd = act + tRCD
+        col = torch.where(hit, base, x_rcd)
+        nc = nc + vt
+        Fc = torch.where(vt, torch.maximum(
+            Fc, col + tCL + tBL - nc * tBL), Fc)
+        f = Fc + nc * tBL
+        vals = torch.stack([x_ras, x_rp, f_rrd, f_faw, x_rcd, col + tCL,
+                            col + tBL, f])
+        wrapped |= vt & ((vals < I32_MIN) | (vals > I32_MAX)).any(0)
+        miss = vt & ~hit
+        cur.scatter_(2, b1, torch.where(miss, rt, o)[..., None])
+        at.scatter_(2, b1, torch.where(miss, act, a_t)[..., None])
+        av.scatter_(2, b1, torch.where(vt, col + tBL, a_v)[..., None])
+        hist.scatter_(2, hi, torch.where(miss, act, hp)[..., None])
+        pt.scatter_(2, r1, torch.where(miss, torch.remainder(pp + 1, 4),
+                                       pp)[..., None])
+        la.scatter_(2, r1, torch.where(miss, act, lr)[..., None])
+        fin[..., t] = torch.where(vt, f, 0)
+
+    out = (opn, s[..., A:H].reshape(C, B), s[..., :A].reshape(C, B),
+           bus_out, s[..., H:H + 4], ptr, s[..., LAST])
+    if bool(wrapped.any()) or any(
+            bool(((x < I32_MIN) | (x > I32_MAX)).any()) for x in out):
+        raise ValueError("a step leaves the int32 range (the int32 scan "
+                         "would wrap)")
+    finish = fin.view(C, nK * T)[:, :L].to(torch.int32).contiguous()
+    return (finish, kind.view(C, nK * T)[:, :L].contiguous(),
+            tuple(x.to(torch.int32).contiguous() for x in out))
 
 
 def make_serve_step(timing, C: int, B: int, R: int, K: int,

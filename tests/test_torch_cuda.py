@@ -23,7 +23,10 @@ from repro_torch.kernels.segment_reduce.ref import segment_reduce_ref
 from repro_torch.kernels.spmv_ell.ops import (pack_in_edges, spmv_ell,
                                               spmv_sell)
 from repro_torch.kernels.spmv_ell.ref import spmv_ell_ref, spmv_sell_ref
-from repro_torch.kernels.dram_timing.ops import (chunk_steps, serve_prepass,
+from repro_torch.kernels.dram_timing.ops import (CHUNK_LENS, chunk_steps,
+                                                 dram_timing_chunks,
+                                                 dram_timing_serial,
+                                                 serve_prepass,
                                                  serve_records)
 from repro_torch.kernels.dram_timing.ref import serve_prepass_ref
 from repro_torch.kernels.sweep_min import ops as sweep_ops
@@ -307,6 +310,87 @@ def test_dram_timing_kernel_equals_plain(cuda, memory):
         assert torch.equal(a, b)
 
 
+_TIMING_MEMORIES = {"ddr3": PRESETS["hitgraph"], "ddr4": PRESETS["accugraph"],
+                    "hbm2": PRESETS["hbm2"],
+                    "ddr4-2rank": lambda: ddr4_2400r(channels=2, ranks=2)}
+
+
+def _same_timing(got, want):
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    assert all(torch.equal(a, b) for a, b in zip(got[2], want[2]))
+
+
+@pytest.mark.parametrize("memory", sorted(_TIMING_MEMORIES))
+def test_dram_timing_chunked_equals_plain_and_serial(cuda, memory):
+    """The chunked scan against the plain version and the serial kernel,
+    bit for bit, at every chunk length it is built for, with the carry
+    scan's groups of 1, 7 and 64 chunks, and as the wrapper picks them,
+    with the carry chained across two calls; one launch counted a call."""
+    cfg = _TIMING_MEMORIES[memory]()
+    packed = _channel_streams(cfg, seed=60 + len(memory), n=5000)
+    args = [torch.as_tensor(a, device=cuda) for a in
+            (packed.issue, packed.bank, packed.row, packed.valid)]
+    timing = torch.as_tensor(vec.timing_params(cfg.timing), device=cuda)
+    cold = vec.init_channel_carry(cfg.channels, cfg.banks_per_channel,
+                                  cfg.org.banks, cuda)
+    h = packed.issue.shape[1] // 3
+    first = [a[:, :h].contiguous() for a in args]
+    rest = [a[:, h:].contiguous() for a in args]
+    warm = dram_timing_ref(*first, timing, cold)[2]
+    want = dram_timing_ref(*rest, timing, warm)
+    before = (dram_timing.launches, dram_timing_serial.launches)
+    _same_timing(dram_timing(*rest, timing, warm), want)
+    _same_timing(dram_timing_serial(*rest, timing, warm), want)
+    for T in CHUNK_LENS:
+        _same_timing(dram_timing_chunks(*rest, timing, warm, T)[:3], want)
+    # the carry scan as one serial walk, and in groups that split unevenly
+    for group in (1, 7, 64):
+        _same_timing(dram_timing_chunks(*rest, timing, warm, 64, group)[:3],
+                     want)
+    torch.cuda.synchronize()
+    assert (dram_timing.launches, dram_timing_serial.launches) == (
+        before[0] + 4 + len(CHUNK_LENS), before[1] + 1)
+    fin1, kind1, st = dram_timing(*first, timing, cold)
+    fin2, kind2, st = dram_timing(*rest, timing, st)
+    _same_timing((torch.cat([fin1, fin2], 1), torch.cat([kind1, kind2], 1),
+                  st), dram_timing_ref(*args, timing, cold))
+
+
+def test_dram_timing_single_slot_and_all_invalid_on_card(cuda):
+    cfg = PRESETS["accugraph"]()
+    timing = torch.as_tensor(vec.timing_params(cfg.timing), device=cuda)
+    carry = vec.init_channel_carry(1, 16, 16, cuda)
+    one = [torch.tensor([[5]], dtype=torch.int32, device=cuda),
+           torch.tensor([[3]], dtype=torch.int32, device=cuda),
+           torch.tensor([[9]], dtype=torch.int32, device=cuda),
+           torch.tensor([[True]], device=cuda)]
+    none = [a.repeat(1, 3000) for a in one[:3]] + [
+        torch.zeros((1, 3000), dtype=torch.bool, device=cuda)]
+    for args in (one, none):
+        want = dram_timing_ref(*args, timing, carry)
+        _same_timing(dram_timing(*args, timing, carry), want)
+        for T in CHUNK_LENS:
+            _same_timing(dram_timing_chunks(*args, timing, carry, T)[:3],
+                         want)
+        carry = want[2]
+
+
+def test_dram_timing_wrap_raises_on_card(cuda):
+    """Where the int32 scan would wrap (a bus time just below 2**31), the
+    chunked scan raises instead of returning other cycles."""
+    cfg = PRESETS["accugraph"]()
+    timing = torch.as_tensor(vec.timing_params(cfg.timing), device=cuda)
+    carry = list(vec.init_channel_carry(1, 16, 16, cuda))
+    carry[3] = torch.tensor([2**31 - 3], dtype=torch.int32, device=cuda)
+    args = [torch.tensor([[0, 1]], dtype=torch.int32, device=cuda),
+            torch.tensor([[0, 1]], dtype=torch.int32, device=cuda),
+            torch.tensor([[7, 7]], dtype=torch.int32, device=cuda),
+            torch.tensor([[True, True]], device=cuda)]
+    with pytest.raises(ValueError, match="int32"):
+        dram_timing(*args, timing, tuple(carry))
+    assert int(dram_timing_serial(*args, timing, tuple(carry))[0].min()) < 0
+
+
 @pytest.mark.parametrize("accelerator", ["hitgraph", "accugraph"])
 def test_run_dynamic_on_card_equals_cpu(cuda, accelerator):
     g = rmat(8, 5, seed=102).undirected_view()
@@ -317,6 +401,7 @@ def test_run_dynamic_on_card_equals_cpu(cuda, accelerator):
     assert a.epochs == b.epochs and a.report == b.report
     assert np.array_equal(a.final_values, b.final_values)
     assert all(ep.report.kernel_launches.get("dram_timing", 0) == 1
+               and ep.report.kernel_launches.get("dram_timing_serial", 0) == 0
                for ep in a.epochs[1:])
 
 
