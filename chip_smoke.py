@@ -23,7 +23,9 @@ Phases, one JSON line each:
               edges, d = 1 and 3), ``edge_scatter`` (copy/add/mul) and
               ``spmv_ell`` (the row-major entry point at narrow and wide
               k; the sliced-ELL pull at three heavy thresholds) on seeded
-              cases with out-of-range ids, to the stated tolerances.
+              cases with out-of-range ids, to the stated tolerances;
+              ``cache_lookup`` on seeded set-sorted streams (1, 16 and 64
+              ways, a hot set, tags past 2**31), bit for bit.
 4. goldens  — the 20 rmat7/rmat8 HitGraph/AccuGraph keys of
               ``tests/goldens/simreports.json`` through ``simulate`` on
               the card; then the sweep's worst case, an ascending path of
@@ -53,7 +55,25 @@ Phases, one JSON line each:
               just before each run and held to one a step; values held
               to a float64 recompute, PR's report to SpMV's; the time of
               each engine's set-up (the sort, the packing) beside.
-8. compare  — every kernel against its plain version on the paths' own
+7b. cache   — the main path with ``cache="default"`` at full size on
+              both accelerators, sharing the main sessions: HitGraph's
+              8-deep stream prefetcher (its runtime never above the
+              uncached one) and AccuGraph's 2 MiB 16-way vertex BRAM
+              (every lookup misses at this size), then AccuGraph with a
+              64 MiB 16-way vertex cache, which holds an iteration's
+              reads (4 of 5 iterations hit); launch and route counts
+              zeroed around each case; the ``cache_lookup`` launches are
+              kept and held bit for bit to the plain version on the card
+              and timed against their byte bound; counters and runtimes
+              pinned.  Then a cached
+              AccuGraph ``pa-growth`` dynamic run (2 epochs,
+              ``verify=True``) with the lines each epoch invalidates.
+              Every run of phases 5-7b packs on the card: the route
+              counters show no host pack.
+8. compare  — each full main-path program packed on the card and on the
+              host, array for array (``device_pack`` lines: the device
+              pack's CUDA-event time, the host pack's seconds); then
+              every kernel against its plain version on the paths' own
               inputs: a window of each packed wiki-talk program that
               crosses a phase boundary (served as two chained kernel
               calls; the pre-pass's records too), each full program
@@ -131,7 +151,32 @@ DYNAMIC_PINNED = {
 }
 KERNELS = ("dram_serve", "serve_prepass", "dram_timing", "dram_timing_serial",
            "sweep_min_rounds", "sweep_min", "segment_reduce", "edge_scatter",
-           "spmv_ell")
+           "spmv_ell", "cache_lookup")
+
+#: the cached main path, pinned from this script's H100 runs:
+#: (cache_lookups, cache_hits, prefetch_hits, runtime_ns) per case.
+#: ``cache="default"`` is HitGraph's 8-deep stream prefetcher and
+#: AccuGraph's 2 MiB 16-way vertex BRAM; at full size AccuGraph's reads
+#: span ~927K lines an iteration, far past the BRAM's 32,768, so the LRU
+#: thrashes and every lookup misses (the JAX package gives 0 hits above
+#: the BRAM too; ``tests/test_torch_cache.py``).  A cache of
+#: ``BIG_BRAM_LINES`` (64 MiB, 16-way) holds that footprint, so 4 of the 5
+#: iterations hit and the lookup's hit and LRU update branch runs at the
+#: path's full shapes.
+BIG_BRAM_LINES = 1 << 20
+PINNED_CACHE = {
+    ("hitgraph", "default"): (0, 0, 3_230_323, 22798622.5),
+    ("accugraph", "default"): (4_634_885, 0, 0, 18188865.0),
+    ("accugraph", "vertex-64m"): (4_634_885, 3_707_908, 0,
+                                  13047101.666666668),
+}
+
+#: the cached dynamic run: AccuGraph WCC under ``pa-growth``, 2 epochs,
+#: ``cache="default"``; per epoch (iterations, total_requests, cache_hits,
+#: cache_lines_invalidated), pinned from the first H100 run
+CACHED_DYNAMIC_EPOCHS = 2
+PINNED_CACHED_DYNAMIC = ([(5, 4_958_483, 0, 0), (4, 4_565_454, 0, 32_768),
+                          (5, 5_582_023, 0, 32_768)], 57117990.833333336)
 
 #: the carry scan's group lengths timed on the full rewrite phases (1: one
 #: serial walk over the chunks)
@@ -227,6 +272,24 @@ def launch_ms(prep, fn, reps: int) -> float:
         end.record()
     pairs[-1][1].synchronize()
     return sum(a.elapsed_time(b) for a, b in pairs) / reps
+
+
+def event_ms(fn, reps: int) -> float:
+    """Mean CUDA-event time of ``fn`` over ``reps`` runs after one warm-up
+    run, each run between its own pair of events; for a call that reads a
+    value back to the host midway (no sleep kernel in front of it)."""
+    fn()
+    torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
 
 
 def host_ms(fn) -> float:
@@ -894,6 +957,270 @@ def compare_dram_timing(phases, dev) -> dict:
     return out
 
 
+def check_cache_lookup(dev) -> dict:
+    """``cache_lookup`` against its plain version on seeded set-sorted
+    streams: 1, 16 and 64 ways (one and two register slots a lane), one
+    hot set taking most reads, a warm state, tags past 2**31; hits and
+    the updated state bit for bit."""
+    from repro_torch.kernels.cache_lookup.ops import cache_lookup
+    from repro_torch.kernels.cache_lookup.ref import cache_lookup_ref
+    worst, cases = 0, 0
+    for W in (1, 16, 64):
+        for hot in (0.0, 0.9):
+            rng = np.random.default_rng(W * 10 + int(hot * 10))
+            U, n = 61, 4000
+            row = np.where(rng.random(n) < hot, 0, rng.integers(0, U, n))
+            base = 2**31 + 7
+            tag = base + rng.integers(0, 3 * W, n)
+            order = np.argsort(row, kind="stable")
+            seg_ptr = np.concatenate(
+                [[0], np.cumsum(np.bincount(row, minlength=U))])
+            tags = np.where(rng.random((U, W)) < 0.5, -1,
+                            base + rng.permutation(3 * W)[:W][None, :])
+            age = np.argsort(rng.random((U, W)), axis=1)
+            args = [torch.as_tensor(a, device=dev) for a in (
+                seg_ptr.astype(np.int64), tag[order].astype(np.int64),
+                order.astype(np.int32))]
+            t_k, a_k, t_p, a_p = (torch.as_tensor(a.astype(np.int64),
+                                                  device=dev)
+                                  for a in (tags, age, tags, age))
+            hit = cache_lookup(*args, t_k, a_k)
+            hit_p = cache_lookup_ref(*args, t_p, a_p)
+            torch.cuda.synchronize()
+            worst = max(worst, max_abs_diff(hit.int(), hit_p.int()),
+                        max_abs_diff(t_k, t_p), max_abs_diff(a_k, a_p))
+            cases += 1
+    assert worst == 0, f"cache_lookup differs from its plain version: {worst}"
+    return {"cache_lookup_cases": cases, "cache_lookup_max_abs_diff": worst}
+
+
+def compare_device_pack(program, dram, host, host_s, dev) -> dict:
+    """The device pack of a full program against its host pack
+    (``host``, which took ``host_s`` seconds), array for array; the
+    device pack's time by CUDA events, the int32 copy of the trace
+    included."""
+    from repro_torch.core import accel
+    d = accel.pack_program_device(program, dram, device=dev)
+    P = program.n_phases
+    steps = np.diff(np.append(host.step_starts, host.n_steps))
+    off = host.offsets[:-1]
+    checks = {
+        "issue": np.array_equal(d.issue.cpu().numpy(), host.issue),
+        "meta": np.array_equal(d.meta.cpu().numpy(), host.meta),
+        "boundary": np.array_equal(d.boundary.cpu().numpy(), host.boundary),
+        "kind": np.array_equal(d.kind[:len(program)].cpu().numpy(),
+                               host.kind),
+        "open_row_final": np.array_equal(d.open_row_final.cpu().numpy(),
+                                         host.open_row_final),
+        "n_steps": d.n_steps == host.n_steps,
+        "K": d.K == host.issue.shape[2],
+        "L_p": np.array_equal(d.L_p[:P].cpu().numpy(), steps),
+        "hits_p": np.array_equal(d.hits_p[:P].cpu().numpy(), np.add.reduceat(
+            (host.kind == 0).astype(np.int64), off)),
+        "confl_p": np.array_equal(d.confl_p[:P].cpu().numpy(),
+                                  np.add.reduceat(
+                                      (host.kind == 2).astype(np.int64),
+                                      off))}
+    assert all(checks.values()), f"device pack differs: {checks}"
+    del d
+    ms = event_ms(lambda: accel.pack_program_device(program, dram,
+                                                    device=dev), reps=3)
+    # its two device stages alone, on the padded int32 trace already on
+    # the card (the rest is the host's padding and the copy)
+    from repro_torch.core import vectorized as vec
+    N, C = len(program), dram.channels
+    N_pad, P_pad = accel._bucket(N), accel._bucket(P)
+    line, issue = (torch.zeros(N_pad, dtype=torch.int32, device=dev)
+                   for _ in range(2))
+    line[:N] = i32(program.line_addr, dev)
+    issue[:N] = i32(program.issue, dev)
+    offsets = torch.full((P_pad + 1,), N, dtype=torch.int32, device=dev)
+    offsets[:P + 1] = i32(program.offsets, dev)
+    open_row = torch.full((C, dram.banks_per_channel), -1,
+                          dtype=torch.int32, device=dev)
+
+    def core():
+        return vec._device_pack_core(
+            line, issue, offsets, N, open_row, spec=dram.decode_spec(),
+            C=C, B=dram.banks_per_channel, banks=dram.org.banks)
+
+    out = core()
+    S, K = (int(x) for x in out[-2:])
+    S_pad = sum(vec.plan_chunks(S))
+    core_ms = event_ms(core, reps=3)
+    scatter_ms = event_ms(lambda: vec._device_pack_scatter(
+        *out[:7], S_pad=S_pad, C=C, K=K), reps=3)
+    return {"fields_equal": sorted(checks), "ms": ms,
+            "core_ms": core_ms, "scatter_ms": scatter_ms,
+            "host_pack_s": host_s, "requests": N,
+            "phases": P, "shape": list(host.issue.shape)}
+
+
+def lookup_bytes(n_reads, U, W) -> int:
+    """Bytes the lookup must move: each read's tag (8 B), position (4 B)
+    and hit flag (1 B) once, and the touched sets' tags and ages (int64
+    each) read and written once."""
+    return n_reads * (8 + 4 + 1) + 2 * U * W * 16
+
+
+def run_cache_path(sessions, card, dev):
+    """``SimSession.run("wcc", cache=...)`` at full size: both
+    accelerators with ``cache="default"`` and AccuGraph with a 64 MiB
+    16-way vertex cache (``BIG_BRAM_LINES``), sharing the main path's
+    sessions (the models and algorithm runs are reused).  Launch and route
+    counts are zeroed just before each case and read just after.  Every
+    ``cache_lookup`` launch is kept (its inputs, the state before it) and
+    afterwards held exactly to the plain version on the card and timed
+    alone.  Returns the launches by kernel over all cases and the
+    lookup's numbers for the kernel table."""
+    from repro_torch.core import accel
+    from repro_torch.core.cache import CacheConfig
+    from repro_torch.kernels import launch_counts, zero_launch_counts
+    from repro_torch.kernels.cache_lookup import ops as lookup_ops
+    from repro_torch.kernels.cache_lookup.ref import cache_lookup_ref
+    big = CacheConfig(lines=BIG_BRAM_LINES, ways=16, name="vertex-64m")
+    cases = (("hitgraph", "default", "default"),
+             ("accugraph", "default", "default"),
+             ("accugraph", "vertex-64m", big))
+    kept = []
+    lookup = lookup_ops.cache_lookup
+    label = None
+
+    def keep(seg_ptr, tag, pos, tags, age):
+        kept.append((label, seg_ptr, tag, pos, tags.clone(), age.clone()))
+        return lookup(seg_ptr, tag, pos, tags, age)
+
+    total = dict.fromkeys(KERNELS, 0)
+    reports = {}
+    # the wrapper counts its launches on the module's ``cache_lookup``,
+    # which is ``keep`` while it stands in
+    lookup_ops.cache_lookup = keep
+    try:
+        for acc, name, cache in cases:
+            label = f"{acc}/{name}"
+            zero_launch_counts()
+            accel.zero_pack_route_counts()
+            t0 = time.perf_counter()
+            r = sessions[acc].run("wcc", acc, cache=cache)
+            seconds = time.perf_counter() - t0
+            launches, routes = launch_counts(), accel.pack_route_counts()
+            reports[acc, name] = r
+            got = (r.cache_lookups, r.cache_hits, r.prefetch_hits,
+                   r.runtime_ns)
+            emit(phase="cache", accelerator=acc, cache=name,
+                 cache_lookups=got[0], cache_hits=got[1],
+                 prefetch_hits=got[2], cache_hit_rate=r.cache_hit_rate,
+                 runtime_ns=r.runtime_ns,
+                 uncached_runtime_ns=PINNED_RUNTIME_NS["main", acc],
+                 requests=r.total_requests, iterations=r.iterations,
+                 stage_seconds=r.stage_seconds, seconds=seconds,
+                 kernel_launches={k: launches[k] for k in KERNELS},
+                 pack_routes=routes, card=card)
+            assert routes == {"device_pack": 1, "host_pack": 0}, routes
+            # one program, one serve; one lookup where the level has sets
+            assert launches["dram_serve"] == 1, launches
+            assert launches["cache_lookup"] == (acc == "accugraph"), (
+                launches)
+            assert got == PINNED_CACHE[acc, name], (acc, name, got)
+            assert r.iterations == MAIN_EXPECT[acc][0]
+            for k in KERNELS:
+                total[k] += launches[k]
+    finally:
+        lookup_ops.cache_lookup = lookup
+        lookup.launches = getattr(keep, "launches", 0)
+    # the stream prefetcher never delays a request
+    hg = reports["hitgraph", "default"]
+    assert hg.runtime_ns <= PINNED_RUNTIME_NS["main", "hitgraph"]
+    assert hg.prefetch_hits > 0
+    big_r = reports["accugraph", "vertex-64m"]
+    assert big_r.cache_hits > 0
+    assert big_r.runtime_ns < PINNED_RUNTIME_NS["main", "accugraph"]
+    assert total["cache_lookup"] == len(kept) == 2, total
+    worst, calls = 0, []
+    for name, seg_ptr, tag, pos, tags0, age0 in kept:
+        t_k, a_k = tags0.clone(), age0.clone()
+        hit = lookup(seg_ptr, tag, pos, t_k, a_k)
+        t_p, a_p = tags0.clone(), age0.clone()
+        plain_s = time.perf_counter()
+        hit_p = cache_lookup_ref(seg_ptr, tag, pos, t_p, a_p)
+        torch.cuda.synchronize()
+        plain_ms = (time.perf_counter() - plain_s) * 1e3
+        diff = max(max_abs_diff(hit.int(), hit_p.int()),
+                   max_abs_diff(t_k, t_p), max_abs_diff(a_k, a_p))
+        worst = max(worst, diff)
+
+        def prep():
+            t_k.copy_(tags0)
+            a_k.copy_(age0)
+
+        U, W = tags0.shape
+        counts = seg_ptr[1:] - seg_ptr[:-1]
+        calls.append({
+            "case": name, "reads": int(tag.numel()), "touched_sets": U,
+            "ways": W, "hottest_set_reads": int(counts.max()),
+            "hits": int(hit.sum()), "max_abs_err": diff,
+            "ms": launch_ms(prep, lambda: lookup(seg_ptr, tag, pos, t_k,
+                                                 a_k), reps=5),
+            "plain_ms": plain_ms,
+            "bound_ms": lookup_bytes(int(tag.numel()), U, W)
+            / HBM_BYTES_PER_S * 1e3})
+    assert worst == 0, f"cache_lookup differs from its plain version: {worst}"
+    assert calls[1]["hits"] == big_r.cache_hits > 0, calls
+    emit(phase="cache_lookup", accelerator="accugraph", launches=calls,
+         tolerance="exact", card=card)
+    return total, calls
+
+
+def run_cached_dynamic(wt, session, card):
+    """One cached dynamic run at full size: AccuGraph WCC under
+    ``pa-growth`` for ``CACHED_DYNAMIC_EPOCHS`` epochs with
+    ``cache="default"`` and ``verify=True``, sharing the main path's
+    session; the invalidated lines per epoch."""
+    from repro_torch.core import accel
+    from repro_torch.graphs.updates import UPDATE_PRESETS
+    from repro_torch.kernels import launch_counts, zero_launch_counts
+    from repro_torch.sim import run_dynamic
+    stream = dataclasses.replace(UPDATE_PRESETS["pa-growth"],
+                                 epochs=CACHED_DYNAMIC_EPOCHS)
+    zero_launch_counts()
+    accel.zero_pack_route_counts()
+    t0 = time.perf_counter()
+    res = run_dynamic(wt, "wcc", updates=stream, accelerator="accugraph",
+                      cache="default", session=session, verify=True)
+    seconds = time.perf_counter() - t0
+    launches, routes = launch_counts(), accel.pack_route_counts()
+    assert np.array_equal(res.checkpoint, res.final_values)
+    assert routes == {"device_pack": CACHED_DYNAMIC_EPOCHS + 1,
+                      "host_pack": 0}, routes
+    assert launches["cache_lookup"] == CACHED_DYNAMIC_EPOCHS + 1, launches
+    # iterations do not depend on the cache
+    iters = [ep.iterations for ep in res.epochs]
+    assert iters == [it for it, _ in DYNAMIC_PINNED["accugraph"][
+        :CACHED_DYNAMIC_EPOCHS + 1]], iters
+    got = [(ep.iterations, ep.report.total_requests, ep.report.cache_hits,
+            ep.cache_lines_invalidated) for ep in res.epochs]
+    for ep in res.epochs:
+        emit(phase="cached_dynamic_epoch", accelerator="accugraph",
+             updates="pa-growth", epoch=ep.epoch, iterations=ep.iterations,
+             requests=ep.report.total_requests,
+             cache_lookups=ep.report.cache_lookups,
+             cache_hits=ep.report.cache_hits,
+             cache_lines_invalidated=ep.cache_lines_invalidated,
+             runtime_ns=ep.report.runtime_ns,
+             touched_partitions=ep.touched_partitions,
+             kernel_launches={k: ep.report.kernel_launches.get(k, 0)
+                              for k in KERNELS},
+             stage_seconds=ep.report.stage_seconds)
+    emit(phase="cached_dynamic", accelerator="accugraph",
+         epochs=res.n_epochs, runtime_ns=res.report.runtime_ns,
+         cache_hits=res.report.cache_hits, verified=True, seconds=seconds,
+         pack_routes=routes, card=card)
+    assert all(ep.cache_lines_invalidated > 0 for ep in res.epochs[1:])
+    assert (got, res.report.runtime_ns) == PINNED_CACHED_DYNAMIC, (
+        got, res.report.runtime_ns)
+    return res
+
+
 def random_program(rng, hit_heavy, n_phases=4, max_n=300):
     from repro_torch.core.trace import SegmentedTrace
     phases = []
@@ -1202,7 +1529,8 @@ def main() -> int:
     emit(phase="kernels", tolerance="exact", dram_serve_cases=cases,
          dram_serve_launches=dram_serve.launches - launches0,
          max_abs_diff=worst, any_meta_max_abs_diff=meta_worst,
-         **check_sweep(dev), **check_dram_timing(dev))
+         **check_sweep(dev), **check_dram_timing(dev),
+         **check_cache_lookup(dev))
     emit(phase="kernels", kernels=["segment_reduce", "edge_scatter",
                                    "spmv_ell"],
          tolerance={"min/max, edge_scatter": "exact",
@@ -1240,12 +1568,16 @@ def main() -> int:
          seconds=time.perf_counter() - t0)
     sessions, reports = {}, {}
     zero_launch_counts()
+    accel.zero_pack_route_counts()
     for acc in ("hitgraph", "accugraph"):
         sessions[acc] = SimSession(wt)
         t0 = time.perf_counter()
         reports[acc] = sessions[acc].run("wcc", acc)
         reports[acc].stage_seconds["total"] = time.perf_counter() - t0
     launches = {"main": launch_counts()}
+    routes = {"main": accel.pack_route_counts()}
+    # every program of the path packed on the card, none on the host
+    assert routes["main"] == {"device_pack": 2, "host_pack": 0}, routes
     for name in ("dram_serve", "serve_prepass", "sweep_min_rounds"):
         assert launches["main"][name] > 0, (
             f"{name} was never launched on the main path")
@@ -1260,11 +1592,17 @@ def main() -> int:
 
     # ---- 6. the dynamic path at full size -------------------------------
     zero_launch_counts()
+    accel.zero_pack_route_counts()
     apply_phases = {}
     dyn = {acc: run_dynamic_path(wt, acc, sessions[acc], reports[acc], card,
                                  apply_phases)
            for acc in DYNAMIC_CASES}
     launches["dynamic"] = launch_counts()
+    routes["dynamic"] = accel.pack_route_counts()
+    # one program an epoch (epoch 0 included), each packed on the card
+    assert routes["dynamic"] == {
+        "device_pack": sum(r.n_epochs for r in dyn.values()),
+        "host_pack": 0}, routes
     for name in ("dram_serve", "dram_timing", "sweep_min_rounds"):
         assert launches["dynamic"][name] > 0, (
             f"{name} was never launched on the dynamic path")
@@ -1274,8 +1612,17 @@ def main() -> int:
         len(r.epochs) - 1 for r in dyn.values()), launches["dynamic"]
 
     # ---- 7. the stationary path at full size ----------------------------
+    accel.zero_pack_route_counts()
     launches["stationary"], stat_runs = run_stationary_path(
         wt, sessions, card, dev)
+    routes["stationary"] = accel.pack_route_counts()
+    assert routes["stationary"] == {
+        "device_pack": 2 * len(STATIONARY), "host_pack": 0}, routes
+
+    # ---- 7b. the cached main path and a cached dynamic run --------------
+    launches["cache"], lookup_calls = run_cache_path(sessions, card, dev)
+    cached_dyn = run_cached_dynamic(wt, sessions["accugraph"], card)
+    emit(phase="pack_routes", routes=routes, card=card)
     # one pull launch an iteration: 2 AccuGraph runs x STATIONARY_ITERS
     assert launches["stationary"]["spmv_ell"] == 2 * STATIONARY_ITERS, (
         launches["stationary"])
@@ -1288,7 +1635,12 @@ def main() -> int:
         cfg = resolve_run_config(spec)
         run = sess.algorithm_run(spec, Problem.WCC, cfg, 0, None, dev)
         program = sess.model_for(spec, cfg).build_program(Problem.WCC, run)
+        t0 = time.perf_counter()
         packed = accel.pack_program(program, cfg.dram_config())
+        host_pack_s = time.perf_counter() - t0
+        emit(phase="device_pack", accelerator=acc, card=card,
+             **compare_device_pack(program, cfg.dram_config(), packed,
+                                   host_pack_s, dev))
         S, C, K = packed.issue.shape
         want_iters, want_steps = MAIN_EXPECT[acc]
         assert np.isfinite(r.runtime_ns) and r.runtime_ns > 0
@@ -1465,6 +1817,23 @@ def main() -> int:
          "inputs": "accugraph main-path block, first WCC sweep",
          "shape": sw["shape"]},
     ]
+    first = lookup_calls[0]
+    table.append({
+        "name": "cache_lookup", "route": "cuda",
+        "source": "src/repro_torch/csrc/cache_lookup.cu",
+        "replaces": "src/repro/core/cache.py:257",
+        "launches": launches["cache"]["cache_lookup"],
+        "launches_by_path": by_path["cache_lookup"],
+        "max_abs_err": max(c["max_abs_err"] for c in lookup_calls),
+        "ms": first["ms"], "plain_ms": first["plain_ms"],
+        "bound_ms": first["bound_ms"], "bound_by": "bytes",
+        "library_ms": None,
+        "inputs": "accugraph cached main path (cache=\"default\"), "
+                  "first lookup",
+        "calls": lookup_calls,
+        "cached_dynamic_lookups": sum(
+            ep.report.kernel_launches.get("cache_lookup", 0)
+            for ep in cached_dyn.epochs)})
     replaces = {"segment_reduce": "segment_reduce/kernel.py:60",
                 "edge_scatter": "edge_scatter/kernel.py:63",
                 "spmv_ell": "spmv_ell/kernel.py:46"}

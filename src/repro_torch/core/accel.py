@@ -8,33 +8,69 @@ carry:
 
 * :meth:`VectorizedDRAM.run_program` — a
   :class:`~repro_torch.core.trace.SegmentedTrace` (every phase of the
-  simulation, emitted up front by the trace models) is packed once on
-  the host (:func:`pack_program`, NumPy) and served by the fused serve,
-  which honors the phase barriers internally — one CUDA kernel launch
-  per run on the card;
+  simulation, emitted up front by the trace models) is packed once and
+  served by the fused serve, which honors the phase barriers internally
+  — one CUDA kernel launch per run on the card;
 * :meth:`VectorizedDRAM.run_phase` — one phase over per-channel
   ``[C, L]`` streams through the per-channel scan (one launch of the
   ``dram_timing`` kernel on the card); the dynamic-graph path serves its
   ``ep{e}_apply`` rewrites this way.
 
-The JAX package packs on the device when it runs on an accelerator; the
-port packs on the host and copies the packed arrays to the card.  A
-device pack is queued in ROADMAP.md.
+Packing has two routes, equal array for array: the *device* pack
+(:func:`pack_program_device` — decode, row-kind classification and the
+block decomposition as torch code on the card, fed the int32 trace, its
+blocked streams left on the card for the serve) and the NumPy *host*
+pack (:func:`pack_program`).  :func:`pack_program_auto` packs on the
+card when the run is on the card and :func:`device_pack_supported`
+allows it, as the JAX package does on an accelerator, and on the host
+otherwise.  Packing depends only on DRAM
+*geometry* (``DRAMConfig.geometry_key``) and the program, never on
+timing.
+
+When the device carries an on-chip hierarchy level (``DRAMConfig.cache``)
+both modes first run the requests through the cache filter
+(:mod:`repro_torch.core.cache`): hits are dropped *before* packing and the
+prefetcher shapes issue lower bounds, with the lookup state persisting
+across phases and programs.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import threading
 import time
 from typing import Dict, List, Optional
 
 import numpy as np
 import torch
 
+from repro_torch.core import cache as cache_mod
 from repro_torch.core import vectorized as vec
 from repro_torch.core.dram import CACHE_LINE_BYTES, DRAMConfig
 from repro_torch.core.trace import SegmentedTrace, Trace
 from repro_torch.device import resolve_device
+
+#: programs packed by each route since the last
+#: :func:`zero_pack_route_counts` (``device_pack``: the torch pack on the
+#: streams' device; ``host_pack``: the NumPy packer)
+PACK_ROUTES = {"device_pack": 0, "host_pack": 0}
+_ROUTES_LOCK = threading.Lock()
+
+
+def _count_route(route: str) -> None:
+    with _ROUTES_LOCK:
+        PACK_ROUTES[route] += 1
+
+
+def pack_route_counts() -> Dict[str, int]:
+    with _ROUTES_LOCK:
+        return dict(PACK_ROUTES)
+
+
+def zero_pack_route_counts() -> None:
+    with _ROUTES_LOCK:
+        for route in PACK_ROUTES:
+            PACK_ROUTES[route] = 0
 
 
 def _bucket(n: int) -> int:
@@ -139,6 +175,7 @@ def pack_program(program: SegmentedTrace, cfg: DRAMConfig,
             f"field")
     if open_row is None:
         open_row = np.full((C, B), -1, dtype=np.int64)
+    _count_route("host_pack")
     kind, open_flat = classify_rows(comps["bank_global"], comps["row"],
                                     open_row)
     requests = np.diff(program.offsets)
@@ -207,16 +244,163 @@ def pack_program(program: SegmentedTrace, cfg: DRAMConfig,
         open_row_final=open_flat.reshape(C, B))
 
 
+@dataclasses.dataclass(frozen=True)
+class DevicePackedProgram:
+    """A program packed on its device by :func:`pack_program_device`: the
+    blocked ``[S, C, K]`` streams stay there and feed the fused serve
+    without a copy.  Equal to :class:`PackedProgram` array for array, with
+    the per-request row kinds also reduced to per-phase hit and conflict
+    counts, so finalizing moves ``O(P)`` integers to the host."""
+
+    issue: torch.Tensor      # int32[S, C, K]
+    meta: torch.Tensor       # int32[S, C, K]
+    boundary: torch.Tensor   # bool[S]
+    timing: np.ndarray       # int32[7] (host)
+    n_banks: int
+    banks_per_rank: int
+    names: List[str]
+    requests: np.ndarray     # int64[P]
+    offsets: np.ndarray      # int64[P+1]
+    kind: torch.Tensor       # int8[Npad] program order (padded past N)
+    L_p: torch.Tensor        # int32[P_pad] steps per phase
+    hits_p: torch.Tensor     # int32[P_pad] row hits per phase
+    confl_p: torch.Tensor    # int32[P_pad] row conflicts per phase
+    n_steps: int             # S before padding
+    K: int                   # block width (lanes per step)
+    open_row_final: torch.Tensor  # int32[C, B] row state after the run
+
+    @property
+    def n_phases(self) -> int:
+        return len(self.names)
+
+
+def device_pack_supported(program: SegmentedTrace,
+                          cfg: DRAMConfig) -> bool:
+    """Whether the device pack can serve this program: pow2 address
+    components, <= 256 banks a channel, and every index and address in
+    int32 range (the host packer covers the rest)."""
+    if cfg.decode_spec() is None:
+        return False
+    if cfg.banks_per_channel > 256:
+        return False
+    n = len(program)
+    if n == 0:
+        return True
+    # kb = block_id * B + bank must stay in int32 (block_id < n)
+    if n * cfg.banks_per_channel >= 2**31:
+        return False
+    return int(program.line_addr.max()) < 2**31
+
+
+def pack_program_device(program: SegmentedTrace, cfg: DRAMConfig,
+                        open_row=None, device=None
+                        ) -> Optional[DevicePackedProgram]:
+    """Pack a whole-run program on ``device`` (default the card): the
+    trace goes over once and is narrowed to int32 there, classification
+    and block decomposition run there, and one read of four scalars (the
+    step count, the block width, and whether any issue cycle or line
+    address left the int32 range) sizes the scatter or raises.
+    ``open_row`` may be a host array or a tensor."""
+    P = program.n_phases
+    N = len(program)
+    if P == 0 or N == 0:
+        return None
+    C = cfg.channels
+    B = cfg.banks_per_channel
+    if cfg.decode_spec() is None or B > 256 or N * B >= 2**31:
+        raise ValueError(
+            "program/device not eligible for the device pack (non-pow2 "
+            "geometry, >256 banks, or more than 2**31 request-banks)")
+    device = resolve_device(device)
+    N_pad = _bucket(N)
+    P_pad = _bucket(P)
+    i32 = dict(dtype=torch.int32, device=device)
+    line64, issue64 = (torch.from_numpy(a).to(device)
+                       for a in (program.line_addr, program.issue))
+    out_of_range = torch.stack([
+        (issue64.min() < 0) | (issue64.max() >= vec.MAX_PHASE_ISSUE),
+        line64.max() >= 2**31])
+    line, issue = torch.zeros(N_pad, **i32), torch.zeros(N_pad, **i32)
+    line[:N] = line64
+    issue[:N] = issue64
+    del line64, issue64
+    offsets = torch.full((P_pad + 1,), N, **i32)
+    offsets[:P + 1] = torch.from_numpy(program.offsets).to(device)
+    if open_row is None:
+        open_row = torch.full((C, B), -1, **i32)
+    else:
+        open_row = torch.as_tensor(open_row, device=device).to(torch.int32)
+    _count_route("device_pack")
+    (r_idx, c_idx, lane, issue_s, meta_s, valid_s, L_p, hits_p, confl_p,
+     kind, open_out, S, K) = vec._device_pack_core(
+        line, issue, offsets, N, open_row, spec=cfg.decode_spec(), C=C,
+        B=B, banks=cfg.org.banks)
+    S, K, bad_issue, bad_line = torch.cat(
+        [torch.stack([S, K]), out_of_range.to(torch.int32)]).tolist()
+    if bad_issue:
+        raise ValueError("issue cycles out of int32 range; chunk the trace")
+    if bad_line:
+        raise ValueError("line addresses beyond int32; the device pack "
+                         "does not apply (use the host pack)")
+    issue, meta, boundary = vec._device_pack_scatter(
+        r_idx, c_idx, lane, issue_s, meta_s, valid_s, L_p,
+        S_pad=sum(vec.plan_chunks(S)), C=C, K=K)
+    return DevicePackedProgram(
+        issue=issue, meta=meta, boundary=boundary,
+        timing=vec.timing_params(cfg.timing),
+        n_banks=B, banks_per_rank=cfg.org.banks,
+        names=list(program.names), requests=np.diff(program.offsets),
+        offsets=np.asarray(program.offsets), kind=kind, L_p=L_p,
+        hits_p=hits_p, confl_p=confl_p, n_steps=S, K=K,
+        open_row_final=open_out)
+
+
+def _auto_pack_prefers_device(device: torch.device) -> bool:
+    """Pack on the device when it is the card (the blocked streams then
+    never cross to the card; only the int32 trace does).  On the CPU the
+    NumPy packer serves."""
+    return device.type == "cuda"
+
+
+def pack_program_auto(program: SegmentedTrace, cfg: DRAMConfig,
+                      open_row=None, device=None):
+    """Pack on ``device`` (default the card) with the torch pack when
+    :func:`_auto_pack_prefers_device` holds and
+    :func:`device_pack_supported` allows it, else with the NumPy pack."""
+    device = resolve_device(device)
+    if (_auto_pack_prefers_device(device)
+            and device_pack_supported(program, cfg)):
+        return pack_program_device(program, cfg, open_row=open_row,
+                                   device=device)
+    if isinstance(open_row, torch.Tensor):
+        open_row = open_row.cpu().numpy()
+    return pack_program(program, cfg, open_row=open_row)
+
+
 @dataclasses.dataclass
 class ProgramStats:
     """Accumulated DRAM statistics of one executed program — the surface
-    :class:`SimReport` assembly reads."""
+    :class:`SimReport` assembly reads.  The cache fields describe the
+    on-chip level the program passed through before packing (zero when
+    no cache is configured)."""
 
     phases: List[PhaseStats]
     now: int
     total_requests: int
     total_row_hits: int
     total_row_conflicts: int
+    cache_lookups: int = 0
+    cache_hits: int = 0
+    prefetch_hits: int = 0
+
+    def attach_cache(self, cs) -> "ProgramStats":
+        """Fold a :class:`~repro_torch.core.cache.CacheStats` into this
+        surface."""
+        if cs is not None:
+            self.cache_lookups += cs.lookups
+            self.cache_hits += cs.hits
+            self.prefetch_hits += cs.prefetch_hits
+        return self
 
 
 def finalize_program(packed: PackedProgram, finish,
@@ -229,13 +413,19 @@ def finalize_program(packed: PackedProgram, finish,
     per-step max is taken where ``finish`` lives); row hits/conflicts
     reduce from the host-precomputed kinds.  The absolute clock is the
     running (int64, overflow-free) sum of makespans."""
-    P = packed.n_phases
     fin = torch.as_tensor(finish)[:packed.n_steps].amax(dim=(1, 2))
     fin = fin.cpu().numpy()
     dur = np.maximum.reduceat(fin, packed.step_starts).astype(np.int64)
     off = packed.offsets[:-1]
     hits = np.add.reduceat((packed.kind == 0).astype(np.int64), off)
     confl = np.add.reduceat((packed.kind == 2).astype(np.int64), off)
+    return _program_stats(packed, dur, hits, confl, origin)
+
+
+def _program_stats(packed, dur, hits, confl, origin: int) -> ProgramStats:
+    """Phase statistics from per-phase makespans and row counts (int64
+    host arrays); the absolute clock is the running sum of makespans."""
+    P = packed.n_phases
     ends = origin + np.cumsum(dur)
     starts = ends - dur
     phases = [
@@ -255,15 +445,32 @@ def finalize_program(packed: PackedProgram, finish,
     )
 
 
-def serve_packed(packed: PackedProgram, timing=None, carry=None,
-                 origin: int = 0, device=None,
+def finalize_program_device(packed: DevicePackedProgram, finish,
+                            origin: int = 0) -> ProgramStats:
+    """Device-pack counterpart of :func:`finalize_program`: the per-phase
+    makespans reduce where ``finish`` lives, and only ``3 P`` integers
+    cross to the host."""
+    P = packed.n_phases
+    dur = vec._device_phase_durations(finish, packed.L_p)
+    dur, hits, confl = torch.stack(
+        [dur[:P], packed.hits_p[:P], packed.confl_p[:P]]).cpu().numpy(
+    ).astype(np.int64)
+    return _program_stats(packed, dur, hits, confl, origin)
+
+
+def serve_packed(packed, timing=None, carry=None, origin: int = 0,
+                 device=None,
                  stage_seconds: Optional[Dict[str, float]] = None):
-    """Run one packed program through the fused serve on ``device`` from
-    the given lean carry (default: cold DRAM state) and reduce it to
+    """Run one packed program (host- or device-packed) through the fused
+    serve on ``device`` (a device pack's own device by default) from the
+    given lean carry (default: cold DRAM state) and reduce it to
     :class:`ProgramStats`.  Returns ``(stats, lean_carry)``.
 
     ``timing`` overrides the timing vector packed with the program (the
     pack never depends on timing)."""
+    on_device = isinstance(packed, DevicePackedProgram)
+    if device is None and on_device:
+        device = packed.issue.device
     device = resolve_device(device)
     if timing is None:
         timing = packed.timing
@@ -275,7 +482,10 @@ def serve_packed(packed: PackedProgram, timing=None, carry=None,
                                timing, carry, device,
                                stage_seconds=stage_seconds)
     t0 = time.perf_counter()
-    stats = finalize_program(packed, fin, origin=origin)
+    if on_device:
+        stats = finalize_program_device(packed, fin, origin=origin)
+    else:
+        stats = finalize_program(packed, fin, origin=origin)
     if stage_seconds is not None:
         stage_seconds["finalize"] = (stage_seconds.get("finalize", 0.0)
                                      + time.perf_counter() - t0)
@@ -286,20 +496,28 @@ class VectorizedDRAM:
     """Stateful multi-program DRAM simulation on ``device`` (default the
     card; raises when CUDA is absent).
 
-    ``stage_seconds`` accumulates the wall time of the host pack, the
-    host-to-device copy, the serve and the finalize of programs, and of
-    the pack (``phase_pack``, copy included), the scan (``phase_serve``,
-    CUDA events on the card) and the reductions (``phase_finalize``) of
-    single phases."""
+    :meth:`run_program` packs through :func:`pack_program_auto`: on the
+    card when the run is there and the program allows it, NumPy
+    otherwise; both give the same serve and statistics.
+
+    ``stage_seconds`` accumulates the wall time of the cache filter
+    (``cache``), the pack (``pack``, synchronised), the host-to-device copy
+    (``h2d``), the serve and the finalize of programs, and of the pack
+    (``phase_pack``, copy included), the scan (``phase_serve``, CUDA
+    events on the card) and the reductions (``phase_finalize``) of single
+    phases."""
 
     def __init__(self, cfg: DRAMConfig, device=None):
-        if cfg.effective_cache is not None:
-            raise NotImplementedError(
-                "the on-chip cache filter is not ported yet; see "
-                "ROADMAP.md")
         self.cfg = cfg
         self.device = resolve_device(device)
         self._timing = vec.timing_params(cfg.timing)
+        # on-chip hierarchy level: requests are filtered through it (hits
+        # dropped, prefetch issue shaping) before they reach the packer;
+        # the lookup state lives on ``device`` and persists across phases
+        # and programs.
+        self.cache = cfg.effective_cache
+        self._cache_state = cache_mod.init_state(self.cache, self.device)
+        self.cache_stats = cache_mod.CacheStats()
         self._reset_carry()
         # Device-side cycle math is int32; ``_origin`` (host int) anchors
         # the device-relative clock so runs can exceed the int32 range.
@@ -325,10 +543,36 @@ class VectorizedDRAM:
         """Current absolute memory-clock cycle."""
         return self._origin + self._rel_now
 
+    # the SimReport assembly reads these off any stats surface
+    @property
+    def cache_lookups(self) -> int:
+        return self.cache_stats.lookups
+
+    @property
+    def cache_hits(self) -> int:
+        return self.cache_stats.hits
+
+    @property
+    def prefetch_hits(self) -> int:
+        return self.cache_stats.prefetch_hits
+
+    def invalidate_lines(self, line_ranges) -> int:
+        """Drop every on-chip line inside any ``(first_line, n_lines)``
+        range (regions the host rewrote); returns the lines dropped (0
+        without a cache level)."""
+        return cache_mod.invalidate_lines(self._cache_state, self.cache,
+                                          line_ranges)
+
     def run_phase(self, trace: Trace, name: str = "phase") -> int:
         """Simulate one phase starting at the current clock (one
         per-channel scan: the ``dram_timing`` kernel on the card); returns
         its makespan (absolute memory cycle)."""
+        if self.cache is not None:
+            t0 = time.perf_counter()
+            trace, cs, self._cache_state = cache_mod.filter_trace(
+                trace, self.cache, self._cache_state, device=self.device)
+            self.cache_stats.merge(cs)
+            self._add_seconds("cache", time.perf_counter() - t0)
         if len(trace) == 0:
             return self.now
         t0 = time.perf_counter()
@@ -375,12 +619,19 @@ class VectorizedDRAM:
         return self._origin + end_rel
 
     def run_program(self, program: SegmentedTrace) -> int:
-        """Serve a whole multi-phase program (host pack + one fused
-        serve with the phase barriers honored inside it); returns the
-        final absolute makespan."""
+        """Serve a whole multi-phase program (cache filter, pack, and one
+        fused serve with the phase barriers honored inside it); returns
+        the final absolute makespan."""
+        if self.cache is not None:
+            t0 = time.perf_counter()
+            program, cs, self._cache_state = cache_mod.filter_program(
+                program, self.cache, self._cache_state, device=self.device)
+            self.cache_stats.merge(cs)
+            self._add_seconds("cache", time.perf_counter() - t0)
         t0 = time.perf_counter()
-        packed = pack_program(program, self.cfg,
-                              open_row=self.carry[0].cpu().numpy())
+        packed = pack_program_auto(program, self.cfg, open_row=self.carry[0],
+                                   device=self.device)
+        vec._sync(self.device)
         self._add_seconds("pack", time.perf_counter() - t0)
         if packed is None:
             return self.now
@@ -428,6 +679,8 @@ class SimReport:
     total_bytes: int
     row_hit_rate: float
     phases: List[PhaseStats]
+    # on-chip hierarchy level (all zero when no cache is configured);
+    # ``total_requests`` counts what reached DRAM *after* filtering.
     cache_lookups: int = 0
     cache_hits: int = 0
     prefetch_hits: int = 0
@@ -435,3 +688,8 @@ class SimReport:
         default_factory=dict, compare=False)
     kernel_launches: Dict[str, int] = dataclasses.field(
         default_factory=dict, compare=False)
+
+    @property
+    def cache_hit_rate(self) -> float:
+        """On-chip hit rate over the reads that probed the cache."""
+        return self.cache_hits / max(self.cache_lookups, 1)

@@ -10,9 +10,10 @@ source partitions of inserted and deleted edges).
 
 The builders here emit that rewrite as one ``ep{e}_apply`` phase —
 sequential, DRAM-bound line writes over only the touched partitions'
-regions in the **new** model's layout — and expose the same regions as
-line ranges.  (The old-layout stale ranges that feed the on-chip cache's
-invalidation come with the cache filter; see ROADMAP.md.)
+regions in the **new** model's layout — and expose the line ranges whose
+on-chip copies the rewrite made stale, for
+:func:`repro_torch.core.cache.invalidate_lines` (host DMA bypasses the
+on-chip hierarchy, so exactly these lines must be dropped).
 
 Duck-typed on the model attributes: HitGraph-shaped models expose
 ``edge_base`` / ``m_k``, AccuGraph-shaped models ``ptr_base`` /
@@ -73,10 +74,46 @@ def delta_regions(model, touched: np.ndarray
     return regions
 
 
+def _all_regions(model):
+    """Every named allocation of the model's layout(s):
+    ``name -> (byte_start, nbytes)``."""
+    if hasattr(model, "layouts"):                    # per-channel layouts
+        out = {}
+        for lay in model.layouts:
+            out.update(lay.regions())
+        return out
+    return model.layout.regions()
+
+
 def _to_line_range(byte0: int, nbytes: int):
     first = byte0 // CACHE_LINE_BYTES
     last = (byte0 + nbytes - 1) // CACHE_LINE_BYTES
     return (first, last - first + 1)
+
+
+def stale_line_ranges(model_old, model_new,
+                      touched: np.ndarray) -> List[Tuple[int, int]]:
+    """Old-layout cache-line ranges whose on-chip residency is stale after
+    an epoch's layout rebuild: regions of a touched partition, plus every
+    region the rebuild moved or resized (region sizes track
+    per-partition edge counts, so a touched partition shifts everything
+    allocated after it on its channel).
+
+    Invalidating the *old* ranges suffices: the allocator packs regions
+    disjointly, so a new-layout range overlapping a surviving cached line
+    belongs to a region that itself moved — which is in this set."""
+    old = _all_regions(model_old)
+    new = _all_regions(model_new)
+    tset = {int(k) for k in np.asarray(touched).ravel()}
+    ranges = []
+    for name, (byte0, nbytes) in old.items():
+        if nbytes <= 0:
+            continue
+        suffix = name.rsplit("_", 1)[-1]
+        is_touched = suffix.isdigit() and int(suffix) in tset
+        if is_touched or new.get(name) != (byte0, nbytes):
+            ranges.append(_to_line_range(byte0, nbytes))
+    return ranges
 
 
 def delta_line_ranges(model, touched: np.ndarray

@@ -123,6 +123,28 @@ class DRAMConfig:
         order: all that *trace emission* depends on."""
         return (self.channels, self.org, self.order)
 
+    @property
+    def geometry_key(self):
+        """Everything request *packing* depends on — the structure and the
+        on-chip cache level (cache hits are dropped before packing) — and
+        nothing it does not (timing parameters, the clock)."""
+        return (self.channels, self.org, self.order, self.cache)
+
+    def decode_spec(self):
+        """``((comp, shift, mask), ...)`` in address order for the pow2
+        shift/mask decode the device pack runs; ``None`` when a component
+        size is not a power of two (the host packer serves those)."""
+        sizes = self.component_sizes()
+        if any(s & (s - 1) for s in sizes.values()):
+            return None
+        spec = []
+        shift = 0
+        for comp in self.order:
+            size = sizes[comp]
+            spec.append((comp, shift, size - 1))
+            shift += size.bit_length() - 1
+        return tuple(spec)
+
     # ---- address mapping (Fig. 5) ------------------------------------
     def decode_lines(self, line_addrs: np.ndarray) -> Dict[str, np.ndarray]:
         """Split line addresses into DRAM components per the address order.
@@ -248,6 +270,11 @@ class MemoryLayout:
         aligned = (nbytes + CACHE_LINE_BYTES - 1) // CACHE_LINE_BYTES
         self._cursor = start + aligned * CACHE_LINE_BYTES
         return start
+
+    def regions(self) -> Dict[str, Tuple[int, int]]:
+        """Every allocation as ``name -> (byte_start, nbytes)`` — what the
+        dynamic path diffs to find the regions an epoch's rebuild moved."""
+        return dict(self._offsets)
 
     @property
     def total_bytes(self) -> int:

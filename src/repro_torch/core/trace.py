@@ -59,6 +59,11 @@ class SegmentedTrace:
     def n_phases(self) -> int:
         return len(self.names)
 
+    def phase(self, p: int) -> Trace:
+        s, e = int(self.offsets[p]), int(self.offsets[p + 1])
+        return Trace(self.line_addr[s:e], self.is_write[s:e],
+                     self.issue[s:e])
+
     @staticmethod
     def from_phases(phases: Sequence) -> "SegmentedTrace":
         """Build from ``[(name, line_addr, is_write, issue), ...]``

@@ -175,7 +175,7 @@ def init_lean_carry(channels: int, n_banks: int, banks_per_rank: int,
 
 def lean_from_full(carry):
     """Per-channel carry -> fused-serve carry (drops ``open_row`` —
-    host-tracked — and ``last_act_rank`` — derivable from the history)."""
+    tracked by the pack — and ``last_act_rank`` — derivable from the history)."""
     (open_row, act_time, bank_avail, bus_free,
      act_hist, act_ptr, last_act_rank) = carry
     return (bank_avail, act_time, bus_free, act_hist,
@@ -183,13 +183,14 @@ def lean_from_full(carry):
 
 
 def full_from_lean(lean, open_row):
-    """Inverse of :func:`lean_from_full`; ``open_row`` is the host-tracked
-    int[C, B] row state."""
+    """Inverse of :func:`lean_from_full`; ``open_row`` is the int[C, B]
+    row state the pack tracked (a host array, or a device pack's
+    tensor)."""
     avail, act, bus, hist, ptr = lean
     last = torch.gather(hist, 2, torch.remainder(ptr + 3, 4)[..., None]
                         .long())[..., 0]
-    open_row = torch.as_tensor(np.asarray(open_row), dtype=torch.int32,
-                               device=avail.device)
+    open_row = torch.as_tensor(open_row, device=avail.device).to(
+        torch.int32)
     return (open_row, act, avail, bus, hist, ptr, last)
 
 
@@ -228,6 +229,196 @@ def plan_chunks(n_steps: int):
     return [large] * n_large + [small] * n_small
 
 
+# ---------------------------------------------------------------------------
+# Device-resident program packing: address decode, row-kind
+# classification, block decomposition and the lockstep scatter as torch
+# code on the streams' device, equal to the host packer
+# (``repro_torch.core.accel.pack_program``) array for array.
+#
+# Requests pad to the next power of two and phases to the next power of
+# two, as in the JAX package, so the per-phase reductions keep its shapes.
+# Everything is int32 (line addresses and issue cycles are range-checked on
+# the host first).  Where the JAX code scatters with ``mode="drop"``, each
+# target here has one spare bin past its end that takes the dropped
+# updates and is sliced off; a negative index wraps, as it does in JAX.
+# ---------------------------------------------------------------------------
+
+def _decode_device(line, spec, banks):
+    """Shift/mask decode of int32 line addresses (pow2 sizes only;
+    mirrors ``DRAMConfig.decode_lines``)."""
+    comps = {}
+    for comp, shift, mask in spec:
+        comps[comp] = (line >> shift) & mask
+    comps["bank_in_channel"] = comps["rank"] * banks + comps["bank"]
+    return comps
+
+
+def _shift1(x, fill):
+    """``x`` moved one place later, ``fill`` in front."""
+    return torch.cat([x.new_full((1,), fill), x[:-1]])
+
+
+def _cumsum32(x):
+    return torch.cumsum(x, 0, dtype=torch.int32)
+
+
+def _carry_forward(flag, values):
+    """At each position, ``values`` at the latest position at or before it
+    where ``flag`` holds (``flag[0]`` must hold): the running max the JAX
+    package takes with ``cummax``, as one gather and one scatter."""
+    seg = (_cumsum32(flag.to(torch.int32)) - 1).long()
+    n = flag.shape[0]
+    at_start = torch.empty(n + 1, dtype=values.dtype, device=values.device)
+    at_start[torch.where(flag, seg, n)] = values
+    return at_start[seg]
+
+
+def _range_sums(x, offsets):
+    """``x[offsets[p]:offsets[p + 1]].sum()`` for each ``p`` (int32)."""
+    c = torch.cat([x.new_zeros(1), _cumsum32(x)])
+    return c[offsets[1:].long()] - c[offsets[:-1].long()]
+
+
+def _set_drop(size: int, index, values, fill=0, dtype=torch.int32):
+    """``full(size, fill).at[index].set(values, mode="drop")``: indices at
+    or past ``size`` go to a spare bin that is cut off; a negative index
+    wraps."""
+    index = torch.where(index < 0, index + size, index).clamp(max=size)
+    out = torch.full((size + 1,), fill, dtype=dtype, device=values.device)
+    out[index.long()] = values.to(dtype)
+    return out[:size]
+
+
+def _device_pack_core(line, issue, offsets, n, open_row, spec, C, B,
+                      banks):
+    """Classify + block-decompose a padded program on its device.
+
+    ``line``/``issue`` are int32[Npad] (padded past ``n``), ``offsets``
+    int32[P_pad + 1] phase offsets (padded with the total length),
+    ``open_row`` the int32[C, B] row state entering the program.  Returns
+    the grouped-order streams the scatter consumes, the per-phase
+    reductions, the program-order kinds, the row state after the program,
+    and the step count ``S`` and block width ``K`` as 0-d tensors."""
+    dev = line.device
+    Npad = line.shape[0]
+    P_pad = offsets.shape[0] - 1
+    i32 = dict(dtype=torch.int32, device=dev)
+    idx = torch.arange(Npad, **i32)
+    valid = idx < n
+    comps = _decode_device(line, spec, banks)
+    ch = comps["channel"]
+    bank_in_ch = comps["bank_in_channel"]
+    row = comps["row"]
+    bank_global = ch * B + bank_in_ch
+    # ---- row-kind classification (mirrors classify_rows) --------------
+    sort_key = torch.where(valid, bank_global, C * B)
+    order1 = torch.sort(sort_key, stable=True).indices
+    gbo = sort_key[order1]
+    rows_o = row[order1]
+    valid_o = valid[order1]
+    change = gbo[1:] != gbo[:-1]
+    first = torch.cat([change.new_ones(1), change])
+    last = torch.cat([change, change.new_ones(1)])
+    open_flat = torch.cat([open_row.reshape(-1), open_row.new_full((1,), -1)])
+    prev = torch.where(first, open_flat[gbo.long()], _shift1(rows_o, 0))
+    kind_o = torch.where(prev == rows_o, 0,
+                         torch.where(prev == -1, 1, 2)).to(torch.int8)
+    kind_o = torch.where(valid_o, kind_o, 0).to(torch.int8)
+    kind = torch.empty(Npad, dtype=torch.int8, device=dev)
+    kind[order1] = kind_o
+    # each bank's last access leaves its row open (others: the spare bin)
+    open_out = torch.cat([open_row.reshape(-1), open_row.new_zeros(1)])
+    open_out[torch.where(last & valid_o, gbo, C * B).long()] = rows_o
+    open_out = open_out[:C * B].reshape(C, B)
+    # ---- K selection (the tensor form of choose_block_lanes) ----------
+    n_miss = (valid & (kind != 0)).sum(dtype=torch.int32)
+    K = torch.where(2 * n_miss < n, BLOCK_LANES, 1).to(torch.int32)
+    # ---- per-phase request ids + hit/conflict reductions --------------
+    phase = (torch.searchsorted(offsets, idx, right=True, out_int32=True)
+             - 1)
+    # a phase is a contiguous range of requests, so its counts are
+    # differences of one prefix sum at its offsets (no atomics)
+    hits_p = _range_sums(((kind == 0) & valid).to(torch.int32), offsets)
+    confl_p = _range_sums(((kind == 2) & valid).to(torch.int32), offsets)
+    # ---- block decomposition within (phase, channel) streams ----------
+    key = torch.where(valid, phase * C + ch, P_pad * C)
+    order2 = torch.sort(key, stable=True).indices
+    key_s = key[order2]
+    kind_s = kind[order2]
+    miss_s = kind_s != 0
+    valid_s = valid[order2]
+    bank_s = bank_in_ch[order2]
+    change = key_s[1:] != key_s[:-1]
+    group_first = torch.cat([change.new_ones(1), change])
+    run_start = group_first | miss_s | _shift1(miss_s, False)
+    # position within the run: runs are contiguous, so its offset is the
+    # latest run start at or before each element
+    pos = idx - _carry_forward(run_start, idx)
+    lane = torch.remainder(pos, K)
+    # the JAX package's block_off[run_id] + pos // K: blocks start at
+    # every K-th element of a run, so a block's id counts the block starts
+    block_id = _cumsum32((lane == 0).to(torch.int32)) - 1
+    # first block of the current group, carried forward (block_id is
+    # non-decreasing in grouped order)
+    fb = _carry_forward(group_first, block_id)
+    block_rank = block_id - fb
+    # bank-rank within (block, bank): BLOCK_LANES - 1 shifted comparisons;
+    # blocks never span K lanes, so pairs across blocks compare unequal
+    # block ids (which is why the widest loop is safe for any K)
+    rb = torch.zeros(Npad, **i32)
+    kb = block_id * B + bank_s
+    for j in range(1, BLOCK_LANES):
+        rb[j:] += (kb[j:] == kb[:-j]).to(torch.int32)
+    group_last = torch.cat([change, change.new_ones(1)])
+    n_blocks = _set_drop(P_pad * C,
+                         torch.where(group_last & valid_s, key_s, P_pad * C),
+                         block_rank + 1)
+    L_p = n_blocks.reshape(P_pad, C).amax(dim=1)
+    step_starts = _cumsum32(L_p) - L_p
+    S = L_p.sum(dtype=torch.int32)
+    phase_s = torch.minimum(torch.div(key_s, C, rounding_mode="floor"),
+                            torch.tensor(P_pad - 1, **i32))
+    r_idx = step_starts[phase_s.long()] + block_rank
+    issue_s = issue[order2]
+    meta_s = (bank_s
+              | (miss_s.to(torch.int32) << 8)
+              | ((kind_s == 2).to(torch.int32) << 9)
+              | (valid_s.to(torch.int32) << 10)
+              | (rb << META_RB_SHIFT))
+    return (r_idx, ch[order2], lane, issue_s, meta_s, valid_s,
+            L_p, hits_p, confl_p, kind, open_out, S, K)
+
+
+def _device_pack_scatter(r_idx, c_idx, lane, issue_s, meta_s, valid_s,
+                         L_p, S_pad: int, C: int, K: int):
+    """Scatter the grouped streams into the blocked lockstep
+    ``[S_pad, C, K]`` arrays and the phase-boundary markers."""
+    tgt = torch.where(valid_s, r_idx, S_pad).long()
+    c_idx, lane = c_idx.long(), lane.long()
+    dev = issue_s.device
+    issue = torch.zeros((S_pad + 1, C, K), dtype=torch.int32, device=dev)
+    meta = torch.zeros((S_pad + 1, C, K), dtype=torch.int32, device=dev)
+    issue[tgt, c_idx, lane] = issue_s
+    meta[tgt, c_idx, lane] = meta_s
+    boundary = _set_drop(S_pad, _cumsum32(L_p) - 1,
+                         torch.ones_like(L_p, dtype=torch.bool),
+                         fill=False, dtype=torch.bool)
+    return issue[:S_pad], meta[:S_pad], boundary
+
+
+def _device_phase_durations(fin, L_p):
+    """Per-phase makespans from the serve's finishes: the segmented max
+    of the per-step maxima over the phase step ranges (the device
+    counterpart of ``finalize_program``'s ``maximum.reduceat``)."""
+    P_pad = L_p.shape[0]
+    step_max = fin.amax(dim=(1, 2))
+    ends = _cumsum32(L_p)
+    steps = torch.arange(fin.shape[0], dtype=torch.int32, device=fin.device)
+    phase = torch.searchsorted(ends, steps, right=True).clamp(max=P_pad)
+    out = torch.zeros(P_pad + 1, dtype=fin.dtype, device=fin.device)
+    return out.scatter_reduce_(0, phase, step_max, "amax")[:P_pad]
+
+
 def _sync(device: torch.device) -> None:
     if device.type == "cuda":
         torch.cuda.synchronize(device)
@@ -252,15 +443,19 @@ def run_timed(fn, device: torch.device):
 def fused_scan(issue, meta, boundary, timing, carry, device,
                stage_seconds: Optional[Dict[str, float]] = None):
     """Serve a whole packed program from ``carry`` (the 5-tuple lean
-    carry, on ``device``): the host streams go to ``device`` and through
-    one ``dram_serve`` call — the CUDA kernel on the card, the plain
-    version on the CPU.  Returns ``(finish[S, C, K], carry)`` on
-    ``device``.  ``stage_seconds``, when given, receives the ``h2d``
-    transfer time and the ``serve`` time (CUDA events on the card)."""
+    carry, on ``device``): the streams (host arrays, or tensors a device
+    pack left on ``device``, which are used as they are) go through one
+    ``dram_serve`` call — the CUDA kernel on the card, the plain version
+    on the CPU.  Returns ``(finish[S, C, K], carry)`` on ``device``.
+    ``stage_seconds``, when given, receives the ``h2d`` time (the copy of
+    host streams, or the cast of a device pack's boolean ``boundary``) and
+    the ``serve`` time (CUDA events on the card)."""
     from repro_torch.kernels.dram_timing.ops import dram_serve
     device = torch.device(device)
     t0 = time.perf_counter()
-    streams = [torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
+    streams = [a.to(device=device, dtype=torch.int32).contiguous()
+               if isinstance(a, torch.Tensor) else
+               torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
                .to(device) for a in (issue, meta, boundary, timing)]
     _sync(device)
     t1 = time.perf_counter()

@@ -14,9 +14,12 @@ import dataclasses
 import numpy as np
 
 from repro_torch.algorithms.common import IterStats, RunResult
-from repro_torch.core.accel import PackedProgram, PhaseStats, SimReport
+import torch
+
+from repro_torch.core.accel import (DevicePackedProgram, PackedProgram,
+                                    PhaseStats, SimReport)
 from repro_torch.core.accugraph import AccuGraphConfig
-from repro_torch.core.cache import CacheConfig
+from repro_torch.core.cache import CacheConfig, CacheState
 from repro_torch.core.dram import DRAMConfig, DRAMOrganization, DRAMTiming
 from repro_torch.core.hitgraph import HitGraphConfig
 from repro_torch.core.trace import SegmentedTrace, Trace
@@ -75,6 +78,26 @@ def trace(t) -> Trace:
 
 def packed_program(p) -> PackedProgram:
     return _fields(p, PackedProgram, names=list(p.names))
+
+
+def device_packed_program(p) -> DevicePackedProgram:
+    """A device-packed program's arrays as CPU tensors (the block width
+    ``K`` read off ``issue``'s shape)."""
+    def t(a):
+        return torch.from_numpy(np.array(a))
+
+    return _fields(p, DevicePackedProgram, names=list(p.names),
+                   issue=t(p.issue), meta=t(p.meta), boundary=t(p.boundary),
+                   kind=t(p.kind), L_p=t(p.L_p), hits_p=t(p.hits_p),
+                   confl_p=t(p.confl_p), open_row_final=t(p.open_row_final),
+                   K=int(np.shape(p.issue)[2]))
+
+
+def cache_state(s) -> CacheState:
+    """A cache state's tags and ages as CPU int64 tensors (copies)."""
+    return CacheState(
+        tags=torch.from_numpy(np.array(s.tags, dtype=np.int64)),
+        age=torch.from_numpy(np.array(s.age, dtype=np.int64)))
 
 
 def run_result(r) -> RunResult:

@@ -11,7 +11,9 @@ def wrappers() -> Dict[str, Callable]:
     ``dram_serve`` is the serve over the records that
     ``serve_prepass`` writes (one launch of each a serve);
     ``dram_timing`` is the chunked scan and ``dram_timing_serial`` its
-    one-lane counterpart, which no path calls."""
+    one-lane counterpart, which no path calls; ``cache_lookup`` is the
+    on-chip cache filter's LRU lookup."""
+    from repro_torch.kernels.cache_lookup.ops import cache_lookup
     from repro_torch.kernels.dram_timing.ops import (dram_serve, dram_timing,
                                                      dram_timing_serial,
                                                      serve_prepass)
@@ -25,7 +27,7 @@ def wrappers() -> Dict[str, Callable]:
             "sweep_min_rounds": sweep_min_rounds,
             "sweep_min": sweep_min,
             "segment_reduce": segment_reduce, "edge_scatter": edge_scatter,
-            "spmv_ell": spmv_ell}
+            "spmv_ell": spmv_ell, "cache_lookup": cache_lookup}
 
 
 def launch_counts() -> Dict[str, int]:

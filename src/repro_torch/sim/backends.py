@@ -1,8 +1,8 @@
 """DRAM simulation backends behind one program-level interface.
 
 A backend exposes the :class:`~repro_torch.core.accel.VectorizedDRAM`
-surface the trace models drive (``run_program`` and the accumulated
-statistics).  ``"vectorized"`` is the fused serve: the CUDA kernel on the
+surface the trace models and the dynamic path drive (``run_program``,
+``run_phase``, ``invalidate_lines`` and the accumulated statistics).  ``"vectorized"`` is the fused serve: the CUDA kernel on the
 card, its plain version on the CPU.  The element-granularity
 ``"event"`` backend comes with a later slice.
 """

@@ -17,11 +17,13 @@ algorithm phases over one long-lived memory timeline:
   delta rewrite (:mod:`repro_torch.core.delta`, one ``run_phase``: the
   ``dram_timing`` kernel on the card) plus the incremental iteration
   phases (one ``run_program``: the ``dram_serve`` kernel) through the
-  *same* DRAM backend — clock and bank state persist across epochs.
-
-The on-chip cache, whose residency the JAX package invalidates per epoch,
-is not ported yet (``cache=`` raises); with no cache that invalidation is
-a no-op there too.
+  *same* DRAM backend — clock, bank state and on-chip residency persist
+  across epochs;
+* before each epoch's traffic, the on-chip lookup state is invalidated
+  for exactly the line ranges the rewrite made stale
+  (:func:`repro_torch.core.cache.invalidate_lines` over
+  :func:`repro_torch.core.delta.stale_line_ranges`) — untouched
+  partitions keep their residency.
 
 The per-epoch :class:`EpochReport` rows carry each epoch's own
 :class:`~repro_torch.core.accel.SimReport` plus update-phase counters;
@@ -50,7 +52,7 @@ from repro_torch.graphs.updates import (UpdatesLike, apply_batch,
                                         resolve_updates)
 from repro_torch.kernels import launch_counts
 from repro_torch.sim.backends import make_backend
-from repro_torch.sim.memory import MemoryLike, resolve_cache
+from repro_torch.sim.memory import CacheLike, MemoryLike
 from repro_torch.sim.registry import get_accelerator
 from repro_torch.sim.session import (SimSession, _check_graph,
                                      _coerce_problem, resolve_run_config)
@@ -162,19 +164,19 @@ class DynamicTimeline:
     def __init__(self, graph: Graph, problem, *,
                  updates: UpdatesLike = None,
                  accelerator: str = "hitgraph", config=None,
-                 memory: MemoryLike = None, cache=None,
+                 memory: MemoryLike = None, cache: CacheLike = None,
                  backend: Optional[str] = None,
                  variant: Optional[str] = None,
                  root: int = 0, fixed_iters: Optional[int] = None,
                  session: Optional[SimSession] = None, device=None,
                  **overrides):
-        resolve_cache(cache)
         self.device = resolve_device(device)
         self.problem = _coerce_problem(problem)
         self.stream = resolve_updates(updates)
         self._spec = get_accelerator(accelerator)
         self._cfg = resolve_run_config(self._spec, config, memory=memory,
-                                       variant=variant, **overrides)
+                                       cache=cache, variant=variant,
+                                       **overrides)
         if self.stream is not None and self.problem not in \
                 incremental.INCREMENTAL_PROBLEMS:
             raise ValueError(
@@ -191,8 +193,8 @@ class DynamicTimeline:
         self._dram_cfg = self._cfg.dram_config()
         be = (backend if backend is not None
               else self._spec.preferred_backend())
-        #: ONE memory timeline for all epochs: clock and bank state
-        #: persist across update batches
+        #: ONE memory timeline for all epochs: clock, bank state and
+        #: on-chip residency persist across update batches
         self.mem = make_backend(be, self._dram_cfg, device=self.device)
 
         # ---- epoch 0: the static prefix, via the session caches ----
@@ -218,6 +220,7 @@ class DynamicTimeline:
             frontier_vertices=0, iterations=run0.iterations)]
         self.graph = self.base_graph
         self.values = np.asarray(run0.values)
+        self._model = model
         self._system = report0.system
 
     @property
@@ -259,6 +262,11 @@ class DynamicTimeline:
         stages["model"] = lap()
         touched = delta.structural_partitions(batch, g_prev,
                                               model_new.q, model_new.p)
+        # drop exactly the stale on-chip lines (rewritten or relocated
+        # regions); untouched partitions keep their residency
+        invalidated = self.mem.invalidate_lines(
+            delta.stale_line_ranges(self._model, model_new, touched))
+        stages["invalidate"] = lap()
         mark = _mark(self.mem)
         dphase = delta.delta_phase(model_new, e, touched)
         if dphase is not None:
@@ -278,12 +286,13 @@ class DynamicTimeline:
             inserted=batch.n_inserted, deleted=batch.n_deleted,
             touched_partitions=len(touched),
             total_partitions=model_new.p,
-            cache_lines_invalidated=0,
+            cache_lines_invalidated=invalidated,
             reset_vertices=plan.n_reset,
             frontier_vertices=plan.n_active,
             iterations=run_e.iterations)
         self.epochs.append(ep)
         self.graph, self.values = g_new, np.asarray(run_e.values)
+        self._model = model_new
         if self._owns_session:
             # resident-graph semantics: the session follows the mutation
             # (an empty batch keeps every entry and counts a skip)
@@ -333,7 +342,7 @@ class DynamicTimeline:
 
 def run_dynamic(graph: Graph, problem, *, updates: UpdatesLike,
                 accelerator: str = "hitgraph", config=None,
-                memory: MemoryLike = None, cache=None,
+                memory: MemoryLike = None, cache: CacheLike = None,
                 backend: Optional[str] = None,
                 variant: Optional[str] = None,
                 root: int = 0, fixed_iters: Optional[int] = None,

@@ -14,8 +14,9 @@ name                      device
 
 ``simulate(..., memory=...)`` accepts a name above, a ``MemoryConfig``,
 or a raw :class:`DRAMConfig`; ``None`` keeps the accelerator's own paper
-default.  On-chip cache selection (``cache=``) comes with the cache
-filter in a later slice: only ``None`` resolves here.
+default.  ``simulate(..., cache=...)`` selects the on-chip hierarchy level
+in front of the device: a :data:`CACHE_PRESETS` name, ``"default"`` (the
+accelerator's declared paper hierarchy) or a :class:`CacheConfig`.
 """
 
 from __future__ import annotations
@@ -108,11 +109,67 @@ def resolve_memory(memory: MemoryLike) -> Optional[DRAMConfig]:
         f"DRAMConfig; got {type(memory).__name__}")
 
 
-def resolve_cache(cache, spec=None) -> None:
-    """Coerce a cache selector: ``None`` ("leave the memory point's cache
-    as it is") is the only one this slice accepts."""
+# ---------------------------------------------------------------------------
+# On-chip cache-hierarchy selection: named presets + per-spec paper
+# defaults.
+# ---------------------------------------------------------------------------
+
+#: named on-chip hierarchy levels for ``cache=``.  ``vertex-*`` are
+#: BRAM-class set-associative LRU vertex caches at FPGA on-chip budgets,
+#: ``prefetch-*`` pure sequential stream prefetchers; both compose in one
+#: ``CacheConfig``.  ``cache="default"`` selects the accelerator spec's
+#: declared paper hierarchy (``AcceleratorSpec.default_cache()``).
+CACHE_PRESETS = {
+    "none": CacheConfig(name="none"),
+    "vertex-64k": CacheConfig(lines=1024, ways=8, name="vertex-64k"),
+    "vertex-256k": CacheConfig(lines=4096, ways=8, name="vertex-256k"),
+    "vertex-1m": CacheConfig(lines=16384, ways=16, name="vertex-1m"),
+    "vertex-2m": CacheConfig(lines=32768, ways=16, name="vertex-2m"),
+    "direct-256k": CacheConfig(lines=4096, ways=1, name="direct-256k"),
+    "prefetch-4": CacheConfig(prefetch_degree=4, name="prefetch-4"),
+    "prefetch-8": CacheConfig(prefetch_degree=8, name="prefetch-8"),
+    "vertex-1m+prefetch": CacheConfig(lines=16384, ways=16,
+                                      prefetch_degree=8,
+                                      name="vertex-1m+prefetch"),
+}
+
+CacheLike = Union[None, str, CacheConfig]
+
+
+def resolve_cache(cache: CacheLike, spec=None) -> Optional[CacheConfig]:
+    """Coerce a cache selector to a :class:`CacheConfig` (or ``None`` for
+    "leave the memory point's cache as it is").
+
+    ``"default"`` picks ``spec.default_cache()`` — the accelerator's
+    declared paper hierarchy; a disabled config (``"none"`` /
+    ``CacheConfig()``) explicitly strips any cache the memory point
+    carries."""
     if cache is None:
         return None
-    raise NotImplementedError(
-        "on-chip cache selection (cache=) is not ported yet; see "
-        "ROADMAP.md")
+    if isinstance(cache, CacheConfig):
+        return cache
+    if isinstance(cache, str):
+        if cache == "default":
+            if spec is None:
+                raise ValueError(
+                    'cache="default" needs an accelerator spec to read '
+                    "the paper hierarchy from")
+            return spec.default_cache() or CacheConfig(name="none")
+        try:
+            return CACHE_PRESETS[cache.lower()]
+        except KeyError:
+            raise UnknownPresetError(
+                "cache", cache,
+                list(CACHE_PRESETS) + ["default"]) from None
+    raise TypeError(
+        f"cache must be None, a preset name, 'default', or a "
+        f"CacheConfig; got {type(cache).__name__}")
+
+
+def cache_name(cache: CacheLike) -> str:
+    """Stable display name for result rows."""
+    if cache is None:
+        return "none"
+    if isinstance(cache, str):
+        return cache
+    return cache.display_name()

@@ -47,9 +47,12 @@ class AcceleratorSpec:
 
     # -- config ---------------------------------------------------------
     def make_config(self, config=None, memory: Optional[DRAMConfig] = None,
-                    **overrides):
+                    cache=None, **overrides):
         """Resolve the effective config: defaults <- config <- overrides
-        <- memory (a resolved :class:`DRAMConfig` replaces ``dram``)."""
+        <- memory (a resolved :class:`DRAMConfig` replaces ``dram``)
+        <- cache (a resolved :class:`~repro_torch.core.cache.CacheConfig`
+        replaces the memory point's on-chip level; a disabled config
+        strips it, ``None`` leaves it as it is)."""
         cfg = config if config is not None else self.config_cls()
         if not isinstance(cfg, self.config_cls):
             raise TypeError(
@@ -59,7 +62,19 @@ class AcceleratorSpec:
             cfg = dataclasses.replace(cfg, **overrides)
         if memory is not None:
             cfg = dataclasses.replace(cfg, dram=memory)
+        if cache is not None:
+            from repro_torch.core.cache import effective
+            dram = (cfg.dram_config() if hasattr(cfg, "dram_config")
+                    else cfg.dram)
+            cfg = dataclasses.replace(cfg, dram=dataclasses.replace(
+                dram, cache=effective(cache)))
         return cfg
+
+    def default_cache(self):
+        """The accelerator's paper on-chip hierarchy (selected with
+        ``cache="default"``); ``None`` when the spec declares none.  The
+        pipeline stays cache-free unless a cache is asked for."""
+        return None
 
     def variants(self) -> Dict[str, Dict[str, Any]]:
         """Named optimization variants as config-field overrides."""

@@ -12,11 +12,15 @@ structure and clock.  Both caches are single-flight and thread-safe; a
 session rebinds to a mutated graph (:meth:`SimSession.rebind`) on the
 dynamic-graph path.
 
+Models are keyed on the DRAM structure alone, so they are shared across
+every cache variant of a memory point too (the cache filter runs
+downstream of trace emission).
+
 ``simulate(..., updates=...)`` runs a dynamic-graph update stream through
 :func:`repro_torch.sim.dynamic.run_dynamic` and returns its aggregate
 report.  Not in this slice (each raises and names ROADMAP.md):
-``cache=``, ``backend="event"``, corpus preset names and
-``ScenarioSpec`` as the graph argument.
+``backend="event"``, corpus preset names and ``ScenarioSpec`` as the
+graph argument.
 """
 
 from __future__ import annotations
@@ -31,7 +35,8 @@ from repro_torch.algorithms.common import Problem, RunResult
 from repro_torch.core.accel import SimReport
 from repro_torch.device import resolve_device
 from repro_torch.graphs.formats import Graph
-from repro_torch.sim.memory import MemoryLike, resolve_cache, resolve_memory
+from repro_torch.sim.memory import (CacheLike, MemoryLike, resolve_cache,
+                                   resolve_memory)
 from repro_torch.sim.policy import resolve_partitioned_config
 from repro_torch.sim.registry import get_accelerator
 
@@ -44,12 +49,20 @@ def _coerce_problem(problem) -> Problem:
 
 
 def resolve_run_config(spec, config=None, memory: MemoryLike = None,
+                       cache: CacheLike = None,
                        variant: Optional[str] = None, **overrides):
     """Resolve the effective accelerator config from the public axis
-    selectors (defaults <- config <- overrides <- memory <- variant)."""
+    selectors (defaults <- config <- overrides <- memory <- variant <-
+    cache)."""
     cfg = spec.make_config(config, memory=resolve_memory(memory),
                            **overrides)
-    return spec.apply_variant(cfg, variant)
+    cfg = spec.apply_variant(cfg, variant)
+    cache_cfg = resolve_cache(cache, spec)
+    if cache_cfg is not None:
+        # after variants: a dram-overriding variant (AccuGraph "hbm")
+        # must not discard the requested on-chip cache
+        cfg = spec.make_config(cfg, cache=cache_cfg)
+    return cfg
 
 
 def _check_graph(graph) -> Graph:
@@ -161,17 +174,17 @@ class SimSession:
         return dropped
 
     def run(self, problem, accelerator: str = "hitgraph", *,
-            config=None, memory: MemoryLike = None, cache=None,
+            config=None, memory: MemoryLike = None,
+            cache: CacheLike = None,
             backend: Optional[str] = None, variant: Optional[str] = None,
             root: int = 0, fixed_iters: Optional[int] = None,
             device=None, **overrides) -> SimReport:
         """Simulate ``problem`` on the bound graph on ``device`` (default
         the card; raises when CUDA is absent)."""
-        resolve_cache(cache)
         device = resolve_device(device)
         problem = _coerce_problem(problem)
         spec = get_accelerator(accelerator)
-        cfg = resolve_run_config(spec, config, memory=memory,
+        cfg = resolve_run_config(spec, config, memory=memory, cache=cache,
                                  variant=variant, **overrides)
         t0 = time.perf_counter()
         run = self.algorithm_run(spec, problem, cfg, root, fixed_iters,
@@ -189,7 +202,8 @@ class SimSession:
 
 def simulate(graph: Graph, problem=None,
              accelerator: str = "hitgraph", *,
-             config=None, memory: MemoryLike = None, cache=None,
+             config=None, memory: MemoryLike = None,
+             cache: CacheLike = None,
              backend: Optional[str] = None, variant: Optional[str] = None,
              root: int = 0, fixed_iters: Optional[int] = None,
              updates=None, device=None, **overrides) -> SimReport:
@@ -208,6 +222,14 @@ def simulate(graph: Graph, problem=None,
     memory:       ``None`` (the accelerator's paper default), a preset
                   name (``"ddr3"``, ``"ddr4-8gb"``, ``"hbm2"``...), a
                   :class:`MemoryConfig`, or a raw :class:`DRAMConfig`.
+    cache:        on-chip hierarchy level in front of the DRAM device:
+                  ``None`` (no cache, unless the memory selector carries
+                  one), a :data:`~repro_torch.sim.memory.CACHE_PRESETS`
+                  name (``"vertex-1m"``, ``"prefetch-8"``...),
+                  ``"default"`` (the accelerator's declared paper
+                  hierarchy — AccuGraph's vertex BRAM, HitGraph's stream
+                  prefetch), or a :class:`~repro_torch.core.cache.
+                  CacheConfig`.
     variant:      named optimization variant of the accelerator.
     fixed_iters:  iterations of the stationary problems (PR, SpMV);
                   ``None`` runs one, as the JAX package does.
@@ -218,22 +240,21 @@ def simulate(graph: Graph, problem=None,
     device:       where the algorithm engine and the DRAM serve run:
                   ``None`` means the card (raises without CUDA);
                   ``"cpu"`` runs the plain versions on the host.
-    cache, backend="event":
-                  not ported yet; they raise ``NotImplementedError``.
+    backend="event":
+                  not ported yet; it raises ``NotImplementedError``.
     """
     if problem is None:
         raise TypeError("simulate() needs a problem")
-    resolve_cache(cache)
     device = resolve_device(device)
     cfg = resolve_partitioned_config(config, graph)
     if updates is not None:
         from repro_torch.sim.dynamic import run_dynamic
         return run_dynamic(
             graph, problem, updates=updates, accelerator=accelerator,
-            config=cfg, memory=memory, backend=backend, variant=variant,
-            root=root, fixed_iters=fixed_iters, device=device,
-            **overrides).report
+            config=cfg, memory=memory, cache=cache, backend=backend,
+            variant=variant, root=root, fixed_iters=fixed_iters,
+            device=device, **overrides).report
     return SimSession(graph).run(
-        problem, accelerator, config=cfg, memory=memory,
+        problem, accelerator, config=cfg, memory=memory, cache=cache,
         backend=backend, variant=variant, root=root,
         fixed_iters=fixed_iters, device=device, **overrides)

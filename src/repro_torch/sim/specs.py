@@ -14,6 +14,7 @@ from typing import Optional
 from repro_torch.algorithms import edge_centric, incremental, vertex_centric
 from repro_torch.algorithms.common import Problem, RunResult
 from repro_torch.core import accugraph, hitgraph
+from repro_torch.core.cache import CacheConfig
 from repro_torch.graphs.formats import Graph
 from repro_torch.sim.registry import AcceleratorSpec, register_accelerator
 
@@ -59,6 +60,15 @@ class HitGraphSpec(AcceleratorSpec):
             "no_filtering": {"update_filtering": False},
             "no_skipping": {"partition_skipping": False},
         }
+
+    def default_cache(self):
+        """HitGraph's on-chip story is *prefetching*: edge lists, update
+        queues and value regions stream sequentially.  The declared
+        hierarchy is a pure sequential stream prefetcher, 8 requests deep
+        (one per pipeline); it never drops or reorders requests, so it can
+        only shorten a run."""
+        return CacheConfig(prefetch_degree=8,
+                           name="hitgraph-stream-prefetch")
 
 
 @register_accelerator
@@ -108,3 +118,11 @@ class AccuGraphSpec(AcceleratorSpec):
             # paper §7 future work: swap DDR4 for an HBM2 stack
             "hbm": {"dram": hbm2()},
         }
+
+    def default_cache(self):
+        """AccuGraph's defining feature is the vertex BRAM.  The declared
+        hierarchy is a BRAM-class 2 MiB 16-way LRU vertex cache over the
+        read streams: repeated value/pointer traffic hits on chip and
+        never reaches DRAM."""
+        return CacheConfig(lines=32768, ways=16,
+                           name="accugraph-vertex-bram")

@@ -583,3 +583,115 @@ def test_stationary_simulate_on_card_equals_cpu(cuda, accelerator,
     assert kernel.launches == before + 3
     b = engine(gw, Problem(problem), fixed_iters=3, device="cpu")
     np.testing.assert_allclose(a.values, b.values, rtol=1e-5)
+
+
+def _lookup_inputs(seed, U, W, n, big_tags, hot, device):
+    """A set-sorted read stream over ``U`` sets (``hot`` of it on set 0)
+    and a warm state, as ``lookup_reads`` builds them."""
+    rng = np.random.default_rng(seed)
+    row = np.where(rng.random(n) < hot, 0, rng.integers(0, U, n))
+    base = 2**31 + 5 if big_tags else 0
+    tag = base + rng.integers(0, 3 * W, n)
+    order = np.argsort(row, kind="stable")
+    seg_ptr = np.concatenate([[0], np.cumsum(np.bincount(row,
+                                                         minlength=U))])
+    tags = np.where(rng.random((U, W)) < 0.5, -1,
+                    base + rng.permutation(3 * W)[:W][None, :])
+    age = np.argsort(rng.random((U, W)), axis=1)
+    return [torch.as_tensor(a, device=device) for a in (
+        seg_ptr.astype(np.int64), tag[order].astype(np.int64),
+        order.astype(np.int32), tags.astype(np.int64),
+        age.astype(np.int64))]
+
+
+@pytest.mark.parametrize("W", [1, 16, 64])
+@pytest.mark.parametrize("big_tags", [False, True])
+@pytest.mark.parametrize("hot", [0.0, 0.9])
+def test_cache_lookup_kernel_equals_plain(cuda, W, big_tags, hot):
+    """Hits and the updated state exact, at 1, 16 and 64 ways (one and
+    two register slots a lane), with one hot set and tags >= 2**31."""
+    from repro_torch.kernels.cache_lookup.ops import cache_lookup
+    from repro_torch.kernels.cache_lookup.ref import cache_lookup_ref
+    seg_ptr, tag, pos, tags, age = _lookup_inputs(W + int(big_tags), 37, W,
+                                                  3000, big_tags, hot, cuda)
+    tags_p, age_p = tags.cpu().clone(), age.cpu().clone()
+    before = cache_lookup.launches
+    hit = cache_lookup(seg_ptr, tag, pos, tags, age)
+    torch.cuda.synchronize()
+    assert cache_lookup.launches == before + 1
+    want = cache_lookup_ref(seg_ptr.cpu(), tag.cpu(), pos.cpu(), tags_p,
+                            age_p)
+    assert torch.equal(hit.cpu(), want)
+    assert torch.equal(tags.cpu(), tags_p) and torch.equal(age.cpu(), age_p)
+    assert 0 < int(want.sum()) < len(want)
+
+
+def test_cache_filter_on_card_equals_cpu(cuda):
+    """``filter_program`` with the state on the card (the kernel) equals
+    the CPU run, the chained state too."""
+    from repro_torch.core import cache
+    rng = np.random.default_rng(4)
+    phases = []
+    for p in range(5):
+        n = int(rng.integers(50, 400))
+        lines = np.where(rng.random(n) < 0.5, rng.integers(0, 300, n),
+                         rng.integers(0, 1 << 14, n))
+        phases.append((f"p{p}", lines, rng.random(n) < 0.2,
+                       np.sort(rng.integers(0, 4 * n, n))))
+    prog = SegmentedTrace.from_phases(phases)
+    cfg = cache.CacheConfig(lines=256, ways=16, prefetch_degree=4)
+    a, sa, st_a = cache.filter_program(prog, cfg, device=cuda)
+    b, sb, st_b = cache.filter_program(prog, cfg, device="cpu")
+    assert sa == sb and a.names == b.names
+    for f in ("line_addr", "is_write", "issue", "offsets"):
+        assert np.array_equal(getattr(a, f), getattr(b, f))
+    assert torch.equal(st_a.tags.cpu(), st_b.tags)
+    assert torch.equal(st_a.age.cpu(), st_b.age)
+    ranges = [(10, 40), (1000, 300)]
+    assert cache.invalidate_lines(st_a, cfg, ranges) == \
+        cache.invalidate_lines(st_b, cfg, ranges)
+    assert torch.equal(st_a.age.cpu(), st_b.age)
+
+
+@pytest.mark.parametrize("preset", ["hitgraph", "accugraph", "hbm2"])
+@pytest.mark.parametrize("hit_heavy", [False, True])
+def test_device_pack_on_card_equals_host(cuda, preset, hit_heavy):
+    cfg = PRESETS[preset]()
+    prog = _program(7, hit_heavy)
+    host = accel.pack_program(prog, cfg)
+    dev = accel.pack_program_device(prog, cfg, device=cuda)
+    assert dev.issue.device.type == "cuda"
+    assert np.array_equal(dev.issue.cpu().numpy(), host.issue)
+    assert np.array_equal(dev.meta.cpu().numpy(), host.meta)
+    assert np.array_equal(dev.boundary.cpu().numpy(), host.boundary)
+    assert np.array_equal(dev.kind.cpu().numpy()[:len(prog)], host.kind)
+    assert np.array_equal(dev.open_row_final.cpu().numpy(),
+                          host.open_row_final)
+    assert dev.n_steps == host.n_steps
+    assert accel.serve_packed(dev)[0] == accel.serve_packed(host,
+                                                            device=cuda)[0]
+
+
+@pytest.mark.parametrize("accelerator", ["hitgraph", "accugraph"])
+def test_routes_and_launches_on_card(cuda, accelerator):
+    """A run on the card packs on the card (never on the host), and a
+    cached run goes through the lookup kernel (AccuGraph's vertex cache)
+    and equals the CPU run."""
+    from repro_torch.kernels import launch_counts, zero_launch_counts
+    g = rmat(8, 5, seed=102).undirected_view()
+    kw = dict(accelerator=accelerator, partition_elements=64,
+              cache="default")
+    accel.zero_pack_route_counts()
+    zero_launch_counts()
+    a = simulate(g, "wcc", **kw)
+    routes, launches = accel.pack_route_counts(), launch_counts()
+    assert routes == {"device_pack": 1, "host_pack": 0}
+    assert launches["dram_serve"] == 1
+    assert launches["cache_lookup"] == (accelerator == "accugraph")
+    assert a == simulate(g, "wcc", device="cpu", **kw)
+    accel.zero_pack_route_counts()
+    res = run_dynamic(g, "wcc", updates="pa-growth", **kw)
+    assert accel.pack_route_counts() == {"device_pack": res.n_epochs,
+                                         "host_pack": 0}
+    assert res.epochs == run_dynamic(g, "wcc", updates="pa-growth",
+                                     device="cpu", **kw).epochs

@@ -37,6 +37,11 @@ _STATIONARY_MODULES = {"repro_torch.kernels.segment_reduce.ops",
                        "repro_torch.kernels.edge_scatter.ops",
                        "repro_torch.kernels.spmv_ell.ops"}
 
+#: the modules of the cache slice (the on-chip filter and its lookup)
+_CACHE_MODULES = {"repro_torch.core.cache",
+                  "repro_torch.kernels.cache_lookup.ops",
+                  "repro_torch.kernels.cache_lookup.ref"}
+
 #: an import statement naming jax or the JAX package (not repro_torch)
 _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
                      re.M)
@@ -52,8 +57,8 @@ def test_import_leaves_jax_and_repro_out():
     n, bad = counts.split(" ", 1)
     assert int(n) >= 24
     assert bad == "[]", bad
-    assert _DYNAMIC_MODULES | _STATIONARY_MODULES <= set(names.split()), (
-        names)
+    assert (_DYNAMIC_MODULES | _STATIONARY_MODULES | _CACHE_MODULES
+            <= set(names.split())), names
 
 
 def test_no_jax_or_repro_import_in_sources():
@@ -91,14 +96,18 @@ def test_later_slices_raise_not_implemented():
     from repro_torch.sim import run_dynamic, simulate
 
     g = rmat(5, 2, seed=0).undirected_view()
-    for kw in ({"cache": "vertex-1m"}, {"backend": "event"},
-               {"cache": "vertex-1m", "updates": "pa-growth"},
+    for kw in ({"backend": "event"},
                {"backend": "event", "updates": "pa-growth"}):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             simulate(g, "wcc", device="cpu", **kw)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        run_dynamic(g, "wcc", updates="pa-growth", cache="default",
-                    device="cpu")
+    # the on-chip cache is ported: cache= runs on every entry point
+    for kw in ({"cache": "vertex-1m"},
+               {"cache": "vertex-1m", "updates": "pa-growth"}):
+        r = simulate(g, "wcc", device="cpu", **kw)
+        assert r.cache_lookups > 0 and r.runtime_ns > 0
+    res = run_dynamic(g, "wcc", updates="pa-growth", cache="default",
+                      device="cpu")
+    assert res.report.prefetch_hits > 0 and res.n_epochs == 4
     with pytest.raises(TypeError):
         simulate("karate", "wcc", device="cpu")
     with pytest.raises(TypeError):
