@@ -26,9 +26,9 @@ Phases, one JSON line each:
               cases with out-of-range ids, to the stated tolerances;
               ``cache_lookup`` on seeded set-sorted streams (1, 16 and 64
               ways, a hot set, tags past 2**31), bit for bit.
-4. goldens  — the 20 rmat7/rmat8 HitGraph/AccuGraph keys of
-              ``tests/goldens/simreports.json`` through ``simulate`` on
-              the card; then the sweep's worst case, an ascending path of
+4. goldens  — the 24 rmat7/rmat8 keys of ``tests/goldens/simreports.json``
+              (HitGraph, AccuGraph and the reference machine) through
+              ``simulate`` on the card; then the sweep's worst case, an ascending path of
               2^20 vertices (the route, the rounds, the time of each
               route), and a descending path (one round).
 5. main     — the main path at full size: the paper's Tab. 1 wiki-talk
@@ -94,6 +94,25 @@ Phases, one JSON line each:
               ``torch.segment_reduce``), and the pull's bound over the
               edges beside the bound over the slots of the per-bucket
               layout it ran on before.
+
+9. event    — the event-driven side, held to the kernels: ``trace``
+              lines, the host's element replay ``simulate_trace`` against
+              ``simulate_trace_device`` (one chunked ``dram_timing``
+              launch) on 2^20 seeded requests (DDR3-1600K with 4 channels
+              and 2 ranks, DDR4-2400R, HBM2 with 8 channels, and a bulk
+              trace that trips tFAW), bit for bit on the finishes, kind
+              counts and channel makespans; ``event_main`` lines, the main
+              path's two full-size WCC runs again through
+              ``backend="event"`` on the main sessions, every report field
+              equal to the vectorized report and no serve launched;
+              ``reference`` lines, WCC and BFS on the reference machine
+              (``REFERENCE_SCALE``; its algorithm run equal to AccuGraph's
+              ``q = n`` run, its requests to the count its streams imply,
+              round sweeps only); ``analytical`` lines, the closed-form
+              estimate beside the simulated main-path runtime; a ``study``
+              line, ``run_study``'s five AccuGraph variants
+              (``STUDY_SCALE``), each variant's values equal to the
+              baseline's.  Then the script's wall time.
 
 Then the kernel table, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -196,6 +215,33 @@ PINNED_SERVE_DIGEST = {
     "accugraph":
         "c910845c7354b013e83a6061b26b9b5418b69a49a46aad5c9a3ede6a2189bef2",
 }
+
+#: the event phase's trace line: (label, preset, requests, bulk), 2^20
+#: requests in all; the bulk trace issues every request at cycle 0 over
+#: many rows, so that the four-ACT window (tFAW) binds
+TRACE_CASES = (("ddr3-1600k-4ch-2rank", "hitgraph", 1 << 18, False),
+               ("ddr4-2400r", "accugraph", 1 << 18, False),
+               ("hbm2-8ch", "hbm2", 1 << 18, False),
+               ("ddr4-2400r-faw", "accugraph", 1 << 18, True))
+
+#: the reference machine's graph, ``instantiate("wt", REFERENCE_SCALE)``:
+#: the largest step of the ladder 0.01, 0.02, 0.05, 0.1, 0.2 whose WCC
+#: and BFS runs stay within REFERENCE_BUDGET_S on the card's host in this
+#: script (``tools/event_scales.py`` times the ladders alone; the host's
+#: speed varies by about 1.4x between machines, and 0.2 took 41-77 s; the
+#: element replay's cost grows with edges x iterations, so full size is
+#: out of reach).  BFS starts at the vertex of highest degree.
+REFERENCE_SCALE = 0.1
+REFERENCE_BUDGET_S = 60.0
+#: ``run_study``'s graph, ``instantiate("wt", STUDY_SCALE)``, at the Fig. 13
+#: partition size (q = 1,024,000 at full size, scaled): the largest step of
+#: the ladder 0.1, 0.2, 0.5, 1.0 whose five variants stay within
+#: STUDY_BUDGET_S in this script (full size took 43-64 s)
+STUDY_SCALE = 0.5
+STUDY_BUDGET_S = 60.0
+#: the event replay may take this long a run before the event_main line
+#: would need a cut graph
+EVENT_MAIN_LIMIT_S = 150.0
 
 #: the stationary path: problems, iterations, and the largest relative
 #: error of the values against a float64 recompute.  HitGraph's gather
@@ -1221,6 +1267,251 @@ def run_cached_dynamic(wt, session, card):
     return res
 
 
+def check_trace(card):
+    """The event phase's ``trace`` line: the host's element replay
+    (``core.timing.simulate_trace``) against ``simulate_trace_device`` (one
+    chunked ``dram_timing`` launch from a cold carry) on the seeded traces
+    of ``TRACE_CASES``, bit for bit on the finishes, the three kind counts
+    and each channel's makespan; both times and the replay's rate.
+    Returns the launches by kernel over the device calls."""
+    from repro_torch.core.dram import PRESETS
+    from repro_torch.core.timing import simulate_trace
+    from repro_torch.core.trace import Trace
+    from repro_torch.core.vectorized import simulate_trace_device
+    from repro_torch.kernels import launch_counts, zero_launch_counts
+    total = dict.fromkeys(KERNELS, 0)
+    requests = 0
+    for i, (label, preset, n, bulk) in enumerate(TRACE_CASES):
+        cfg = PRESETS[preset]()
+        rng = np.random.default_rng(300 + i)
+        lines = rng.integers(0, 1 << 24 if bulk else 1 << 16, n)
+        issue = (np.zeros(n, dtype=np.int64) if bulk
+                 else np.sort(rng.integers(0, 4 * n, n)))
+        trace = Trace(lines, np.zeros(n, bool), issue)
+        t0 = time.perf_counter()
+        want = simulate_trace(lines, issue, cfg, keep_finish=True)
+        event_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        got = simulate_trace_device(trace, cfg, keep_finish=True)
+        torch.cuda.synchronize()
+        device_s = time.perf_counter() - t0
+        launches = launch_counts()
+        assert launches["dram_timing"] == 1, launches
+        assert launches["dram_timing_serial"] == 0, launches
+        for k in KERNELS:
+            total[k] += launches[k]
+        kinds = (got.row_hits, got.row_empty, got.row_conflicts)
+        want_kinds = (want.row_hits, want.row_empty, want.row_conflicts)
+        assert np.array_equal(got.finish, want.finish), label
+        assert kinds == want_kinds, (label, kinds, want_kinds)
+        assert got.per_channel_cycles == want.per_channel_cycles, label
+        assert got.cycles == want.cycles and got.ns == want.ns, label
+        faw_binds = None
+        if bulk:
+            no_faw = dataclasses.replace(cfg, timing=dataclasses.replace(
+                cfg.timing, tFAW=0))
+            faw_binds = not np.array_equal(
+                simulate_trace_device(trace, no_faw, keep_finish=True)
+                .finish, got.finish)
+            assert faw_binds, "the bulk trace does not reach the tFAW window"
+        requests += n
+        emit(phase="trace", memory=label, channels=cfg.channels,
+             ranks=cfg.org.ranks, requests=n, bulk=bulk, cycles=got.cycles,
+             row_hits=kinds[0], row_empty=kinds[1], row_conflicts=kinds[2],
+             per_channel_cycles=got.per_channel_cycles,
+             equal="finish, kind counts, per_channel_cycles: bit for bit",
+             faw_binds=faw_binds, event_s=event_s, device_s=device_s,
+             event_requests_per_s=n / event_s,
+             dram_timing_launches=launches["dram_timing"], card=card)
+    assert requests >= 1 << 20, requests
+    return total
+
+
+def run_event_main(sessions, reports, card):
+    """The event phase's ``event_main`` lines: ``SimSession.run("wcc",
+    backend="event")`` at full size on both accelerators, sharing the main
+    path's sessions (its algorithm runs and models).  The host's element
+    replay must give the main path's vectorized report field for field
+    (runtime, requests, every ``PhaseStats``), and no serve may launch.
+    Returns the launches by kernel over both runs."""
+    from repro_torch.kernels import launch_counts, zero_launch_counts
+    total = dict.fromkeys(KERNELS, 0)
+    for acc in ("hitgraph", "accugraph"):
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        r = sessions[acc].run("wcc", acc, backend="event")
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        want = reports[acc]
+        differ = [f.name for f in dataclasses.fields(r) if f.compare
+                  and getattr(r, f.name) != getattr(want, f.name)]
+        replay = r.stage_seconds["replay"]
+        emit(phase="event_main", accelerator=acc, size="full",
+             vertices=r.vertices, edges=r.edges, requests=r.total_requests,
+             runtime_ns=r.runtime_ns, vectorized_runtime_ns=want.runtime_ns,
+             row_hits=sum(ph.row_hits for ph in r.phases),
+             row_conflicts=sum(ph.row_conflicts for ph in r.phases),
+             phases=len(r.phases),
+             phases_equal=sum(a == b for a, b in zip(r.phases, want.phases)),
+             fields_differing=differ,
+             dram_serve_launches=launches["dram_serve"],
+             serve_prepass_launches=launches["serve_prepass"],
+             stage_seconds=r.stage_seconds, seconds=seconds,
+             replay_requests_per_s=r.total_requests / replay, card=card)
+        assert not differ and r == want, (acc, differ)
+        assert launches["dram_serve"] == launches["serve_prepass"] == 0, (
+            launches)
+        assert seconds <= EVENT_MAIN_LIMIT_S, (acc, seconds)
+        for k in KERNELS:
+            total[k] += launches[k]
+    return total
+
+
+def stream_requests(g, run) -> int:
+    """The requests the reference machine must issue for ``run`` (default
+    widths, 4 B): every iteration reads the value, pointer and neighbor
+    arrays once (a request a line after the cache-line buffers) and writes
+    the unique lines of the values it changed."""
+    def lines(nbytes):
+        return -(-nbytes // 64)
+
+    per_iter = lines(4 * g.n) + lines(4 * (g.n + 1)) + lines(4 * g.m)
+    writes = sum(len(np.unique(np.flatnonzero(st.changed) * 4 // 64))
+                 for st in run.per_iter)
+    return run.iterations * per_iter + writes
+
+
+def run_reference(card, dev):
+    """The event phase's ``reference`` lines: WCC and BFS on the
+    reference machine at ``REFERENCE_SCALE``, its algorithm on the card
+    (round sweeps, no serial one), the engine on the host.  The run must
+    equal AccuGraph's ``q = n`` run iteration for iteration, and the
+    request count the streams imply.  BFS starts at the vertex of highest
+    degree.  Returns the launches by kernel."""
+    from repro_torch.algorithms.common import Problem
+    from repro_torch.graphs.datasets import instantiate
+    from repro_torch.kernels import launch_counts, zero_launch_counts
+    from repro_torch.sim import SimSession, get_accelerator
+    g = instantiate("wt", REFERENCE_SCALE).undirected_view()
+    root = int(np.argmax(g.out_degrees()))
+    sess = SimSession(g)
+    spec, acc = get_accelerator("reference"), get_accelerator("accugraph")
+    total = dict.fromkeys(KERNELS, 0)
+    t_all = time.perf_counter()
+    for prob in ("wcc", "bfs"):
+        p = Problem(prob)
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        r = sess.run(p, "reference", root=root)
+        seconds = time.perf_counter() - t0
+        launches = launch_counts()
+        assert launches["sweep_min_rounds"] > 0, launches
+        assert launches["sweep_min"] == 0, launches
+        for k in KERNELS:
+            total[k] += launches[k]
+        run = sess.algorithm_run(spec, p, spec.make_config(), root, None,
+                                 dev)
+        acc_run = acc.run_algorithm(g, p, acc.make_config(), root=root,
+                                    device=dev)
+        same_run = (run.iterations == acc_run.iterations
+                    and np.array_equal(run.values, acc_run.values)
+                    and all(np.array_equal(a.changed, b.changed)
+                            and np.array_equal(a.active_before,
+                                               b.active_before)
+                            for a, b in zip(run.per_iter, acc_run.per_iter)))
+        want_requests = stream_requests(g, run)
+        emit(phase="reference", problem=prob, scale=REFERENCE_SCALE,
+             vertices=g.n, edges=g.m, root=root, iterations=r.iterations,
+             requests=r.total_requests, stream_requests=want_requests,
+             runtime_ns=r.runtime_ns, row_hit_rate=r.row_hit_rate,
+             phases=len(r.phases), per_iter_equals_accugraph=same_run,
+             sweep_min_rounds_launches=launches["sweep_min_rounds"],
+             sweep_min_launches=launches["sweep_min"],
+             stage_seconds=r.stage_seconds, seconds=seconds,
+             requests_per_s=r.total_requests / r.stage_seconds["replay"],
+             card=card)
+        assert same_run, prob
+        assert r.total_requests == want_requests, (prob, r.total_requests)
+        assert len(r.phases) == 3 * r.iterations and r.iterations > 1
+        assert np.isfinite(r.runtime_ns) and r.runtime_ns > 0
+        assert 0 < r.row_hit_rate <= 1
+    seconds = time.perf_counter() - t_all
+    emit(phase="reference_total", scale=REFERENCE_SCALE, seconds=seconds,
+         budget_s=REFERENCE_BUDGET_S,
+         within_budget=seconds <= REFERENCE_BUDGET_S, card=card)
+    return total
+
+
+def run_analytical(wt, reports, card) -> None:
+    """The event phase's ``analytical`` lines: the closed-form estimate of
+    both accelerators at full size (paper defaults, WCC), at its default
+    iteration count and at the simulated run's, beside the simulated
+    runtime of the main path."""
+    from repro_torch.algorithms.common import Problem
+    from repro_torch.core import analytical
+    estimate = {"hitgraph": analytical.estimate_hitgraph,
+                "accugraph": analytical.estimate_accugraph}
+    for acc, fn in estimate.items():
+        sim = reports[acc]
+        t0 = time.perf_counter()
+        est = fn(wt, Problem.WCC)
+        at_iters = fn(wt, Problem.WCC, iterations=sim.iterations)
+        seconds = time.perf_counter() - t0
+        for e in (est, at_iters):
+            assert np.isfinite(e.runtime_ns) and e.runtime_ns > 0
+        emit(phase="analytical", accelerator=acc, problem="wcc",
+             estimate_ns=est.runtime_ns, estimate_iterations=est.iterations,
+             estimate_at_run_iterations_ns=at_iters.runtime_ns,
+             bound=est.bound, bytes_total=est.bytes_total,
+             simulated_ns=sim.runtime_ns, iterations=sim.iterations,
+             estimate_over_simulated=at_iters.runtime_ns / sim.runtime_ns,
+             seconds=seconds, card=card)
+
+
+def run_study_line(card, dev):
+    """The event phase's ``study`` line: ``run_study`` (AccuGraph WCC, the
+    five variants, served on the card) at ``STUDY_SCALE`` with the Fig. 13
+    partition size; every variant's algorithm values equal the
+    baseline's.  Returns the launches by kernel of the study."""
+    from repro_torch.algorithms.common import Problem
+    from repro_torch.core import optimizations
+    from repro_torch.core.accugraph import AccuGraphConfig
+    from repro_torch.graphs.datasets import TABLE1, instantiate
+    from repro_torch.kernels import launch_counts, zero_launch_counts
+    from repro_torch.sim import get_accelerator
+    from repro_torch.sim.policy import scaled_q
+    g = instantiate("wt", STUDY_SCALE).undirected_view()
+    base = AccuGraphConfig(partition_elements=scaled_q(
+        1_024_000, TABLE1["wt"].vertices, g.n))
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    res = optimizations.run_study(g, Problem.WCC, base)
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    assert [r.variant for r in res] == ["baseline", "prefetch_skip",
+                                        "partition_skip", "both", "hbm"]
+    assert launches["dram_serve"] == len(res), launches
+    spec = get_accelerator("accugraph")
+    runs = {name: spec.run_algorithm(g, Problem.WCC, cfg, device=dev)
+            for name, cfg in optimizations.accugraph_variants(base).items()}
+    values_equal = all(np.array_equal(run.values, runs["baseline"].values)
+                       for run in runs.values())
+    emit(phase="study", problem="wcc", scale=STUDY_SCALE, vertices=g.n,
+         edges=g.m, partition_elements=base.partition_elements,
+         variants=[{"variant": r.variant, "runtime_ns": r.report.runtime_ns,
+                    "speedup": r.speedup, "requests": r.report.total_requests,
+                    "iterations": r.report.iterations} for r in res],
+         values_equal_baseline=values_equal, seconds=seconds,
+         budget_s=STUDY_BUDGET_S, within_budget=seconds <= STUDY_BUDGET_S,
+         kernel_launches={k: launches[k] for k in KERNELS}, card=card)
+    assert values_equal
+    for r in res:
+        assert np.isfinite(r.report.runtime_ns) and r.speedup > 0
+    return launches
+
+
 def random_program(rng, hit_heavy, n_phases=4, max_n=300):
     from repro_torch.core.trace import SegmentedTrace
     phases = []
@@ -1471,6 +1762,7 @@ def any_meta_serve(dev) -> int:
 
 
 def main() -> int:
+    t_start = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -1544,20 +1836,25 @@ def main() -> int:
         (ROOT / "tests" / "goldens" / "simreports.json").read_text())
     graphs = {"rmat7": rmat(7, 4, seed=101).undirected_view(),
               "rmat8": rmat(8, 5, seed=102).undirected_view()}
+    # the reference machine runs on its paper default memory and config
     memories = {"hitgraph": ("ddr3", "hbm2"),
-                "accugraph": ("ddr4", "ddr4-8gb", "hbm2")}
+                "accugraph": ("ddr4", "ddr4-8gb", "hbm2"),
+                "reference": (None,)}
+    overrides = {"hitgraph": {"partition_elements": 64},
+                 "accugraph": {"partition_elements": 64}, "reference": {}}
     checked, bad = 0, []
     for gname, gg in graphs.items():
         for acc, mems in memories.items():
             for mem in mems:
                 for prob in ("wcc", "bfs"):
-                    key = f"{gname}/{acc}/{mem}/{prob}"
+                    key = f"{gname}/{acc}/{mem or 'default'}/{prob}"
                     r = simulate(gg, prob, accelerator=acc, memory=mem,
-                                 partition_elements=64)
+                                 **overrides[acc])
                     if digest(r) != golden[key]:
                         bad.append(key)
                     checked += 1
     assert not bad, f"golden digests differ on the card: {bad}"
+    assert checked == 24, checked
     emit(phase="goldens", checked=checked, mismatched=len(bad))
     paths = sweep_paths(dev, card)
 
@@ -1734,6 +2031,16 @@ def main() -> int:
     kernels["dram_timing"] = compare_dram_timing(apply_phases, dev)
     del apply_phases
     kernels.update(compare_stationary(wt, stat_runs, dev))
+
+    # ---- 9. the event-driven side -------------------------------------
+    t_event = time.perf_counter()
+    launches["trace"] = check_trace(card)
+    launches["event"] = run_event_main(sessions, reports, card)
+    launches["reference"] = run_reference(card, dev)
+    run_analytical(wt, reports, card)
+    launches["study"] = run_study_line(card, dev)
+    emit(phase="wall", seconds=time.perf_counter() - t_start,
+         event_phase_seconds=time.perf_counter() - t_event, card=card)
 
     ds = kernels["dram_serve"]
     hw = ds["windows"]["hitgraph"]

@@ -279,3 +279,14 @@ class AccuGraphModel:
         report.stage_seconds = {"trace": trace_s,
                                 **getattr(dram, "stage_seconds", {})}
         return report
+
+
+def simulate(g: Graph, problem: Problem,
+             cfg: AccuGraphConfig = AccuGraphConfig(), root: int = 0,
+             fixed_iters: Optional[int] = None, device=None) -> SimReport:
+    """Simulate ``problem`` on AccuGraph with ``cfg`` on ``device`` (default
+    the card) through :func:`repro_torch.sim.simulate`, the one entry
+    point for all accelerators, memories and backends."""
+    from repro_torch import sim
+    return sim.simulate(g, problem, accelerator="accugraph", config=cfg,
+                        root=root, fixed_iters=fixed_iters, device=device)

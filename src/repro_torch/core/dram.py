@@ -18,7 +18,7 @@ host.
 from __future__ import annotations
 
 import dataclasses
-from typing import TYPE_CHECKING, Dict, Optional, Tuple
+from typing import TYPE_CHECKING, Callable, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -101,6 +101,14 @@ class DRAMConfig:
             * self.org.row_bytes
         )
 
+    @property
+    def peak_gbps(self) -> float:
+        """Peak data bandwidth in GB/s over all channels."""
+        lines_per_cycle = 1.0 / self.timing.tBL
+        return (
+            self.channels * lines_per_cycle * CACHE_LINE_BYTES * self.clock_ghz
+        )
+
     def component_sizes(self) -> Dict[str, int]:
         return {
             "channel": self.channels,
@@ -176,6 +184,26 @@ class DRAMConfig:
             + comps["bank_in_channel"]
         )
         return comps
+
+    def line_decoder(self) -> Callable[[int], Tuple[int, int, int]]:
+        """A scalar form of :meth:`decode_lines` for one line at a time:
+        ``decode(line) -> (channel, bank_in_channel, row)`` in Python
+        ints, equal to ``decode_lines`` on every int64 line (floor ``%``
+        and ``//`` are the shift/mask decode on powers of two)."""
+        sizes = self.component_sizes()
+        order = [(comp, sizes[comp]) for comp in self.order]
+        banks = self.org.banks
+
+        def decode(line: int) -> Tuple[int, int, int]:
+            rem = int(line)
+            got = {}
+            for comp, size in order:
+                got[comp] = rem % size
+                rem //= size
+            return got["channel"], got["rank"] * banks + got["bank"], \
+                got["row"]
+
+        return decode
 
 
 # ---------------------------------------------------------------------------

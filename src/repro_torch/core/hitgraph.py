@@ -339,3 +339,14 @@ class HitGraphModel:
         report.stage_seconds = {"trace": trace_s,
                                 **getattr(dram, "stage_seconds", {})}
         return report
+
+
+def simulate(g: Graph, problem: Problem,
+             cfg: HitGraphConfig = HitGraphConfig(), root: int = 0,
+             fixed_iters: Optional[int] = None, device=None) -> SimReport:
+    """Simulate ``problem`` on HitGraph with ``cfg`` on ``device`` (default
+    the card) through :func:`repro_torch.sim.simulate`, the one entry
+    point for all accelerators, memories and backends."""
+    from repro_torch import sim
+    return sim.simulate(g, problem, accelerator="hitgraph", config=cfg,
+                        root=root, fixed_iters=fixed_iters, device=device)

@@ -1,6 +1,6 @@
 """The DRAM-timing model's carry, stream formats and serves.
 
-Two entry points, as in the JAX package:
+Three entry points, as in the JAX package:
 
 * :func:`simulate_packed` — one phase over per-channel ``[C, L]``
   streams, one request per channel per slot, carry in and out (the
@@ -8,7 +8,10 @@ Two entry points, as in the JAX package:
 * :func:`fused_scan` — a whole multi-phase program over blocked
   ``[S, C, K]`` lockstep streams: a step retires up to K row hits per
   channel, or one miss, and phase barriers are honored inside the serve
-  by re-basing the carry at each segment boundary.
+  by re-basing the carry at each segment boundary;
+* :func:`simulate_trace_device` — a whole trace from a cold carry, the
+  drop-in counterpart of :func:`repro_torch.core.timing.simulate_trace`
+  (one :func:`simulate_packed` call).
 
 Each runs as one launch of a hand-written CUDA kernel on the card, or as
 its plain torch version on the CPU (see
@@ -29,8 +32,10 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from repro_torch.core.dram import DRAMConfig, DRAMTiming
+from repro_torch.core import timing as timing_mod
+from repro_torch.core.dram import CACHE_LINE_BYTES, DRAMConfig, DRAMTiming
 from repro_torch.core.trace import Trace, group_ranks
+from repro_torch.device import resolve_device
 
 NEG_INF32 = -(1 << 30)
 
@@ -468,3 +473,49 @@ def fused_scan(issue, meta, boundary, timing, carry, device,
         stage_seconds["h2d"] = stage_seconds.get("h2d", 0.0) + (t1 - t0)
         stage_seconds["serve"] = stage_seconds.get("serve", 0.0) + serve
     return fin, state[:5]
+
+
+def simulate_trace_device(trace: Trace, cfg: DRAMConfig,
+                          keep_finish: bool = False,
+                          device=None) -> timing_mod.TraceResult:
+    """Drop-in counterpart of :func:`repro_torch.core.timing.
+    simulate_trace` on ``device`` (default the card): the trace split by
+    :func:`pack_channels` and served from a cold carry by one
+    :func:`simulate_packed` call (one ``dram_timing`` launch on the card,
+    the plain version on the CPU).  An empty trace goes through
+    ``simulate_trace``.  Where the int32 scan would wrap, the card raises
+    ``ValueError`` (the chunked scan's one departure)."""
+    if len(trace) == 0:
+        return timing_mod.simulate_trace(trace.line_addr, trace.issue, cfg)
+    device = resolve_device(device)
+    packed = pack_channels(trace, cfg)
+    carry = init_channel_carry(cfg.channels, cfg.banks_per_channel,
+                               cfg.org.banks, device)
+    finish, kind, _ = simulate_packed(
+        packed.issue, packed.bank, packed.row, packed.valid,
+        timing_params(cfg.timing), carry)
+    finish = finish.cpu().numpy()
+    kind = kind.cpu().numpy()
+    v = packed.valid
+    finish_flat = np.zeros(len(trace), dtype=np.int64)
+    finish_flat[packed.scatter_index[v]] = finish[v]
+    cycles = int(finish_flat.max())
+    ns = cycles / cfg.clock_ghz
+    total_bytes = len(trace) * CACHE_LINE_BYTES
+    per_channel = {
+        c: (int(finish[c][v[c]].max()) if v[c].any() else 0)
+        for c in range(cfg.channels)
+    }
+    return timing_mod.TraceResult(
+        cycles=cycles,
+        ns=ns,
+        total_requests=len(trace),
+        total_bytes=total_bytes,
+        row_hits=int((kind == 0).sum()),
+        row_empty=int((kind == 1).sum()),
+        row_conflicts=int((kind == 2).sum()),
+        achieved_gbps=(total_bytes / ns) if ns > 0 else 0.0,
+        peak_gbps=cfg.peak_gbps,
+        per_channel_cycles=per_channel,
+        finish=finish_flat if keep_finish else None,
+    )

@@ -22,10 +22,12 @@ from repro_torch.core.accugraph import AccuGraphConfig
 from repro_torch.core.cache import CacheConfig, CacheState
 from repro_torch.core.dram import DRAMConfig, DRAMOrganization, DRAMTiming
 from repro_torch.core.hitgraph import HitGraphConfig
+from repro_torch.core.timing import TraceResult
 from repro_torch.core.trace import SegmentedTrace, Trace
 from repro_torch.graphs.formats import Graph
 from repro_torch.graphs.updates import UpdateBatch, UpdateStream
 from repro_torch.sim.dynamic import DynamicResult, EpochReport
+from repro_torch.sim.reference_model import ReferenceConfig
 
 
 def _fields(obj, cls, **converted):
@@ -63,6 +65,16 @@ def hitgraph_config(cfg) -> HitGraphConfig:
 
 def accugraph_config(cfg) -> AccuGraphConfig:
     return _accel_config(cfg, AccuGraphConfig)
+
+
+def reference_config(cfg) -> ReferenceConfig:
+    return _accel_config(cfg, ReferenceConfig)
+
+
+def trace_result(r) -> TraceResult:
+    return _fields(r, TraceResult,
+                   per_channel_cycles=dict(r.per_channel_cycles),
+                   finish=None if r.finish is None else np.asarray(r.finish))
 
 
 def segmented_trace(t) -> SegmentedTrace:

@@ -3,6 +3,8 @@
 >>> from repro_torch.sim import simulate
 >>> r = simulate(g, "wcc", accelerator="hitgraph")            # on the card
 >>> r = simulate(g, "wcc", accelerator="accugraph", device="cpu")
+>>> r = simulate(g, "wcc", accelerator="hitgraph", backend="event")
+>>> r = simulate(g, "bfs", accelerator="reference")         # event-driven
 >>> res = run_dynamic(g, "wcc", updates="pa-growth", device="cpu")
 """
 
@@ -12,6 +14,7 @@ from repro_torch.errors import UnknownPresetError
 from repro_torch.sim.backends import BACKENDS, make_backend
 from repro_torch.sim.memory import (MEMORY_PRESETS, MemoryConfig,
                                     resolve_cache, resolve_memory)
+from repro_torch.sim.reference_model import ReferenceConfig, ReferenceModel
 from repro_torch.sim.policy import (PartitionPolicy,
                                     resolve_partitioned_config, scaled_q)
 from repro_torch.sim.registry import (AcceleratorSpec, get_accelerator,
@@ -30,4 +33,5 @@ __all__ = [
     "MemoryConfig", "MEMORY_PRESETS", "resolve_memory", "resolve_cache",
     "BACKENDS", "make_backend",
     "PartitionPolicy", "resolve_partitioned_config", "scaled_q",
+    "ReferenceConfig", "ReferenceModel",
 ]

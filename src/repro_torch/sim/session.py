@@ -18,9 +18,8 @@ downstream of trace emission).
 
 ``simulate(..., updates=...)`` runs a dynamic-graph update stream through
 :func:`repro_torch.sim.dynamic.run_dynamic` and returns its aggregate
-report.  Not in this slice (each raises and names ROADMAP.md):
-``backend="event"``, corpus preset names and ``ScenarioSpec`` as the
-graph argument.
+report.  Not in this slice (each raises and names ROADMAP.md): corpus
+preset names and ``ScenarioSpec`` as the graph argument.
 """
 
 from __future__ import annotations
@@ -214,8 +213,9 @@ def simulate(graph: Graph, problem=None,
     graph:        a :class:`Graph`.
     problem:      a :class:`Problem` or its string value (``"wcc"``,
                   ``"bfs"``, ``"sssp"``, ``"pr"``, ``"spmv"``).
-    accelerator:  registered name (``"hitgraph"``, ``"accugraph"``) or an
-                  :class:`AcceleratorSpec` instance.
+    accelerator:  registered name (``"hitgraph"``, ``"accugraph"``,
+                  ``"reference"``) or an :class:`AcceleratorSpec`
+                  instance.
     config:       accelerator config dataclass (defaults per paper Tab. 4);
                   extra keyword arguments override individual fields, e.g.
                   ``simulate(g, "wcc", partition_elements=2048)``.
@@ -240,8 +240,9 @@ def simulate(graph: Graph, problem=None,
     device:       where the algorithm engine and the DRAM serve run:
                   ``None`` means the card (raises without CUDA);
                   ``"cpu"`` runs the plain versions on the host.
-    backend="event":
-                  not ported yet; it raises ``NotImplementedError``.
+    backend:      ``"vectorized"`` (the fused serve), ``"event"`` (the
+                  element-granularity replay on the host; slow), or
+                  ``None`` for the accelerator's preferred backend.
     """
     if problem is None:
         raise TypeError("simulate() needs a problem")

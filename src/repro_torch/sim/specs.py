@@ -1,6 +1,5 @@
-"""Built-in accelerator specs: HitGraph and AccuGraph, registered under
-their paper names.  (The event-driven reference machine comes with a
-later slice; see ROADMAP.md.)
+"""Built-in accelerator specs: HitGraph, AccuGraph, and the event-driven
+reference machine, registered under their paper names.
 
 The parity contract: ``run_algorithm`` must reproduce bit-identically the
 algorithm execution each model performs internally when ``run=None``, so
@@ -14,9 +13,12 @@ from typing import Optional
 from repro_torch.algorithms import edge_centric, incremental, vertex_centric
 from repro_torch.algorithms.common import Problem, RunResult
 from repro_torch.core import accugraph, hitgraph
+from repro_torch.core.accel import SimReport
 from repro_torch.core.cache import CacheConfig
 from repro_torch.graphs.formats import Graph
-from repro_torch.sim.registry import AcceleratorSpec, register_accelerator
+from repro_torch.sim.reference_model import ReferenceConfig, ReferenceModel
+from repro_torch.sim.registry import (EVENT, AcceleratorSpec,
+                                      register_accelerator)
 
 
 def _graph_key(g: Graph):
@@ -126,3 +128,52 @@ class AccuGraphSpec(AcceleratorSpec):
         never reaches DRAM."""
         return CacheConfig(lines=32768, ways=16,
                            name="accugraph-vertex-bram")
+
+
+@register_accelerator
+class ReferenceSpec(AcceleratorSpec):
+    name = "reference"
+    description = ("event-driven reference machine (Fig. 6 abstraction "
+                   "graph, element granularity; slow — small graphs only)")
+    config_cls = ReferenceConfig
+    backends = (EVENT,)
+
+    def build_model(self, g, config):
+        return ReferenceModel(g, config)
+
+    def run_algorithm(self, g, problem: Problem, config, root: int = 0,
+                      fixed_iters: Optional[int] = None,
+                      device=None) -> RunResult:
+        return vertex_centric.run(g, problem, q=g.n, root=root,
+                                  fixed_iters=fixed_iters, device=device)
+
+    def algorithm_key(self, g, problem: Problem, config, root: int = 0,
+                      fixed_iters: Optional[int] = None):
+        return ("vertex", _graph_key(g), problem, g.n, False, root,
+                fixed_iters)
+
+    def simulate(self, g, problem: Problem, config=None,
+                 backend: Optional[str] = None, root: int = 0,
+                 fixed_iters: Optional[int] = None,
+                 run: Optional[RunResult] = None,
+                 model=None, device=None) -> SimReport:
+        # inherently event-driven: the model drives its own Engine, so no
+        # backend object is injected.
+        if backend is None:
+            backend = EVENT
+        if backend not in self.backends:
+            raise ValueError(
+                f"accelerator 'reference' supports backends "
+                f"{self.backends}, got {backend!r}")
+        cfg = config if config is not None else self.config_cls()
+        if cfg.dram_config().effective_cache is not None:
+            # explicit beats silent: the Engine replay has no filter
+            # hook, so accepting a cache would mislabel no-cache rows.
+            raise ValueError(
+                "the event-driven reference machine models its on-chip "
+                "behavior internally (everything fits BRAM); cache= is "
+                "not supported for accelerator 'reference'")
+        if model is None:
+            model = self.build_model(g, cfg)
+        return model.simulate(problem, root=root, fixed_iters=fixed_iters,
+                              run=run, device=device)

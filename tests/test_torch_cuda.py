@@ -695,3 +695,77 @@ def test_routes_and_launches_on_card(cuda, accelerator):
                                          "host_pack": 0}
     assert res.epochs == run_dynamic(g, "wcc", updates="pa-growth",
                                      device="cpu", **kw).epochs
+
+
+@pytest.mark.parametrize("memory", ["ddr3", "ddr4", "hbm2", "ddr4-2rank",
+                                    "ddr4-faw"])
+def test_simulate_trace_device_equals_oracle_on_card(cuda, memory):
+    """``simulate_trace_device`` on the card (one chunked ``dram_timing``
+    launch) equals the host's element replay ``simulate_trace``: the
+    finishes, the three kind counts and each channel's makespan."""
+    from repro_torch.core.timing import simulate_trace
+    from repro_torch.kernels import launch_counts, zero_launch_counts
+    cfg = {"ddr3": PRESETS["hitgraph"], "ddr4": PRESETS["accugraph"],
+           "hbm2": PRESETS["hbm2"],
+           "ddr4-2rank": lambda: ddr4_2400r(channels=2, ranks=2),
+           "ddr4-faw": PRESETS["accugraph"]}[memory]()
+    bulk = memory == "ddr4-faw"
+    rng = np.random.default_rng(len(memory) + 31)
+    n = 20_000
+    lines = rng.integers(0, 1 << 24 if bulk else 1 << 18, n)
+    issue = (np.zeros(n, dtype=np.int64) if bulk
+             else np.sort(rng.integers(0, 4 * n, n)))
+    zero_launch_counts()
+    got = vec.simulate_trace_device(Trace(lines, np.zeros(n, bool), issue),
+                                    cfg, keep_finish=True)
+    assert launch_counts()["dram_timing"] == 1
+    want = simulate_trace(lines, issue, cfg, keep_finish=True)
+    assert np.array_equal(got.finish, want.finish)
+    assert (got.row_hits, got.row_empty, got.row_conflicts, got.cycles,
+            got.per_channel_cycles) == (want.row_hits, want.row_empty,
+                                        want.row_conflicts, want.cycles,
+                                        want.per_channel_cycles)
+
+
+@pytest.mark.parametrize("accelerator", ["hitgraph", "accugraph"])
+@pytest.mark.parametrize("cache", [None, "vertex-1m"])
+def test_event_backend_on_card_equals_vectorized(cuda, accelerator, cache):
+    """``backend="event"`` with its cache state on the card (the lookup
+    kernel) equals the vectorized run on the card and the CPU's event run;
+    it launches no serve."""
+    from repro_torch.kernels import launch_counts, zero_launch_counts
+    g = rmat(8, 5, seed=102).undirected_view()
+    kw = dict(accelerator=accelerator, partition_elements=64, cache=cache)
+    zero_launch_counts()
+    ev = simulate(g, "wcc", backend="event", **kw)
+    launches = launch_counts()
+    assert launches["dram_serve"] == launches["serve_prepass"] == 0
+    assert (launches["cache_lookup"] > 0) == (cache is not None)
+    assert ev == simulate(g, "wcc", **kw)
+    assert ev == simulate(g, "wcc", backend="event", device="cpu", **kw)
+    res = run_dynamic(g, "wcc", updates="pa-growth", backend="event", **kw)
+    assert res.epochs == run_dynamic(g, "wcc", updates="pa-growth",
+                                     device="cpu", **kw).epochs
+
+
+@pytest.mark.parametrize("problem", ["wcc", "bfs"])
+def test_reference_on_card_equals_cpu(cuda, problem):
+    """The reference machine's algorithm runs on the card (the round
+    sweep, never the serial one) and its report equals the CPU run."""
+    from repro_torch.kernels import launch_counts, zero_launch_counts
+    g = rmat(8, 5, seed=102).undirected_view()
+    zero_launch_counts()
+    r = simulate(g, problem, accelerator="reference")
+    launches = launch_counts()
+    assert launches["sweep_min_rounds"] > 0 and launches["sweep_min"] == 0
+    assert r == simulate(g, problem, accelerator="reference", device="cpu")
+
+
+def test_run_study_on_card_equals_cpu(cuda):
+    from repro_torch.core import accugraph, optimizations
+    g = rmat(8, 5, seed=102).undirected_view()
+    base = accugraph.AccuGraphConfig(partition_elements=64)
+    a = optimizations.run_study(g, Problem.WCC, base)
+    b = optimizations.run_study(g, Problem.WCC, base, device="cpu")
+    assert [(r.variant, r.report, r.speedup) for r in a] == \
+        [(r.variant, r.report, r.speedup) for r in b]

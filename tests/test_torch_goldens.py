@@ -1,5 +1,6 @@
 """The port's ``simulate`` against the golden SimReport digests of the JAX
-package (``tests/goldens/simreports.json``) and against
+package (``tests/goldens/simreports.json``, all 36 keys: HitGraph,
+AccuGraph and the event-driven reference machine) and against
 ``repro.sim.simulate`` phase by phase, on the CPU."""
 
 import dataclasses
@@ -25,10 +26,14 @@ from repro_torch.sim import get_accelerator, simulate
 
 GOLDEN_PATH = Path(__file__).parent / "goldens" / "simreports.json"
 
-#: the hitgraph/accugraph axes of tests/test_goldens.py
+#: the axes of tests/test_goldens.py: the reference machine runs on its
+#: paper default memory and config only
 MEMORIES = {"hitgraph": ["ddr3", "hbm2"],
-            "accugraph": ["ddr4", "ddr4-8gb", "hbm2"]}
-OVERRIDES = {"partition_elements": 64}
+            "accugraph": ["ddr4", "ddr4-8gb", "hbm2"],
+            "reference": [None]}
+OVERRIDES = {"hitgraph": {"partition_elements": 64},
+             "accugraph": {"partition_elements": 64},
+             "reference": {}}
 PROBLEMS = ("wcc", "bfs")
 
 
@@ -69,11 +74,11 @@ def test_goldens_reproduced_on_cpu():
         for accel, mems in MEMORIES.items():
             for mem in mems:
                 for prob in PROBLEMS:
-                    key = f"{gname}/{accel}/{mem}/{prob}"
+                    key = f"{gname}/{accel}/{mem or 'default'}/{prob}"
                     got[key] = _digest(simulate(
                         g, prob, accelerator=accel, memory=mem,
-                        device="cpu", **OVERRIDES))
-    assert len(got) == 30
+                        device="cpu", **OVERRIDES[accel]))
+    assert len(got) == len(golden) == 36
     mismatched = {k: (golden[k], got[k]) for k in sorted(got)
                   if golden[k] != got[k]}
     assert not mismatched, mismatched
@@ -81,12 +86,14 @@ def test_goldens_reproduced_on_cpu():
 
 @pytest.mark.parametrize("accel,mem,prob", [("hitgraph", "ddr3", "wcc"),
                                             ("accugraph", "ddr4", "bfs"),
-                                            ("accugraph", "hbm2", "wcc")])
+                                            ("accugraph", "hbm2", "wcc"),
+                                            ("reference", None, "bfs")])
 def test_phases_equal_jax_package(accel, mem, prob):
     r = simulate(rmat(7, 4, seed=101).undirected_view(), prob,
-                 accelerator=accel, memory=mem, device="cpu", **OVERRIDES)
+                 accelerator=accel, memory=mem, device="cpu",
+                 **OVERRIDES[accel])
     want = r_simulate(r_rmat(7, 4, seed=101).undirected_view(), prob,
-                      accelerator=accel, memory=mem, **OVERRIDES)
+                      accelerator=accel, memory=mem, **OVERRIDES[accel])
     assert ([dataclasses.astuple(p) for p in r.phases]
             == [dataclasses.astuple(p) for p in want.phases])
     assert r.runtime_ns == want.runtime_ns

@@ -42,6 +42,15 @@ _CACHE_MODULES = {"repro_torch.core.cache",
                   "repro_torch.kernels.cache_lookup.ops",
                   "repro_torch.kernels.cache_lookup.ref"}
 
+#: the modules of the event-driven slice (the element-granular timing
+#: oracle, the abstraction graph, the reference machine) and of the
+#: analytic and study modules
+_EVENT_MODULES = {"repro_torch.core.timing", "repro_torch.core.abstractions",
+                  "repro_torch.sim.reference_model",
+                  "repro_torch.core.analytical",
+                  "repro_torch.core.optimizations",
+                  "repro_torch.algorithms.reference"}
+
 #: an import statement naming jax or the JAX package (not repro_torch)
 _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
                      re.M)
@@ -58,7 +67,7 @@ def test_import_leaves_jax_and_repro_out():
     assert int(n) >= 24
     assert bad == "[]", bad
     assert (_DYNAMIC_MODULES | _STATIONARY_MODULES | _CACHE_MODULES
-            <= set(names.split())), names
+            | _EVENT_MODULES <= set(names.split())), names
 
 
 def test_no_jax_or_repro_import_in_sources():
@@ -89,6 +98,23 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         run_dynamic(g, "wcc", updates="pa-growth")
     with pytest.raises(RuntimeError, match="CUDA"):
         simulate(g, "bfs", updates="uniform-churn")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        simulate(g, "wcc", backend="event")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        simulate(g, "wcc", accelerator="reference")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_dynamic(g, "wcc", updates="pa-growth", backend="event")
+    from repro_torch.core import optimizations
+    from repro_torch.core.trace import Trace
+    from repro_torch.core.vectorized import simulate_trace_device
+    from repro_torch.sim.backends import EventDRAM
+    with pytest.raises(RuntimeError, match="CUDA"):
+        EventDRAM(ddr4_2400r())
+    with pytest.raises(RuntimeError, match="CUDA"):
+        optimizations.run_study(g, "wcc")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        simulate_trace_device(Trace([1, 2], [False, False], [0, 0]),
+                              ddr4_2400r())
 
 
 def test_later_slices_raise_not_implemented():
@@ -96,10 +122,12 @@ def test_later_slices_raise_not_implemented():
     from repro_torch.sim import run_dynamic, simulate
 
     g = rmat(5, 2, seed=0).undirected_view()
+    # the event backend and the reference machine are ported: they run
     for kw in ({"backend": "event"},
-               {"backend": "event", "updates": "pa-growth"}):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            simulate(g, "wcc", device="cpu", **kw)
+               {"backend": "event", "updates": "pa-growth"},
+               {"accelerator": "reference"}):
+        r = simulate(g, "wcc", device="cpu", **kw)
+        assert r.total_requests > 0 and r.runtime_ns > 0
     # the on-chip cache is ported: cache= runs on every entry point
     for kw in ({"cache": "vertex-1m"},
                {"cache": "vertex-1m", "updates": "pa-growth"}):
