@@ -25,7 +25,12 @@ Phases, one JSON line each:
               k; the sliced-ELL pull at three heavy thresholds) on seeded
               cases with out-of-range ids, to the stated tolerances;
               ``cache_lookup`` on seeded set-sorted streams (1, 16 and 64
-              ways, a hot set, tags past 2**31), bit for bit.
+              ways, a hot set, tags past 2**31), bit for bit;
+              ``dram_serve_batch`` and its pre-pass's records on seeded
+              programs, one shared by every case and M stacked ones whose
+              phase boundaries fall on different steps (M = 1, 3, 5; C =
+              1, 4; K = 1, 8; each case its own timing vector), and a
+              shared program of M = 133 cases, bit for bit.
 4. goldens  — the 24 rmat7/rmat8 keys of ``tests/goldens/simreports.json``
               (HitGraph, AccuGraph and the reference machine) through
               ``simulate`` on the card; then the sweep's worst case, an ascending path of
@@ -112,7 +117,36 @@ Phases, one JSON line each:
               estimate beside the simulated main-path runtime; a ``study``
               line, ``run_study``'s five AccuGraph variants
               (``STUDY_SCALE``), each variant's values equal to the
-              baseline's.  Then the script's wall time.
+              baseline's.
+10. sweep   — the sweep engine at full size: ``Sweeper(batch_memories=
+              True)`` over WCC on the wiki-talk stand-in, each
+              accelerator's default memory and three timing variants of
+              it (``SWEEP_KINDS``; 4 cases sharing one pack), launch
+              counts zeroed just before and read just after: one
+              ``dram_serve_batch`` and one batched pre-pass an
+              accelerator, no per-case serve, no host pack; the
+              ``SweepStats`` pinned (``SWEEP_STATS``); every row equal to
+              ``run_case`` on the same sweeper (``sweep_row`` lines) and
+              the default rows to the main path's pinned runtimes; the
+              batched serve timed (pre-pass apart; a full serve by one
+              call between CUDA events, which also gives the output
+              checked) beside the four per-case serves and the bound of
+              its own bytes (the shared program read once), every case's
+              finishes and carry equal to the per-case kernel's (case
+              0's to the pinned digest), and a 1,024-step window held to
+              the plain version (``sweep_serve`` lines); the stacked
+              route at full size, HitGraph under DDR3-1600K and
+              DDR3-1333H (the same structure at a slower clock: two
+              programs of one shape) in one ``dram_serve_batch`` launch,
+              rows equal to ``run_case``, each case to the per-case
+              kernel, timed beside the bound (a ``sweep_serve`` line);
+              then the stacked path on a small graph (AccuGraph on
+              rmat(8, 5) under two DRAM densities) equal to the CPU
+              sweep, ``Sweeper(workers=2)`` over HitGraph's four cases
+              equal to the batched rows, and one ``updates="pa-growth"``
+              AccuGraph case on ``instantiate("wt", 0.1)`` equal to
+              ``run_dynamic`` epoch
+              for epoch (``sweep_paths``).  Then the script's wall time.
 
 Then the kernel table, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -168,7 +202,8 @@ DYNAMIC_PINNED = {
     "accugraph": [(5, 4_958_483), (4, 4_565_454), (5, 5_582_023),
                   (4, 4_695_464)],
 }
-KERNELS = ("dram_serve", "serve_prepass", "dram_timing", "dram_timing_serial",
+KERNELS = ("dram_serve", "serve_prepass", "dram_serve_batch",
+           "serve_prepass_batch", "dram_timing", "dram_timing_serial",
            "sweep_min_rounds", "sweep_min", "segment_reduce", "edge_scatter",
            "spmv_ell", "cache_lookup")
 
@@ -242,6 +277,19 @@ STUDY_BUDGET_S = 60.0
 #: the event replay may take this long a run before the event_main line
 #: would need a cut graph
 EVENT_MAIN_LIMIT_S = 150.0
+
+#: phase 10, the sweep: the timing variants of each accelerator's default
+#: memory beside it (4 cases sharing one pack), the SweepStats of the
+#: batched run over both accelerators (2 algorithm runs and 2 packs, the
+#: other 6 cases hits; one batched serve an accelerator), the window of
+#: the HitGraph program the batched kernel is held to its plain version
+#: on, and the scale of the dynamic case's graph
+SWEEP_KINDS = ("ddr3", "hbm2", "ddr4-3200")
+SWEEP_STATS = {"cases": 8, "algo_runs": 2, "algo_cache_hits": 6,
+               "pack_cache_misses": 2, "pack_cache_hits": 6,
+               "batched_cases": 8, "batch_dispatches": 2}
+SWEEP_WINDOW = 1024
+SWEEP_DYNAMIC_SCALE = 0.1
 
 #: the stationary path: problems, iterations, and the largest relative
 #: error of the values against a float64 recompute.  HitGraph's gather
@@ -338,6 +386,21 @@ def event_ms(fn, reps: int) -> float:
     return total / reps
 
 
+def timed_call(fn):
+    """``fn()`` once between two CUDA events: ``(its result, ms)``.  For
+    calls of hundreds of milliseconds whose output is also checked, so
+    one run both times and gives the output (no warm-up: the kernels are
+    built and launched in earlier phases)."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def host_ms(fn) -> float:
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -346,19 +409,26 @@ def host_ms(fn) -> float:
     return (time.perf_counter() - t0) * 1e3
 
 
-def serve_bytes(S, C, K, B, R) -> int:
-    """Bytes the serve must move: issue, meta and finish once each
-    (12 B a lane-step), the boundary flags, timing, and the carry in and
-    out."""
+def serve_bytes(S, C, K, B, R, M=1, shared=True) -> int:
+    """Bytes the serve of ``M`` cases must move: the program (issue and
+    meta, 8 B a lane-step, and the boundary flags) once when every case
+    shares it, else once a case; and for each case its timing vector, its
+    finishes (4 B a lane-step) and its carry in and out."""
     carry = 2 * C * B + 2 * C + 5 * C * R
-    return S * C * K * 12 + S * 4 + 7 * 4 + 2 * carry * 4
+    programs = 1 if shared else M
+    return (programs * (S * C * K * 8 + S * 4)
+            + M * (7 * 4 + S * C * K * 4 + 2 * carry * 4))
 
 
-def prepass_bytes(S, C, K, T) -> int:
-    """Bytes the serve's pre-pass must move: issue and meta in (8 B a
-    lane-step), the boundary flags, and the records out (8 B a lane-step
-    over the steps rounded up to whole chunks of ``T``)."""
-    return S * C * K * 8 + S * 4 + -(-S // T) * T * C * K * 8
+def prepass_bytes(S, C, K, T, M=1, shared=True) -> int:
+    """Bytes the serve's pre-pass for ``M`` cases must move: the program
+    (issue and meta in, 8 B a lane-step, and the boundary flags) once when
+    every case shares it, else once a case; and for each case its timing
+    vector and its records out (8 B a lane-step over the steps rounded up
+    to whole chunks of ``T``)."""
+    programs = 1 if shared else M
+    return (programs * (S * C * K * 8 + S * 4)
+            + M * (7 * 4 + -(-S // T) * T * C * K * 8))
 
 
 def serve_digest(fin, state) -> str:
@@ -1001,6 +1071,82 @@ def compare_dram_timing(phases, dev) -> dict:
                        / HBM_BYTES_PER_S * 1e3}}
         emit(phase="dram_timing", accelerator=acc, **out[acc])
     return out
+
+
+def batch_timings(M: int, rng) -> np.ndarray:
+    """M seeded timing vectors (tBL small, as devices have it)."""
+    t = rng.integers(1, 40, size=(M, 7)).astype(np.int32)
+    t[:, 4] = rng.integers(1, 5, size=M)
+    return t
+
+
+def check_serve_batch(dev) -> dict:
+    """``dram_serve_batch`` (and its pre-pass's records) against its plain
+    version on the card, bit for bit: one program shared by every case
+    and M stacked programs whose phase boundaries fall on different
+    steps, M in {1, 3, 5}, C in {1, 4} (AccuGraph's DDR4, HitGraph's
+    DDR3), K in {1, 8} (miss-heavy and hit-heavy programs), each case
+    against its own seeded timing vector; and one shared case of M = 133,
+    more CTAs than the card has SMs."""
+    from repro_torch.core import vectorized as vec
+    from repro_torch.core.accel import pack_program
+    from repro_torch.core.dram import PRESETS
+    from repro_torch.kernels.dram_timing.ops import (chunk_steps,
+                                                     dram_serve_batch,
+                                                     serve_prepass_batch)
+    from repro_torch.kernels.dram_timing.ref import (dram_serve_batch_ref,
+                                                     serve_prepass_batch_ref)
+    worst, runs, seed = 0, [], 0
+
+    def hold(streams, timing, packed, label):
+        nonlocal worst
+        M, C = timing.shape[0], streams[0].shape[-2]
+        state = vec._cold_batch_state(M, C, packed.n_banks,
+                                      packed.banks_per_rank, dev)
+        fin_k, st_k = dram_serve_batch(*streams, timing, state)
+        fin_p, st_p = dram_serve_batch_ref(*streams, timing, state)
+        S, _, K = streams[0].shape[-3:]
+        R = state[3].shape[2]
+        T = chunk_steps(C, K)
+        bpr = packed.banks_per_rank
+        rec = serve_prepass_batch(*streams, timing, bpr, R, T)
+        rec_p = serve_prepass_batch_ref(*streams, timing, bpr, R,
+                                        rec.shape[2])
+        torch.cuda.synchronize()
+        diff = max([max_abs_diff(fin_k, fin_p), max_abs_diff(rec, rec_p)]
+                   + [max_abs_diff(a, b) for a, b in zip(st_k, st_p)])
+        worst = max(worst, diff)
+        runs.append({"case": label, "M": M, "shape": [S, C, K],
+                     "max_abs_diff": diff})
+
+    for preset in ("accugraph", "hitgraph"):
+        cfg = PRESETS[preset]()
+        for hit_heavy in (False, True):
+            for M in (1, 3, 5):
+                rng = np.random.default_rng(seed)
+                seed += 1
+                packs = [pack_program(random_program(rng, hit_heavy, 3, 100),
+                                      cfg) for _ in range(M)]
+                shapes = {p.issue.shape for p in packs}
+                assert len(shapes) == 1, shapes
+                timing = i32(batch_timings(M, rng), dev)
+                hold([i32(getattr(packs[0], f), dev)
+                      for f in ("issue", "meta", "boundary")], timing,
+                     packs[0], f"{preset}/shared")
+                bnds = {tuple(np.flatnonzero(p.boundary)) for p in packs}
+                assert len(bnds) == M, "stacked boundaries must differ"
+                hold([i32(np.stack([getattr(p, f) for p in packs]), dev)
+                      for f in ("issue", "meta", "boundary")], timing,
+                     packs[0], f"{preset}/stacked")
+    rng = np.random.default_rng(seed)
+    packed = pack_program(random_program(rng, True, 2, 20),
+                          PRESETS["hitgraph"]())
+    hold([i32(getattr(packed, f), dev) for f in ("issue", "meta",
+                                                  "boundary")],
+         i32(batch_timings(133, rng), dev), packed, "hitgraph/shared")
+    assert worst == 0, "dram_serve_batch differs from its plain version"
+    return {"dram_serve_batch_cases": runs,
+            "dram_serve_batch_max_abs_diff": worst}
 
 
 def check_cache_lookup(dev) -> dict:
@@ -1761,6 +1907,329 @@ def any_meta_serve(dev) -> int:
     return worst
 
 
+def run_sweep_phase(wt, card, dev) -> dict:
+    """Phase 10, the sweep engine.  The full-size timing grid (WCC on the
+    wiki-talk stand-in, each accelerator's default memory and
+    ``SWEEP_KINDS`` timing variants of it: 4 cases an accelerator sharing
+    one pack) through ``Sweeper(batch_memories=True)``, counts zeroed
+    just before and read just after: one ``dram_serve_batch`` (and its
+    pre-pass) an accelerator, no per-case serve; every row held field for
+    field to ``run_case`` on the same sweeper (one ``dram_serve`` a case),
+    the default rows to the pinned main-path runtimes; the batched serve
+    timed (pre-pass apart) beside the four per-case serves and the bound,
+    and each case's finishes and carry held to the per-case kernel's
+    (case 0 also to the pinned digest).  Then the stacked route at full
+    size (:func:`run_stacked_pair`), the stacked path on a small graph
+    (AccuGraph on rmat(8, 5) under two DRAM densities) equal to the CPU
+    sweep,
+    ``Sweeper(workers=2)`` over HitGraph's four full-size cases equal to
+    the batched rows, and one ``updates="pa-growth"`` case equal to
+    ``run_dynamic`` epoch for epoch.  Returns the launches by sub-path and
+    the kernel-table entries."""
+    from repro_torch.algorithms.common import Problem
+    from repro_torch.core import accel
+    from repro_torch.core import vectorized as vec
+    from repro_torch.graphs.datasets import instantiate
+    from repro_torch.graphs.generators import rmat
+    from repro_torch.kernels import launch_counts, zero_launch_counts
+    from repro_torch.kernels.dram_timing.ops import (chunk_steps, dram_serve,
+                                                     dram_serve_batch,
+                                                     serve_prepass_batch,
+                                                     serve_records_batch)
+    from repro_torch.kernels.dram_timing.ref import (dram_serve_batch_ref,
+                                                     serve_prepass_batch_ref)
+    from repro_torch.sim import (SweepCase, Sweeper, get_accelerator,
+                                 run_dynamic, sweep, timing_variants)
+    from repro_torch.sim.session import resolve_run_config
+    t_phase = time.perf_counter()
+    accs = ("hitgraph", "accugraph")
+    mems, cases = {}, []
+    for acc in accs:
+        default = resolve_run_config(get_accelerator(acc)).dram_config()
+        mems[acc] = [None] + timing_variants(default, kinds=SWEEP_KINDS)
+        cases += [SweepCase(wt, "wcc", accelerator=acc, memory=m)
+                  for m in mems[acc]]
+    sweeper = Sweeper(batch_memories=True)
+    zero_launch_counts()
+    accel.zero_pack_route_counts()
+    t0 = time.perf_counter()
+    rows = sweeper.run(cases)
+    seconds = time.perf_counter() - t0
+    launches = {"sweep": launch_counts()}
+    routes = accel.pack_route_counts()
+    stats = dataclasses.asdict(sweeper.stats)
+    emit(phase="sweep", grid="timing", cases=len(cases),
+         memories={acc: [r.memory for r in rows if r.report.system == acc]
+                   for acc in accs},
+         stats=stats, pack_routes=routes,
+         launches={k: launches["sweep"][k] for k in KERNELS},
+         seconds=seconds, card=card)
+    assert {k: stats[k] for k in SWEEP_STATS} == SWEEP_STATS, stats
+    assert routes == {"device_pack": 2, "host_pack": 0}, routes
+    want = {"dram_serve_batch": 2, "serve_prepass_batch": 2,
+            "dram_serve": 0, "serve_prepass": 0}
+    assert {k: launches["sweep"][k] for k in want} == want, launches
+    # every row against the per-case path on the same sessions
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    solo = [sweeper.run_case(c) for c in cases]
+    solo_s = time.perf_counter() - t0
+    launches["sweep_run_case"] = launch_counts()
+    differ = [i for i, (a, b) in enumerate(zip(rows, solo))
+              if a.report != b.report or row_fields(a) != row_fields(b)]
+    assert not differ, differ
+    assert launches["sweep_run_case"]["dram_serve"] == len(cases)
+    for r in rows:
+        if r.case.memory is None:
+            assert r.report.runtime_ns == PINNED_RUNTIME_NS[
+                "main", r.report.system], (r.report.system,
+                                           r.report.runtime_ns)
+    for r in rows:
+        emit(phase="sweep_row", **{k: v for k, v in r.as_dict().items()
+                                   if k != "wall_s"},
+             runtime_ns=r.report.runtime_ns, equal_run_case=True)
+    # the batched serve timed on the cached packs, against the per-case
+    # serves and the bound; each case's output against the per-case kernel
+    sess = sweeper._session(wt)
+    serve, window = {}, None
+    for acc in accs:
+        spec = get_accelerator(acc)
+        cfg = resolve_run_config(spec)
+        packed, _ = sess.packed_program_for(
+            spec, Problem.WCC, cfg, sess.model_for(spec, cfg),
+            sess.algorithm_run(spec, Problem.WCC, cfg, 0, None, dev),
+            cfg.dram_config(), device=dev)
+        S, C, K = packed.issue.shape
+        B, bpr = packed.n_banks, packed.banks_per_rank
+        R = B // bpr
+        timing = i32(np.stack([vec.timing_params(
+            (m or cfg.dram_config()).timing) for m in mems[acc]]), dev)
+        M = timing.shape[0]
+        streams = [packed.issue, packed.meta,
+                   packed.boundary.to(torch.int32)]
+        state = vec._cold_batch_state(M, C, B, bpr, dev)
+        (fin, st), batch_ms = timed_call(
+            lambda: dram_serve_batch(*streams, timing, state))
+        T = chunk_steps(C, K)
+        rec = serve_prepass_batch(*streams, timing, bpr, R, T)
+        prepass_ms = cuda_ms(
+            lambda: serve_prepass_batch(*streams, timing, bpr, R, T), reps=3)
+        _, records_ms = timed_call(
+            lambda: serve_records_batch(rec, timing, state, S))
+        del rec
+        cold = cold_state(packed, C, dev)
+        per_case_ms, same = [], []
+        for m in range(M):
+            (f1, s1), ms = timed_call(
+                lambda: dram_serve(*streams, timing[m], cold))
+            per_case_ms.append(ms)
+            same.append(serve_digest(fin[m], [x[m] for x in st])
+                        == serve_digest(f1, s1))
+            del f1
+        digest0 = serve_digest(fin[0], [x[0] for x in st])
+        assert all(same), (acc, same)
+        assert digest0 == PINNED_SERVE_DIGEST[acc], (acc, digest0)
+        serve[acc] = {
+            "M": M, "programs": "shared", "shape": [S, C, K],
+            "ms": batch_ms, "prepass_ms": prepass_ms,
+            "records_ms": records_ms, "per_case_ms": per_case_ms,
+            "per_case_sum_ms": sum(per_case_ms),
+            "bound_ms": serve_bytes(S, C, K, B, R, M)
+            / HBM_BYTES_PER_S * 1e3,
+            "per_case_bound_sum_ms": M * serve_bytes(S, C, K, B, R)
+            / HBM_BYTES_PER_S * 1e3,
+            "prepass_bound_ms": prepass_bytes(S, C, K, T, M)
+            / HBM_BYTES_PER_S * 1e3,
+            "cases_equal_per_case_kernel": all(same),
+            "case0_digest_pinned": True}
+        emit(phase="sweep_serve", accelerator=acc, **serve[acc], card=card)
+        if acc == "hitgraph":
+            # a window crossing the first phase boundary, all M cases from
+            # cold carries, kernel against the plain version on the card
+            lo = max(0, int(np.flatnonzero(
+                packed.boundary.cpu().numpy())[0]) - SWEEP_WINDOW // 2)
+            win = [x[lo:lo + SWEEP_WINDOW].contiguous() for x in streams]
+            fin_k, st_k = dram_serve_batch(*win, timing, state)
+            t0 = time.perf_counter()
+            fin_p, st_p = dram_serve_batch_ref(*win, timing, state)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3
+            diff = max([max_abs_diff(fin_k, fin_p)]
+                       + [max_abs_diff(a, b) for a, b in zip(st_k, st_p)])
+            assert diff == 0, "dram_serve_batch differs on the window"
+            wrec = serve_prepass_batch(*win, timing, bpr, R, T)
+            wrec_p = serve_prepass_batch_ref(*win, timing, bpr, R,
+                                             wrec.shape[2])
+            diff = max(diff, max_abs_diff(wrec, wrec_p))
+            assert diff == 0, "serve_prepass_batch differs on the window"
+            window = {
+                "steps": SWEEP_WINDOW, "M": M, "shape": [SWEEP_WINDOW, C, K],
+                "max_abs_err": diff,
+                "ms": cuda_ms(lambda: dram_serve_batch(*win, timing, state),
+                              reps=5),
+                "plain_ms": plain_ms,
+                "bound_ms": serve_bytes(SWEEP_WINDOW, C, K, B, R, M)
+                / HBM_BYTES_PER_S * 1e3,
+                "prepass_ms": cuda_ms(lambda: serve_prepass_batch(
+                    *win, timing, bpr, R, T), reps=5),
+                "prepass_plain_ms": cuda_ms(lambda: serve_prepass_batch_ref(
+                    *win, timing, bpr, R, wrec.shape[2]), reps=3),
+                "prepass_bound_ms": prepass_bytes(SWEEP_WINDOW, C, K, T, M)
+                / HBM_BYTES_PER_S * 1e3}
+            del wrec, wrec_p, win
+        del fin, st, streams
+    serve["hitgraph_stacked"] = run_stacked_pair(sweeper, wt, launches, dev,
+                                                 card)
+    # the stacked path on a small graph: two densities pack apart (same
+    # shape), rows equal to the CPU sweep
+    small = rmat(8, 5, seed=7).undirected_view()
+    kw = dict(graphs=[small], problems=["wcc"], accelerators=["accugraph"],
+              memories=[None, "ddr4-8gb"], batch_memories=True)
+    zero_launch_counts()
+    stacked = sweep(**kw)
+    launches["sweep_stacked"] = launch_counts()
+    on_cpu = sweep(device="cpu", **kw)
+    assert [r.report for r in stacked] == [r.report for r in on_cpu]
+    assert launches["sweep_stacked"]["dram_serve_batch"] == 1
+    # workers=2 over HitGraph's four full-size cases (the per-case path)
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    w2 = Sweeper(workers=2).run(cases[:len(mems["hitgraph"])])
+    w2_s = time.perf_counter() - t0
+    launches["sweep_workers2"] = launch_counts()
+    assert [r.report for r in w2] == [r.report for r in rows[:len(w2)]]
+    assert launches["sweep_workers2"]["dram_serve"] == len(w2)
+    # one dynamic case against run_dynamic
+    g01 = instantiate("wt", SWEEP_DYNAMIC_SCALE).undirected_view()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    dyn_row = sweep(cases=[SweepCase(g01, "wcc", accelerator="accugraph",
+                                     updates="pa-growth")])[0]
+    dyn_s = time.perf_counter() - t0
+    launches["sweep_dynamic"] = launch_counts()
+    ref = run_dynamic(g01, "wcc", updates="pa-growth",
+                      accelerator="accugraph")
+    assert dyn_row.epochs == ref.epochs and dyn_row.report == ref.report
+    phase_s = time.perf_counter() - t_phase
+    emit(phase="sweep_paths", stacked_rows=len(stacked),
+         stacked_equal_cpu=True,
+         stacked_launches=launches["sweep_stacked"]["dram_serve_batch"],
+         workers2_rows=len(w2), workers2_equal_batched=True,
+         workers2_seconds=w2_s,
+         workers2_launches=launches["sweep_workers2"]["dram_serve"],
+         dynamic_scale=SWEEP_DYNAMIC_SCALE, dynamic_vertices=g01.n,
+         dynamic_edges=g01.m, dynamic_epochs=len(dyn_row.epochs),
+         dynamic_equal_run_dynamic=True, dynamic_seconds=dyn_s,
+         run_case_seconds=solo_s, phase_seconds=phase_s, card=card)
+    return {"launches": launches, "serve": serve, "window": window,
+            "seconds": phase_s}
+
+
+def run_stacked_pair(sweeper, wt, launches, dev, card) -> dict:
+    """The stacked route of the batched serve at full size: HitGraph WCC
+    on the wiki-talk stand-in under its default memory (DDR3-1600K) and
+    DDR3-1333H (the same structure at 2/3 GHz with ``TIMING_PRESETS
+    ["ddr3-1333"]``), which pack apart (the pack key holds the clock) into
+    programs of one shape with different issue cycles.  One
+    ``sweeper.run`` serves both in one ``dram_serve_batch`` launch on the
+    stacked programs; each row is held field for field to ``run_case``,
+    each case's finishes and carry to the per-case kernel's (case 0's to
+    the pinned digest); the batched serve is timed beside the two
+    per-case serves and the bound of its own bytes (each program read
+    once)."""
+    from repro_torch.algorithms.common import Problem
+    from repro_torch.core import vectorized as vec
+    from repro_torch.kernels import launch_counts, zero_launch_counts
+    from repro_torch.kernels.dram_timing.ops import (chunk_steps, dram_serve,
+                                                     dram_serve_batch,
+                                                     serve_prepass_batch)
+    from repro_torch.sim import SweepCase, get_accelerator
+    from repro_torch.sim.memory import TIMING_PRESETS
+    from repro_torch.sim.session import resolve_run_config
+    spec = get_accelerator("hitgraph")
+    default = resolve_run_config(spec).dram_config()
+    slower = dataclasses.replace(default, clock_ghz=2 / 3,
+                                 timing=TIMING_PRESETS["ddr3-1333"],
+                                 name=f"{default.name}@ddr3-1333")
+    pair = [SweepCase(wt, "wcc", accelerator="hitgraph", memory=m)
+            for m in (None, slower)]
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    rows = sweeper.run(pair)
+    seconds = time.perf_counter() - t0
+    launches["sweep_stacked_full"] = launch_counts()
+    want = {"dram_serve_batch": 1, "serve_prepass_batch": 1,
+            "dram_serve": 0, "serve_prepass": 0}
+    assert {k: launches["sweep_stacked_full"][k] for k in want} == want, (
+        launches["sweep_stacked_full"])
+    solo = [sweeper.run_case(c) for c in pair]
+    differ = [i for i, (a, b) in enumerate(zip(rows, solo))
+              if a.report != b.report or row_fields(a) != row_fields(b)]
+    assert not differ, differ
+    assert rows[0].report.runtime_ns == PINNED_RUNTIME_NS["main", "hitgraph"]
+    sess = sweeper._session(wt)
+    packs = []
+    for m in (default, slower):
+        cfg = resolve_run_config(spec, memory=m)
+        packed, _ = sess.packed_program_for(
+            spec, Problem.WCC, cfg, sess.model_for(spec, cfg),
+            sess.algorithm_run(spec, Problem.WCC, cfg, 0, None, dev),
+            cfg.dram_config(), device=dev)
+        packs.append(packed)
+    assert packs[0] is not packs[1]
+    assert packs[0].signature == packs[1].signature, (
+        packs[0].signature, packs[1].signature)
+    assert not torch.equal(packs[0].issue, packs[1].issue)
+    S, C, K = packs[0].issue.shape
+    B, bpr = packs[0].n_banks, packs[0].banks_per_rank
+    R = B // bpr
+    M = len(packs)
+    streams = [torch.stack([vec.as_int32(getattr(p, f), dev) for p in packs])
+               for f in ("issue", "meta", "boundary")]
+    timing = i32(np.stack([vec.timing_params(m.timing)
+                           for m in (default, slower)]), dev)
+    state = vec._cold_batch_state(M, C, B, bpr, dev)
+    (fin, st), batch_ms = timed_call(
+        lambda: dram_serve_batch(*streams, timing, state))
+    T = chunk_steps(C, K)
+    prepass_ms = cuda_ms(
+        lambda: serve_prepass_batch(*streams, timing, bpr, R, T), reps=3)
+    cold = cold_state(packs[0], C, dev)
+    per_case_ms, same = [], []
+    for m in range(M):
+        one = [x[m] for x in streams]
+        (f1, s1), ms = timed_call(lambda: dram_serve(*one, timing[m], cold))
+        per_case_ms.append(ms)
+        same.append(serve_digest(fin[m], [x[m] for x in st])
+                    == serve_digest(f1, s1))
+        del f1, one
+    assert all(same), same
+    digest0 = serve_digest(fin[0], [x[0] for x in st])
+    assert digest0 == PINNED_SERVE_DIGEST["hitgraph"], digest0
+    out = {
+        "M": M, "programs": "stacked", "shape": [S, C, K],
+        "memories": [r.memory for r in rows],
+        "runtime_ns": [r.report.runtime_ns for r in rows],
+        "sweep_seconds": seconds, "ms": batch_ms, "prepass_ms": prepass_ms,
+        "per_case_ms": per_case_ms, "per_case_sum_ms": sum(per_case_ms),
+        "bound_ms": serve_bytes(S, C, K, B, R, M, shared=False)
+        / HBM_BYTES_PER_S * 1e3,
+        "prepass_bound_ms": prepass_bytes(S, C, K, T, M, shared=False)
+        / HBM_BYTES_PER_S * 1e3,
+        "rows_equal_run_case": True, "cases_equal_per_case_kernel": True,
+        "case0_digest_pinned": True}
+    emit(phase="sweep_serve", accelerator="hitgraph", **out, card=card)
+    del fin, st, streams
+    return out
+
+
+def row_fields(row) -> dict:
+    """A sweep row's ``as_dict`` without its wall time."""
+    d = row.as_dict()
+    d.pop("wall_s")
+    return d
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -1818,11 +2287,13 @@ def main() -> int:
     assert meta_worst == 0, (
         f"dram_serve differs from its plain version on any-meta blocks: "
         f"{meta_worst}")
+    batch = check_serve_batch(dev)
+    batch_err = batch["dram_serve_batch_max_abs_diff"]
     emit(phase="kernels", tolerance="exact", dram_serve_cases=cases,
          dram_serve_launches=dram_serve.launches - launches0,
          max_abs_diff=worst, any_meta_max_abs_diff=meta_worst,
          **check_sweep(dev), **check_dram_timing(dev),
-         **check_cache_lookup(dev))
+         **check_cache_lookup(dev), **batch)
     emit(phase="kernels", kernels=["segment_reduce", "edge_scatter",
                                    "spmv_ell"],
          tolerance={"min/max, edge_scatter": "exact",
@@ -2039,8 +2510,14 @@ def main() -> int:
     launches["reference"] = run_reference(card, dev)
     run_analytical(wt, reports, card)
     launches["study"] = run_study_line(card, dev)
+    event_s = time.perf_counter() - t_event
+
+    # ---- 10. the sweep engine ------------------------------------------
+    swept = run_sweep_phase(wt, card, dev)
+    launches.update(swept["launches"])
     emit(phase="wall", seconds=time.perf_counter() - t_start,
-         event_phase_seconds=time.perf_counter() - t_event, card=card)
+         event_phase_seconds=event_s, sweep_phase_seconds=swept["seconds"],
+         card=card)
 
     ds = kernels["dram_serve"]
     hw = ds["windows"]["hitgraph"]
@@ -2124,6 +2601,35 @@ def main() -> int:
          "inputs": "accugraph main-path block, first WCC sweep",
          "shape": sw["shape"]},
     ]
+    sw_win, sw_serve = swept["window"], swept["serve"]
+    table += [
+        {"name": "dram_serve_batch", "route": "cuda",
+         "source": "src/repro_torch/csrc/dram_serve.cu",
+         "replaces": "src/repro/core/vectorized.py:798",
+         "launches": launches["sweep"]["dram_serve_batch"],
+         "launches_by_path": by_path["dram_serve_batch"],
+         "max_abs_err": max(sw_win["max_abs_err"], batch_err),
+         "ms": sw_win["ms"], "plain_ms": sw_win["plain_ms"],
+         "bound_ms": sw_win["bound_ms"], "bound_by": "bytes",
+         "library_ms": None,
+         "inputs": f"hitgraph main-path window, {sw_win['M']} timing "
+                   "cases sharing the program",
+         "full_programs": sw_serve},
+        {"name": "serve_prepass_batch", "route": "cuda",
+         "source": "src/repro_torch/csrc/dram_serve.cu",
+         "replaces": "src/repro/core/vectorized.py:798",
+         "launches": launches["sweep"]["serve_prepass_batch"],
+         "launches_by_path": by_path["serve_prepass_batch"],
+         "max_abs_err": max(sw_win["max_abs_err"], batch_err),
+         "ms": sw_win["prepass_ms"], "plain_ms": sw_win["prepass_plain_ms"],
+         "bound_ms": sw_win["prepass_bound_ms"], "bound_by": "bytes",
+         "library_ms": None,
+         "inputs": f"hitgraph main-path window, {sw_win['M']} timing "
+                   "cases sharing the program",
+         "full_program_ms": {acc: v["prepass_ms"]
+                             for acc, v in sw_serve.items()},
+         "full_program_bound_ms": {acc: v["prepass_bound_ms"]
+                                   for acc, v in sw_serve.items()}}]
     first = lookup_calls[0]
     table.append({
         "name": "cache_lookup", "route": "cuda",

@@ -116,6 +116,12 @@ class PackedProgram:
     def n_phases(self) -> int:
         return len(self.names)
 
+    @property
+    def signature(self):
+        """Serve-shape signature: programs with equal signatures can be
+        served together in one batched serve (``fused_scan_batch``)."""
+        return (tuple(self.issue.shape), self.n_banks, self.banks_per_rank)
+
 
 def classify_rows(bank_global: np.ndarray, row: np.ndarray,
                   open_row: np.ndarray):
@@ -272,6 +278,10 @@ class DevicePackedProgram:
     @property
     def n_phases(self) -> int:
         return len(self.names)
+
+    @property
+    def signature(self):
+        return (tuple(self.issue.shape), self.n_banks, self.banks_per_rank)
 
 
 def device_pack_supported(program: SegmentedTrace,
@@ -693,3 +703,19 @@ class SimReport:
     def cache_hit_rate(self) -> float:
         """On-chip hit rate over the reads that probed the cache."""
         return self.cache_hits / max(self.cache_lookups, 1)
+
+    @property
+    def runtime_s(self) -> float:
+        return self.runtime_ns * 1e-9
+
+    @property
+    def runtime_ms(self) -> float:
+        return self.runtime_ns * 1e-6
+
+    @property
+    def reps(self) -> float:
+        """Read edges per second = m * iterations / runtime (the paper's
+        renamed REPS; the originals call it TEPS)."""
+        if self.runtime_ns <= 0:
+            return 0.0
+        return self.edges * self.iterations / (self.runtime_ns * 1e-9)

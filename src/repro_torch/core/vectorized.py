@@ -1,6 +1,6 @@
 """The DRAM-timing model's carry, stream formats and serves.
 
-Three entry points, as in the JAX package:
+The entry points, as in the JAX package:
 
 * :func:`simulate_packed` — one phase over per-channel ``[C, L]``
   streams, one request per channel per slot, carry in and out (the
@@ -11,7 +11,10 @@ Three entry points, as in the JAX package:
   by re-basing the carry at each segment boundary;
 * :func:`simulate_trace_device` — a whole trace from a cold carry, the
   drop-in counterpart of :func:`repro_torch.core.timing.simulate_trace`
-  (one :func:`simulate_packed` call).
+  (one :func:`simulate_packed` call);
+* :func:`fused_scan_batch` — M cases of one shape from cold carries (M
+  stacked programs, or one shared program against M timing vectors), the
+  sweep's batched serve.
 
 Each runs as one launch of a hand-written CUDA kernel on the card, or as
 its plain torch version on the CPU (see
@@ -458,10 +461,7 @@ def fused_scan(issue, meta, boundary, timing, carry, device,
     from repro_torch.kernels.dram_timing.ops import dram_serve
     device = torch.device(device)
     t0 = time.perf_counter()
-    streams = [a.to(device=device, dtype=torch.int32).contiguous()
-               if isinstance(a, torch.Tensor) else
-               torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32))
-               .to(device) for a in (issue, meta, boundary, timing)]
+    streams = [as_int32(a, device) for a in (issue, meta, boundary, timing)]
     _sync(device)
     t1 = time.perf_counter()
     C = issue.shape[1]
@@ -472,6 +472,44 @@ def fused_scan(issue, meta, boundary, timing, carry, device,
     if stage_seconds is not None:
         stage_seconds["h2d"] = stage_seconds.get("h2d", 0.0) + (t1 - t0)
         stage_seconds["serve"] = stage_seconds.get("serve", 0.0) + serve
+    return fin, state[:5]
+
+
+def _cold_batch_state(M: int, C: int, n_banks: int, banks_per_rank: int,
+                      device):
+    """The cold in-serve carry (the lean carry and a zero phase makespan)
+    for each of M cases, case axis first."""
+    single = init_lean_carry(C, n_banks, banks_per_rank, device) + (
+        torch.zeros((C,), dtype=torch.int32, device=device),)
+    return tuple(x.expand((M,) + x.shape).contiguous() for x in single)
+
+
+def as_int32(a, device) -> torch.Tensor:
+    """A host array or a tensor as a contiguous int32 tensor on
+    ``device`` (the tensor itself when it already is one)."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=torch.int32).contiguous()
+    return torch.from_numpy(np.ascontiguousarray(a, dtype=np.int32)).to(
+        device)
+
+
+def fused_scan_batch(issue, meta, boundary, timing, n_banks: int,
+                     banks_per_rank: int, device):
+    """Serve M cases of one shape, case m against ``timing[m]`` (``[M,
+    7]``), each from a cold lean carry, on ``device``: M stacked programs
+    (``issue``/``meta`` ``[M, S, C, K]``, ``boundary[M, S]``), or ONE
+    program (``[S, C, K]``, ``boundary[S]``) that every case reads and
+    that is never copied M times (the cache-hit path of a geometry-shared
+    memory grid).  One ``dram_serve_batch`` call (two launches on the
+    card, the plain version on the CPU), the whole program at once.
+    Returns ``(finish[M, S, C, K], lean carries)``, the carries with a
+    leading case axis (``sweep(batch_memories=True)``)."""
+    from repro_torch.kernels.dram_timing.ops import dram_serve_batch
+    device = torch.device(device)
+    streams = [as_int32(a, device) for a in (issue, meta, boundary, timing)]
+    state = _cold_batch_state(len(timing), issue.shape[-2], n_banks,
+                              banks_per_rank, device)
+    fin, state = dram_serve_batch(*streams, state)
     return fin, state[:5]
 
 

@@ -53,6 +53,23 @@
 //      whole warp, coalesced, once a chunk into the [S, C, K] output (a
 //      store a lane a step straight from the lanes was 1-2 % slower on
 //      the full main-path programs on an H100: tools/serve_variants.py).
+//
+// The case axis (dram_serve_batch).  A sweep serves M cases of one
+// shape at once: M timing vectors against one shared program (the
+// geometry-keyed pack cache), or M stacked programs.  This replaces
+// jax.vmap over _fused_scan_core (src/repro/core/vectorized.py:775-795,
+// an XLA scan, not a Pallas kernel).  Both launches take the case
+// axis: the pre-pass on gridDim.y (case m reads its program at a case
+// stride, 0 for a shared program, so one is never copied M times, and
+// writes rec[m] with its own tBL), the serve as one CTA a case,
+// blockIdx.x = m, which offsets the records, the timing vector, the six
+// carries and fin[m, S, C, K].  The named barrier and the pmf exchange
+// stay inside the CTA: cases never meet, and no CTA waits on another, so
+// the launch needs no co-residency; M cases take M SMs (past 132 the
+// CTAs queue).  Bound: the call's own bytes over 3.35 TB/s (for M
+// stacked programs M times the single-case bytes; a shared program is
+// read once, and only each case's finishes and carries are M-fold), and
+// the carry chain of the longest case.  dram_serve is the case M = 1.
 
 #include <cuda_runtime.h>
 #include <climits>
@@ -105,7 +122,16 @@ __global__ void __launch_bounds__(kPrepassThreads)
                          const int* __restrict__ timing,
                          int2* __restrict__ rec, long long S,
                          long long S_pad, int C, int K, int R,
-                         int banks_per_rank) {
+                         int banks_per_rank, long long case_stride,
+                         long long bnd_stride) {
+  // case m = blockIdx.y: its program (stride 0 when shared), its timing
+  // vector and its records
+  const long long m = blockIdx.y;
+  issue += m * case_stride;
+  meta += m * case_stride;
+  boundary += m * bnd_stride;
+  timing += m * 7;
+  rec += m * S_pad * C * K;
   const int tBL = timing[4];
   const long long CK = static_cast<long long>(C) * K;
   const long long total = S_pad * CK;
@@ -211,6 +237,28 @@ __global__ void __launch_bounds__(1024) serve_records_kernel(
     int* __restrict__ pmf_out, long long S, long long S_pad, int T, int C,
     int B, int R) {
   extern __shared__ __align__(128) unsigned char smem[];
+  {
+    // one CTA a case: case m = blockIdx.x serves its own records, timing
+    // vector, carries and finishes
+    const long long m = blockIdx.x;
+    const long long CB = static_cast<long long>(C) * B;
+    const long long CR = static_cast<long long>(C) * R;
+    rec += m * C * S_pad * K;
+    timing += m * 7;
+    avail_in += m * CB;
+    act_in += m * CB;
+    bus_in += m * C;
+    hist_in += m * CR * 4;
+    ptr_in += m * CR;
+    pmf_in += m * C;
+    fin += m * S * C * K;
+    avail_out += m * CB;
+    act_out += m * CB;
+    bus_out += m * C;
+    hist_out += m * CR * 4;
+    ptr_out += m * CR;
+    pmf_out += m * C;
+  }
   const int c = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
   const int TK = T * K;
@@ -415,15 +463,15 @@ int launch_records(const void* rec, const void* timing, const void* avail_in,
                    const void* pmf_in, void* fin, void* avail_out,
                    void* act_out, void* bus_out, void* hist_out,
                    void* ptr_out, void* pmf_out, long long S,
-                   long long S_pad, int T, int C, int B, int R, size_t smem,
-                   void* stream) {
+                   long long S_pad, int T, int C, int B, int R, int M,
+                   size_t smem, void* stream) {
   if (smem > 48 * 1024) {
     const cudaError_t e = cudaFuncSetAttribute(
         serve_records_kernel<K>, cudaFuncAttributeMaxDynamicSharedMemorySize,
         static_cast<int>(smem));
     if (e != cudaSuccess) return static_cast<int>(e);
   }
-  serve_records_kernel<K><<<1, 32 * C, smem,
+  serve_records_kernel<K><<<M, 32 * C, smem,
                             static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int2*>(rec), static_cast<const int*>(timing),
       static_cast<const int*>(avail_in), static_cast<const int*>(act_in),
@@ -436,77 +484,86 @@ int launch_records(const void* rec, const void* timing, const void* avail_in,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// issue, meta int32[S, C, K], boundary int32[S], timing int32[7] ->
-// rec int32[C, S_pad, K, 2] (S_pad >= S; steps past S are written as
-// empty blocks).
-extern "C" int repro_dram_serve_prepass(const void* issue, const void* meta,
-                                        const void* boundary,
-                                        const void* timing, void* rec,
-                                        long long S, long long S_pad, int C,
-                                        int K, int R, int banks_per_rank,
-                                        void* stream) {
+int launch_prepass(const void* issue, const void* meta, const void* boundary,
+                   const void* timing, void* rec, long long S,
+                   long long S_pad, int C, int K, int R, int banks_per_rank,
+                   int M, long long case_stride, long long bnd_stride,
+                   void* stream) {
   const long long total = S_pad * C * K;
-  if (total <= 0) return static_cast<int>(cudaGetLastError());
+  if (total <= 0 || M < 1) return static_cast<int>(cudaGetLastError());
+  if (M > 65535) return static_cast<int>(cudaErrorInvalidValue);
   long long blocks = (total + kPrepassThreads - 1) / kPrepassThreads;
   if (blocks > 65536) blocks = 65536;
-  serve_prepass_kernel<<<static_cast<unsigned>(blocks), kPrepassThreads, 0,
+  const dim3 grid(static_cast<unsigned>(blocks), static_cast<unsigned>(M));
+  serve_prepass_kernel<<<grid, kPrepassThreads, 0,
                          static_cast<cudaStream_t>(stream)>>>(
       static_cast<const int*>(issue), static_cast<const int*>(meta),
       static_cast<const int*>(boundary), static_cast<const int*>(timing),
-      static_cast<int2*>(rec), S, S_pad, C, K, R, banks_per_rank);
+      static_cast<int2*>(rec), S, S_pad, C, K, R, banks_per_rank,
+      case_stride, bnd_stride);
   return static_cast<int>(cudaGetLastError());
 }
 
-// The serve over the records of repro_dram_serve_prepass (chunks of T
-// steps: T * K * 8 bytes a multiple of 16, S_pad a multiple of T), from
-// the 6 carry inputs, into fin int32[S, C, K] and the 6 carry outputs.
+int launch_serve(const void* rec, const void* timing, const void* avail_in,
+                 const void* act_in, const void* bus_in, const void* hist_in,
+                 const void* ptr_in, const void* pmf_in, void* fin,
+                 void* avail_out, void* act_out, void* bus_out,
+                 void* hist_out, void* ptr_out, void* pmf_out, long long S,
+                 long long S_pad, int T, int C, int K, int B, int R, int M,
+                 void* stream) {
+  if (C < 1 || C > 32 || T < 1 || (T * K * 8) % 16 != 0 || S_pad % T != 0 ||
+      S_pad < S || M < 1)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const size_t smem = records_smem(C, K, T, B, R);
+  switch (K) {
+#define REPRO_SERVE_CASE(KK)                                                  \
+  case KK:                                                                    \
+    return launch_records<KK>(rec, timing, avail_in, act_in, bus_in, hist_in, \
+                              ptr_in, pmf_in, fin, avail_out, act_out,        \
+                              bus_out, hist_out, ptr_out, pmf_out, S, S_pad,  \
+                              T, C, B, R, M, smem, stream);
+    REPRO_SERVE_CASE(1)
+    REPRO_SERVE_CASE(2)
+    REPRO_SERVE_CASE(4)
+    REPRO_SERVE_CASE(8)
+    REPRO_SERVE_CASE(16)
+    REPRO_SERVE_CASE(32)
+#undef REPRO_SERVE_CASE
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
+}
+
+}  // namespace
+
+// The pre-pass for M cases: issue, meta int32[M, S, C, K] and boundary
+// int32[M, S] (or, with shared != 0, one [S, C, K] program and [S] for
+// every case), timing int32[M, 7] -> rec int32[M, C, S_pad, K, 2]
+// (S_pad >= S; steps past S are written as empty blocks).  M <= 65535.
+extern "C" int repro_dram_serve_prepass_batch(
+    const void* issue, const void* meta, const void* boundary,
+    const void* timing, void* rec, long long S, long long S_pad, int C, int K,
+    int R, int banks_per_rank, int M, int shared, void* stream) {
+  const long long case_stride = shared ? 0 : S * C * K;
+  return launch_prepass(issue, meta, boundary, timing, rec, S, S_pad, C, K,
+                        R, banks_per_rank, M, case_stride, shared ? 0 : S,
+                        stream);
+}
+
+// The serve of M cases, one CTA a case, over the records of
+// repro_dram_serve_prepass_batch (chunks of T steps: T * K * 8 bytes a
+// multiple of 16, S_pad a multiple of T): timing int32[M, 7], the 6
+// carries with a leading case axis in and out, fin int32[M, S, C, K].
 // C <= 32 (a warp a channel).
-extern "C" int repro_dram_serve(
+extern "C" int repro_dram_serve_batch(
     const void* rec, const void* timing, const void* avail_in,
     const void* act_in, const void* bus_in, const void* hist_in,
     const void* ptr_in, const void* pmf_in, void* fin, void* avail_out,
     void* act_out, void* bus_out, void* hist_out, void* ptr_out,
     void* pmf_out, long long S, long long S_pad, int T, int C, int K, int B,
-    int R, void* stream) {
-  if (C < 1 || C > 32 || T < 1 || (T * K * 8) % 16 != 0 || S_pad % T != 0 ||
-      S_pad < S)
-    return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem = records_smem(C, K, T, B, R);
-  switch (K) {
-    case 1: return launch_records<1>(rec, timing, avail_in, act_in, bus_in,
-                                     hist_in, ptr_in, pmf_in, fin, avail_out,
-                                     act_out, bus_out, hist_out, ptr_out,
-                                     pmf_out, S, S_pad, T, C, B, R, smem,
-                                     stream);
-    case 2: return launch_records<2>(rec, timing, avail_in, act_in, bus_in,
-                                     hist_in, ptr_in, pmf_in, fin, avail_out,
-                                     act_out, bus_out, hist_out, ptr_out,
-                                     pmf_out, S, S_pad, T, C, B, R, smem,
-                                     stream);
-    case 4: return launch_records<4>(rec, timing, avail_in, act_in, bus_in,
-                                     hist_in, ptr_in, pmf_in, fin, avail_out,
-                                     act_out, bus_out, hist_out, ptr_out,
-                                     pmf_out, S, S_pad, T, C, B, R, smem,
-                                     stream);
-    case 8: return launch_records<8>(rec, timing, avail_in, act_in, bus_in,
-                                     hist_in, ptr_in, pmf_in, fin, avail_out,
-                                     act_out, bus_out, hist_out, ptr_out,
-                                     pmf_out, S, S_pad, T, C, B, R, smem,
-                                     stream);
-    case 16: return launch_records<16>(rec, timing, avail_in, act_in, bus_in,
-                                       hist_in, ptr_in, pmf_in, fin,
-                                       avail_out, act_out, bus_out, hist_out,
-                                       ptr_out, pmf_out, S, S_pad, T, C, B,
-                                       R, smem, stream);
-    case 32: return launch_records<32>(rec, timing, avail_in, act_in, bus_in,
-                                       hist_in, ptr_in, pmf_in, fin,
-                                       avail_out, act_out, bus_out, hist_out,
-                                       ptr_out, pmf_out, S, S_pad, T, C, B,
-                                       R, smem, stream);
-    default: return static_cast<int>(cudaErrorInvalidValue);
-  }
+    int R, int M, void* stream) {
+  return launch_serve(rec, timing, avail_in, act_in, bus_in, hist_in, ptr_in,
+                      pmf_in, fin, avail_out, act_out, bus_out, hist_out,
+                      ptr_out, pmf_out, S, S_pad, T, C, K, B, R, M, stream);
 }
 
 extern "C" const char* repro_cuda_error_string(int code) {

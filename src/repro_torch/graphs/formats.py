@@ -14,6 +14,7 @@ on the host and only the algorithm engines move them to a device.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 from typing import List, Optional, Tuple
 
 import numpy as np
@@ -65,6 +66,26 @@ class Graph:
         return Graph(self.n, self.dst.copy(), self.src.copy(),
                      None if self.weights is None else self.weights.copy(),
                      self.directed, self.name + "_inv")
+
+    @property
+    def fingerprint(self) -> str:
+        """Content hash of the graph (structure + weights + name): the
+        identity the sweep engine keys its per-graph sessions on, so two
+        equal graphs built apart share algorithm runs, models and packed
+        programs.  Equal to the JAX package's digest of the same graph.
+        Cached after the first call."""
+        fp = self.__dict__.get("_fingerprint")
+        if fp is None:
+            h = hashlib.blake2b(digest_size=16)
+            h.update(f"{self.n}|{int(self.directed)}|{self.name}|"
+                     .encode())
+            h.update(self.src.tobytes())
+            h.update(self.dst.tobytes())
+            if self.weights is not None:
+                h.update(str(self.weights.dtype).encode())
+                h.update(np.ascontiguousarray(self.weights).tobytes())
+            fp = self.__dict__["_fingerprint"] = h.hexdigest()
+        return fp
 
 
 @dataclasses.dataclass

@@ -35,12 +35,13 @@ _L = ctypes.c_longlong
 #: CUDA error code of the launch (0 on success).
 SIGNATURES = {
     # issue, meta, boundary, timing, records, S, S_pad, C, K, R,
-    # banks_per_rank, stream
-    "repro_dram_serve_prepass": ([_P] * 5 + [_L, _L, _I, _I, _I, _I, _P],
-                                 _I),
+    # banks_per_rank, M (the cases), shared (one program for every case)
+    # and stream
+    "repro_dram_serve_prepass_batch": ([_P] * 5 + [_L, _L] + [_I] * 6
+                                       + [_P], _I),
     # records, timing, 6 carry inputs, finish, 6 carry outputs, S, S_pad,
-    # T, C, K, B, R, stream
-    "repro_dram_serve": ([_P] * 15 + [_L, _L, _I, _I, _I, _I, _I, _P], _I),
+    # T, C, K, B, R, M and stream
+    "repro_dram_serve_batch": ([_P] * 15 + [_L, _L] + [_I] * 6 + [_P], _I),
     # issue, bank, row, valid, timing, 7 carry inputs, finish, kind,
     # 7 carry outputs, C, L, B, R, banks_per_rank, stream
     "repro_dram_timing": ([_P] * 21 + [_I, _L, _I, _I, _I, _P], _I),

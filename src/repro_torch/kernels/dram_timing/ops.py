@@ -3,6 +3,9 @@
 * ``dram_serve`` — the blocked ``[S, C, K]`` multi-phase serve
   (``csrc/dram_serve.cu``): a carry-free pre-pass (``serve_prepass``)
   and the carry chain over its records (``serve_records``);
+* ``dram_serve_batch`` — the same serve for M cases at once (a sweep's
+  timing grid: one shared program, or M stacked ones), one CTA a case
+  (``serve_prepass_batch``, ``serve_records_batch``);
 * ``dram_timing`` — the per-channel ``[C, L]`` scan of one phase as a
   chunked max-plus scan (``csrc/dram_timing.cu``; :func:`dram_timing_chunks`
   takes the chunk length), and :func:`simulate_trace` around it;
@@ -13,8 +16,12 @@
 Each wrapper checks its inputs, then launches the CUDA kernel for CUDA
 tensors or runs the plain version (``ref.py``) for CPU tensors.  There
 is no fallback: a CUDA tensor goes to the kernel or the call raises.
+The single-case serve launches the batched serve's two kernels on one
+case.
 ``dram_serve.launches`` (the serve's carry chain, from ``dram_serve``
 or ``serve_records``), ``serve_prepass.launches``,
+``dram_serve_batch.launches`` (from ``dram_serve_batch`` or
+``serve_records_batch``), ``serve_prepass_batch.launches``,
 ``dram_timing.launches`` (from ``dram_timing`` or
 ``dram_timing_chunks``) and ``dram_timing_serial.launches`` count kernel
 launches.
@@ -35,60 +42,28 @@ from repro_torch.core.vectorized import (MAX_PHASE_ISSUE, NEG_INF32,
                                          timing_params)
 from repro_torch.device import resolve_device
 from repro_torch.kernels.build import check_launch, library
-from repro_torch.kernels.dram_timing.ref import (dram_serve_ref,
+from repro_torch.kernels.dram_timing.ref import (dram_serve_batch_ref,
+                                                 dram_serve_ref,
                                                  dram_timing_chunked_ref,
                                                  dram_timing_ref,
+                                                 serve_prepass_batch_ref,
                                                  serve_prepass_ref,
+                                                 serve_records_batch_ref,
                                                  serve_records_ref)
 
 State = Tuple[torch.Tensor, ...]
 
 
 def _check(issue, meta, boundary, timing, state):
-    tensors = (issue, meta, boundary, timing) + tuple(state)
-    if len(state) != 6:
-        raise ValueError(f"state must be the 6-tuple carry, got "
-                         f"{len(state)} arrays")
-    dev = issue.device
-    for t in tensors:
-        if not isinstance(t, torch.Tensor):
-            raise TypeError(f"expected torch tensors, got {type(t)}")
-        if t.dtype != torch.int32:
-            raise TypeError(f"dram_serve takes int32 tensors, got {t.dtype}")
-        if t.device != dev:
-            raise ValueError(f"tensors on {t.device} and {dev}")
-        if not t.is_contiguous():
-            raise ValueError("dram_serve takes contiguous tensors")
-    if issue.dim() != 3:
-        raise ValueError(f"issue must be [S, C, K], got {tuple(issue.shape)}")
-    S, C, K = issue.shape
-    avail, act, bus, hist, ptr, pmf = state
-    if avail.dim() != 2 or hist.dim() != 3:
-        raise ValueError("avail must be [C, B] and hist [C, R, 4]")
-    B, R = avail.shape[1], hist.shape[1]
-    want = {"meta": ((S, C, K), meta), "boundary": ((S,), boundary),
-            "timing": ((7,), timing), "avail": ((C, B), avail),
-            "act": ((C, B), act), "bus": ((C,), bus),
-            "hist": ((C, R, 4), hist), "ptr": ((C, R), ptr),
-            "pmf": ((C,), pmf)}
-    for name, (shape, t) in want.items():
-        if tuple(t.shape) != shape:
-            raise ValueError(f"{name} must have shape {shape}, got "
-                             f"{tuple(t.shape)}")
-    if C < 1 or K < 1 or K > 32 or K & (K - 1):
-        raise ValueError(f"need C >= 1 and K a power of two <= 32, got "
-                         f"C={C}, K={K}")
-    if R < 1 or B % R:
-        raise ValueError(f"banks ({B}) must split evenly over ranks ({R})")
-    # the kernel's int32 contract, as the packer asserts it: issues are
-    # phase-relative and in range, and the carry holds reachable times
-    if S and (int(issue.min()) < 0 or int(issue.max()) >= MAX_PHASE_ISSUE):
-        raise ValueError("issue cycles out of int32 range; chunk the trace")
-    if any(int(x.min()) < NEG_INF32 for x in (avail, act, bus, hist, pmf)
-           if x.numel()):
-        raise ValueError("carry holds times below NEG_INF32")
-    if ptr.numel() and (int(ptr.min()) < 0 or int(ptr.max()) > 3):
-        raise ValueError("ACT-history pointers must lie in [0, 4)")
+    """The input check of :func:`dram_serve`: :func:`_check_batch` on the
+    one case.  Returns ``(S, C, K, B, R)``."""
+    if not isinstance(issue, torch.Tensor) or issue.dim() != 3:
+        raise ValueError("issue must be an [S, C, K] tensor")
+    if not isinstance(timing, torch.Tensor):
+        raise TypeError(f"expected torch tensors, got {type(timing)}")
+    _, S, C, K, B, R = _check_batch(
+        issue, meta, boundary, timing[None],
+        tuple(x[None] if isinstance(x, torch.Tensor) else x for x in state))
     return S, C, K, B, R
 
 
@@ -123,11 +98,6 @@ def dram_serve(issue: torch.Tensor, meta: torch.Tensor,
     S, C, K, B, R = _check(issue, meta, boundary, timing, state)
     if issue.device.type == "cpu":
         return dram_serve_ref(issue, meta, boundary, timing, state)
-    if issue.device.type != "cuda":
-        raise ValueError(f"dram_serve runs on CUDA or CPU, not "
-                         f"{issue.device}")
-    if C > 32:
-        raise ValueError(f"the serve runs a warp a channel: C = {C} > 32")
     if S == 0:
         return torch.empty_like(issue), tuple(x.clone() for x in state)
     rec = serve_prepass(issue, meta, boundary, timing, B // R, R,
@@ -141,25 +111,17 @@ def serve_prepass(issue: torch.Tensor, meta: torch.Tensor,
     """The carry-free part of every step: int32 records ``[C, S_pad, K,
     2]`` (``S_pad`` = S rounded up to ``T``), lane ``k`` of channel ``c``
     at step ``s`` holding ``(x, meta')`` as :func:`~.ref.serve_prepass_ref`
-    defines them.  One launch on the card; the plain version for CPU
-    tensors.  Inputs as :func:`dram_serve` takes them (checked there)."""
-    S, C, K = issue.shape
-    S_pad = -(-S // T) * T
+    defines them.  One launch on the card (the batched pre-pass on one
+    case); the plain version for CPU tensors.  Inputs as
+    :func:`dram_serve` takes them (checked there)."""
     if issue.device.type == "cpu":
+        S_pad = -(-issue.shape[0] // T) * T
         return serve_prepass_ref(issue, meta, boundary, timing,
                                  banks_per_rank, R, S_pad)
-    rec = torch.empty((C, S_pad, K, 2), dtype=torch.int32,
-                      device=issue.device)
-    lib = library()
-    with torch.cuda.device(issue.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        code = lib.repro_dram_serve_prepass(
-            issue.data_ptr(), meta.data_ptr(), boundary.data_ptr(),
-            timing.data_ptr(), rec.data_ptr(), S, S_pad, C, K, R,
-            banks_per_rank, stream)
-    check_launch(code, "serve_prepass")
+    rec = _launch_prepass(issue, meta, boundary, timing[None],
+                          banks_per_rank, R, T, "serve_prepass")
     serve_prepass.launches += 1
-    return rec
+    return rec[0]
 
 
 serve_prepass.launches = 0
@@ -169,31 +131,191 @@ def serve_records(rec: torch.Tensor, timing: torch.Tensor, state: State,
                   S: int):
     """The serve's carry chain over the first ``S`` steps of the records
     ``rec`` (:func:`serve_prepass`) from ``state``; returns ``(finish[S,
-    C, K], state)``.  One launch on the card (counted in
-    ``dram_serve.launches``); the plain record walk for CPU tensors."""
-    C, S_pad, K, _ = rec.shape
-    B, R = state[0].shape[1], state[3].shape[1]
+    C, K], state)``.  One launch on the card (the batched serve on one
+    case, counted in ``dram_serve.launches``); the plain record walk for
+    CPU tensors."""
     if rec.device.type == "cpu":
         return serve_records_ref(rec, timing, state, S)
+    fin, out = _launch_records(rec[None], timing[None],
+                               tuple(x[None] for x in state), S,
+                               "dram_serve")
+    dram_serve.launches += 1
+    return fin[0], tuple(x[0] for x in out)
+
+
+dram_serve.launches = 0
+
+
+#: cases a batched serve takes in one call (the pre-pass puts the case
+#: axis on the grid's y dimension)
+MAX_CASES = 65535
+
+
+def _check_batch(issue, meta, boundary, timing, state):
+    """The input check of :func:`dram_serve_batch`: :func:`_check`'s
+    contract on every case.  Returns ``(M, S, C, K, B, R)``."""
+    if len(state) != 6:
+        raise ValueError(f"state must be the 6-tuple carry, got "
+                         f"{len(state)} arrays")
+    dev = issue.device
+    for t in (issue, meta, boundary, timing) + tuple(state):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"expected torch tensors, got {type(t)}")
+        if t.dtype != torch.int32:
+            raise TypeError(f"the serve takes int32 tensors, got {t.dtype}")
+        if t.device != dev:
+            raise ValueError(f"tensors on {t.device} and {dev}")
+        if not t.is_contiguous():
+            raise ValueError("the serve takes contiguous tensors")
+    if timing.dim() != 2 or timing.shape[1] != 7 or timing.shape[0] < 1:
+        raise ValueError(f"timing must be [M, 7] with M >= 1, got "
+                         f"{tuple(timing.shape)}")
+    M = timing.shape[0]
+    if M > MAX_CASES:
+        raise ValueError(f"at most {MAX_CASES} cases a call, got {M}")
+    shared = issue.dim() == 3
+    if not shared and issue.dim() != 4:
+        raise ValueError(f"issue must be [S, C, K] (shared) or [M, S, C, "
+                         f"K], got {tuple(issue.shape)}")
+    if not shared and issue.shape[0] != M:
+        raise ValueError(f"issue holds {issue.shape[0]} cases, timing {M}")
+    S, C, K = issue.shape[-3:]
+    avail, act, bus, hist, ptr, pmf = state
+    if avail.dim() != 3 or hist.dim() != 4:
+        raise ValueError("avail must be [M, C, B] and hist [M, C, R, 4]")
+    B, R = avail.shape[2], hist.shape[2]
+    lead = () if shared else (M,)
+    want = {"meta": (tuple(issue.shape), meta),
+            "boundary": (lead + (S,), boundary),
+            "avail": ((M, C, B), avail), "act": ((M, C, B), act),
+            "bus": ((M, C), bus), "hist": ((M, C, R, 4), hist),
+            "ptr": ((M, C, R), ptr), "pmf": ((M, C), pmf)}
+    for name, (shape, t) in want.items():
+        if tuple(t.shape) != shape:
+            raise ValueError(f"{name} must have shape {shape}, got "
+                             f"{tuple(t.shape)}")
+    if C < 1 or K < 1 or K > 32 or K & (K - 1):
+        raise ValueError(f"need C >= 1 and K a power of two <= 32, got "
+                         f"C={C}, K={K}")
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"the serve runs on CUDA or CPU, not {dev}")
+    if dev.type == "cuda" and C > 32:
+        raise ValueError(f"the serve runs a warp a channel: C = {C} > 32")
+    if R < 1 or B % R:
+        raise ValueError(f"banks ({B}) must split evenly over ranks ({R})")
+    if S and (int(issue.min()) < 0 or int(issue.max()) >= MAX_PHASE_ISSUE):
+        raise ValueError("issue cycles out of int32 range; chunk the trace")
+    if any(int(x.min()) < NEG_INF32 for x in (avail, act, bus, hist, pmf)
+           if x.numel()):
+        raise ValueError("carry holds times below NEG_INF32")
+    if ptr.numel() and (int(ptr.min()) < 0 or int(ptr.max()) > 3):
+        raise ValueError("ACT-history pointers must lie in [0, 4)")
+    return M, S, C, K, B, R
+
+
+def dram_serve_batch(issue: torch.Tensor, meta: torch.Tensor,
+                     boundary: torch.Tensor, timing: torch.Tensor,
+                     state: State):
+    """Serve M cases of one shape at once: ``timing[M, 7]`` and the
+    6-tuple carry with a leading case axis (``avail[M, C, B]``, ...,
+    ``pmf[M, C]``), against one program shared by every case
+    (``issue``/``meta`` ``[S, C, K]``, ``boundary[S]``) or M stacked
+    programs (``[M, S, C, K]``, ``[M, S]``), all int32.  Returns
+    ``(finish[M, S, C, K], state)``, case m equal to :func:`dram_serve`
+    on case m's inputs.  On the card: the pre-pass for every case
+    (:func:`serve_prepass_batch`, one launch), then one CTA a case
+    (:func:`serve_records_batch`, one launch); for CPU tensors the plain
+    version, case by case."""
+    M, S, C, K, B, R = _check_batch(issue, meta, boundary, timing, state)
+    if issue.device.type == "cpu":
+        return dram_serve_batch_ref(issue, meta, boundary, timing, state)
+    if S == 0:
+        return (torch.empty((M, 0, C, K), dtype=torch.int32,
+                            device=issue.device),
+                tuple(x.clone() for x in state))
+    rec = serve_prepass_batch(issue, meta, boundary, timing, B // R, R,
+                              chunk_steps(C, K))
+    return serve_records_batch(rec, timing, state, S)
+
+
+dram_serve_batch.launches = 0
+
+
+def serve_prepass_batch(issue: torch.Tensor, meta: torch.Tensor,
+                        boundary: torch.Tensor, timing: torch.Tensor,
+                        banks_per_rank: int, R: int, T: int) -> torch.Tensor:
+    """:func:`serve_prepass` for M cases (inputs as
+    :func:`dram_serve_batch` takes them, checked there): records ``[M, C,
+    S_pad, K, 2]``, each case's with its own ``tBL``.  One launch on the
+    card; the plain version for CPU tensors."""
+    if issue.device.type == "cpu":
+        S_pad = -(-issue.shape[-3] // T) * T
+        return serve_prepass_batch_ref(issue, meta, boundary, timing,
+                                       banks_per_rank, R, S_pad)
+    rec = _launch_prepass(issue, meta, boundary, timing, banks_per_rank, R,
+                          T, "serve_prepass_batch")
+    serve_prepass_batch.launches += 1
+    return rec
+
+
+serve_prepass_batch.launches = 0
+
+
+def serve_records_batch(rec: torch.Tensor, timing: torch.Tensor,
+                        state: State, S: int):
+    """:func:`serve_records` for M cases, one CTA a case, over the records
+    of :func:`serve_prepass_batch`; returns ``(finish[M, S, C, K],
+    state)``.  One launch on the card (counted in
+    ``dram_serve_batch.launches``); the plain record walk for CPU
+    tensors."""
+    if rec.device.type == "cpu":
+        return serve_records_batch_ref(rec, timing, state, S)
+    fin, out = _launch_records(rec, timing, state, S, "dram_serve_batch")
+    dram_serve_batch.launches += 1
+    return fin, out
+
+
+def _launch_prepass(issue, meta, boundary, timing, banks_per_rank, R, T,
+                    name):
+    """One launch of the pre-pass for ``timing[M, 7]`` against a shared
+    ``[S, C, K]`` program or M stacked ones; returns the records ``[M, C,
+    S_pad, K, 2]``."""
+    M = timing.shape[0]
+    shared = issue.dim() == 3
+    S, C, K = issue.shape[-3:]
+    S_pad = -(-S // T) * T
+    rec = torch.empty((M, C, S_pad, K, 2), dtype=torch.int32,
+                      device=issue.device)
+    with torch.cuda.device(issue.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = library().repro_dram_serve_prepass_batch(
+            issue.data_ptr(), meta.data_ptr(), boundary.data_ptr(),
+            timing.data_ptr(), rec.data_ptr(), S, S_pad, C, K, R,
+            banks_per_rank, M, int(shared), stream)
+    check_launch(code, name)
+    return rec
+
+
+def _launch_records(rec, timing, state, S, name):
+    """One launch of the serve, a CTA for each of the M cases of the
+    records ``rec[M, C, S_pad, K, 2]``, from ``state`` (case axis first);
+    returns ``(finish[M, S, C, K], state)``."""
+    M, C, S_pad, K, _ = rec.shape
+    B, R = state[0].shape[2], state[3].shape[2]
     T = chunk_steps(C, K)
     if S_pad % T or S_pad < S:
         raise ValueError(f"records of {S_pad} steps do not cover {S} steps "
                          f"in chunks of {T}")
-    fin = torch.empty((S, C, K), dtype=torch.int32, device=rec.device)
+    fin = torch.empty((M, S, C, K), dtype=torch.int32, device=rec.device)
     out = tuple(torch.empty_like(x) for x in state)
-    lib = library()
     with torch.cuda.device(rec.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = lib.repro_dram_serve(
+        code = library().repro_dram_serve_batch(
             rec.data_ptr(), timing.data_ptr(),
             *(x.data_ptr() for x in state), fin.data_ptr(),
-            *(x.data_ptr() for x in out), S, S_pad, T, C, K, B, R, stream)
-    check_launch(code, "dram_serve")
-    dram_serve.launches += 1
+            *(x.data_ptr() for x in out), S, S_pad, T, C, K, B, R, M, stream)
+    check_launch(code, name)
     return fin, out
-
-
-dram_serve.launches = 0
 
 
 def _check_timing(issue, bank, row, valid, timing, carry):

@@ -23,6 +23,10 @@ max-plus passes, with the chunk length a parameter.
 halves of the card's serve (``csrc/dram_serve.cu``) in torch: the
 carry-free records of every step, and the carry chain that walks them;
 composed, they equal :func:`dram_serve_ref`.
+
+:func:`dram_serve_batch_ref`, :func:`serve_prepass_batch_ref` and
+:func:`serve_records_batch_ref` run those over M cases (the batched
+serve's case axis), one case after another.
 """
 
 from __future__ import annotations
@@ -463,6 +467,57 @@ def dram_serve_ref(issue: torch.Tensor, meta: torch.Tensor,
         pmf = torch.clamp_min(pmf, 0)
         state = (avail, act, bus, hist, ptr, pmf)
     return fin, state
+
+
+def _case(x: torch.Tensor, m: int, batched: bool) -> torch.Tensor:
+    return x[m] if batched else x
+
+
+def dram_serve_batch_ref(issue: torch.Tensor, meta: torch.Tensor,
+                         boundary: torch.Tensor, timing: torch.Tensor,
+                         state: State):
+    """:func:`dram_serve_ref` over M cases: ``timing[M, 7]``, each carry
+    with a leading case axis, and the program either stacked
+    (``issue``/``meta`` ``[M, S, C, K]``, ``boundary[M, S]``) or shared by
+    every case (``[S, C, K]``, ``[S]``).  Returns ``(finish[M, S, C, K],
+    state)``, case by case."""
+    batched = issue.dim() == 4
+    fins, states = [], []
+    for m in range(timing.shape[0]):
+        fin, st = dram_serve_ref(
+            _case(issue, m, batched), _case(meta, m, batched),
+            _case(boundary, m, batched), timing[m],
+            tuple(x[m] for x in state))
+        fins.append(fin)
+        states.append(st)
+    return torch.stack(fins), tuple(torch.stack(xs) for xs in zip(*states))
+
+
+def serve_prepass_batch_ref(issue: torch.Tensor, meta: torch.Tensor,
+                            boundary: torch.Tensor, timing: torch.Tensor,
+                            banks_per_rank: int, R: int,
+                            S_pad: int) -> torch.Tensor:
+    """:func:`serve_prepass_ref` over M cases (program stacked or shared,
+    as :func:`dram_serve_batch_ref` takes it): records ``[M, C, S_pad, K,
+    2]``."""
+    batched = issue.dim() == 4
+    return torch.stack([
+        serve_prepass_ref(_case(issue, m, batched), _case(meta, m, batched),
+                          _case(boundary, m, batched), timing[m],
+                          banks_per_rank, R, S_pad)
+        for m in range(timing.shape[0])])
+
+
+def serve_records_batch_ref(rec: torch.Tensor, timing: torch.Tensor,
+                            state: State, S: int):
+    """:func:`serve_records_ref` over the M cases of batched records."""
+    fins, states = [], []
+    for m in range(rec.shape[0]):
+        fin, st = serve_records_ref(rec[m], timing[m],
+                                    tuple(x[m] for x in state), S)
+        fins.append(fin)
+        states.append(st)
+    return torch.stack(fins), tuple(torch.stack(xs) for xs in zip(*states))
 
 
 #: record-only bits of the serve's pre-pass (``csrc/dram_serve.cu``): the

@@ -6,14 +6,20 @@
 >>> r = simulate(g, "wcc", accelerator="hitgraph", backend="event")
 >>> r = simulate(g, "bfs", accelerator="reference")         # event-driven
 >>> res = run_dynamic(g, "wcc", updates="pa-growth", device="cpu")
+>>> rows = sweep(graphs=[g], problems=["wcc"],
+...              memories=[None] + timing_variants("ddr4"),
+...              batch_memories=True, device="cpu")
 """
 
 from repro_torch.algorithms.common import Problem
 from repro_torch.core.accel import PhaseStats, SimReport
 from repro_torch.errors import UnknownPresetError
 from repro_torch.sim.backends import BACKENDS, make_backend
-from repro_torch.sim.memory import (MEMORY_PRESETS, MemoryConfig,
-                                    resolve_cache, resolve_memory)
+from repro_torch.sim.memory import (CACHE_PRESETS, MEMORY_PRESETS,
+                                    TIMING_PRESETS, MemoryConfig,
+                                    cache_variants, memory_name,
+                                    resolve_cache, resolve_memory,
+                                    timing_variants)
 from repro_torch.sim.reference_model import ReferenceConfig, ReferenceModel
 from repro_torch.sim.policy import (PartitionPolicy,
                                     resolve_partitioned_config, scaled_q)
@@ -23,14 +29,20 @@ from repro_torch.sim.registry import (AcceleratorSpec, get_accelerator,
 from repro_torch.sim.session import SimSession, simulate
 from repro_torch.sim.dynamic import (DynamicResult, DynamicTimeline,
                                      EpochReport, run_dynamic)
+from repro_torch.sim.sweep import (SweepCase, SweepError, SweepInterrupted,
+                                   SweepRow, SweepStats, Sweeper, sweep)
 
 __all__ = [
     "Problem", "SimReport", "PhaseStats", "UnknownPresetError",
     "simulate", "SimSession",
+    "sweep", "Sweeper", "SweepCase", "SweepRow", "SweepStats", "SweepError",
+    "SweepInterrupted",
     "run_dynamic", "DynamicTimeline", "EpochReport", "DynamicResult",
     "AcceleratorSpec", "register_accelerator", "get_accelerator",
     "list_accelerators",
     "MemoryConfig", "MEMORY_PRESETS", "resolve_memory", "resolve_cache",
+    "CACHE_PRESETS", "TIMING_PRESETS", "timing_variants", "memory_name",
+    "cache_variants",
     "BACKENDS", "make_backend",
     "PartitionPolicy", "resolve_partitioned_config", "scaled_q",
     "ReferenceConfig", "ReferenceModel",

@@ -26,8 +26,8 @@ from typing import Optional, Union
 
 from repro_torch.core.cache import CacheConfig, effective as _effective_cache
 from repro_torch.core.dram import (CONTIGUOUS_ORDER, DEFAULT_ORDER,
-                                   AddressOrder, DRAMConfig, ddr3_1600k,
-                                   ddr4_2400r, hbm2, hbm2e)
+                                   AddressOrder, DRAMConfig, DRAMTiming,
+                                   ddr3_1600k, ddr4_2400r, hbm2, hbm2e)
 from repro_torch.errors import UnknownPresetError
 
 _KINDS = ("ddr3", "ddr4", "hbm2", "hbm2e")
@@ -88,6 +88,56 @@ MEMORY_PRESETS = {
 
 MemoryLike = Union[None, str, MemoryConfig, DRAMConfig]
 
+#: standalone timing vectors for :func:`timing_variants` grids: JEDEC
+#: speed grades beyond the full device presets above (cycle counts at the
+#: grade's nominal data rate).  The serve takes timing as an input and
+#: packing never reads it, so a grid of them shares one packed program
+#: per geometry.  The follow-up comparison paper (arXiv:2104.07776) sweeps
+#: this kind of speed-grade axis.
+TIMING_PRESETS = {
+    "ddr3-1066": DRAMTiming(tCL=7, tRCD=7, tRP=7, tRAS=20, tBL=4,
+                            tRRD=4, tFAW=27),
+    "ddr3-1333": DRAMTiming(tCL=9, tRCD=9, tRP=9, tRAS=24, tBL=4,
+                            tRRD=5, tFAW=30),
+    "ddr3-1866": DRAMTiming(tCL=13, tRCD=13, tRP=13, tRAS=32, tBL=4,
+                            tRRD=6, tFAW=45),
+    "ddr4-2133": DRAMTiming(tCL=14, tRCD=14, tRP=14, tRAS=28, tBL=4,
+                            tRRD=6, tFAW=32),
+    "ddr4-2666": DRAMTiming(tCL=18, tRCD=18, tRP=18, tRAS=35, tBL=4,
+                            tRRD=8, tFAW=40),
+    "ddr4-2933": DRAMTiming(tCL=21, tRCD=21, tRP=21, tRAS=39, tBL=4,
+                            tRRD=8, tFAW=44),
+    "ddr4-3200": DRAMTiming(tCL=22, tRCD=22, tRP=22, tRAS=42, tBL=4,
+                            tRRD=9, tFAW=48),
+    "hbm-1gbps": DRAMTiming(tCL=7, tRCD=7, tRP=7, tRAS=17, tBL=2,
+                            tRRD=1, tFAW=8),
+}
+
+
+def timing_variants(base: MemoryLike, kinds=("ddr3", "ddr4", "hbm2")):
+    """Timing-only memory grid: the base device's geometry and clock with
+    each named preset's *timing vector* swapped in.
+
+    Packing depends only on geometry, so a sweep over these devices packs
+    each (graph, accelerator) point once and serves it against every
+    timing vector; with ``batch_memories=True``, in one batched serve.
+    ``base`` is any :func:`resolve_memory` selector naming the geometry
+    (e.g. ``"ddr4-8gb"`` or an accelerator's default ``DRAMConfig``);
+    ``kinds`` name either :data:`TIMING_PRESETS` entries or full device
+    presets (whose timing is borrowed).  Returns one ``DRAMConfig`` per
+    kind, named ``<base>@<kind>-timing``."""
+    cfg = resolve_memory(base)
+    if cfg is None:
+        raise ValueError("timing_variants needs an explicit base device")
+    out = []
+    for kind in kinds:
+        t = TIMING_PRESETS.get(kind)
+        if t is None:
+            t = resolve_memory(kind).timing
+        out.append(dataclasses.replace(
+            cfg, timing=t, name=f"{cfg.name}@{kind}-timing"))
+    return out
+
 
 def resolve_memory(memory: MemoryLike) -> Optional[DRAMConfig]:
     """Coerce any memory selector to a :class:`DRAMConfig` (or ``None``
@@ -107,6 +157,17 @@ def resolve_memory(memory: MemoryLike) -> Optional[DRAMConfig]:
     raise TypeError(
         f"memory must be None, a preset name, MemoryConfig, or "
         f"DRAMConfig; got {type(memory).__name__}")
+
+
+def memory_name(memory: MemoryLike) -> str:
+    """Stable display name for sweep rows."""
+    if memory is None:
+        return "default"
+    if isinstance(memory, str):
+        return memory
+    if isinstance(memory, MemoryConfig):
+        return memory.kind
+    return memory.name
 
 
 # ---------------------------------------------------------------------------
@@ -167,9 +228,19 @@ def resolve_cache(cache: CacheLike, spec=None) -> Optional[CacheConfig]:
 
 
 def cache_name(cache: CacheLike) -> str:
-    """Stable display name for result rows."""
+    """Stable display name for sweep rows."""
     if cache is None:
         return "none"
     if isinstance(cache, str):
         return cache
     return cache.display_name()
+
+
+def cache_variants(kinds=("none", "vertex-64k", "vertex-256k",
+                          "vertex-1m")):
+    """A cache-size ladder for sweep ``caches=`` axes, by preset name (the
+    hierarchy-layer analogue of :func:`timing_variants`): one
+    ``CacheConfig`` per kind; ``"default"`` is per accelerator and passes
+    through as the string."""
+    return [kind if kind == "default" else resolve_cache(kind)
+            for kind in kinds]

@@ -5,16 +5,22 @@ resolves the accelerator spec, the memory device and the DRAM backend,
 and returns the shared :class:`~repro_torch.core.accel.SimReport`.  It
 runs on the card unless ``device`` says otherwise.
 
-:class:`SimSession` binds a graph and caches, across repeated calls,
-**algorithm runs** by ``spec.algorithm_key`` and **models** (edge sorts,
-layout, static streams) by config with the DRAM device reduced to its
-structure and clock.  Both caches are single-flight and thread-safe; a
-session rebinds to a mutated graph (:meth:`SimSession.rebind`) on the
-dynamic-graph path.
+:class:`SimSession` binds a graph and caches, across repeated calls:
 
-Models are keyed on the DRAM structure alone, so they are shared across
-every cache variant of a memory point too (the cache filter runs
-downstream of trace emission).
+* **algorithm runs** by ``spec.algorithm_key``;
+* **models** (edge sorts, layout, static streams) by config with the
+  DRAM device reduced to its structure and clock, so they are shared
+  across every timing and cache variant of a memory point (the cache
+  filter runs downstream of trace emission);
+* **packed programs** (:meth:`SimSession.packed_program_for`, the sweep
+  engine's) by the DRAM geometry and clock: packing never depends on
+  timing, so a timing comparison packs each (graph, accelerator) point
+  once and serves it against every timing vector
+  (``pack_cache_hits`` / ``pack_cache_misses`` count the reuse).
+
+All three caches are single-flight and thread-safe (the sweep's workers
+share one session per graph); a session rebinds to a mutated graph
+(:meth:`SimSession.rebind`) on the dynamic-graph path.
 
 ``simulate(..., updates=...)`` runs a dynamic-graph update stream through
 :func:`repro_torch.sim.dynamic.run_dynamic` and returns its aggregate
@@ -31,7 +37,8 @@ from concurrent.futures import Future
 from typing import Dict, Optional
 
 from repro_torch.algorithms.common import Problem, RunResult
-from repro_torch.core.accel import SimReport
+from repro_torch.core import cache as cache_mod
+from repro_torch.core.accel import SimReport, pack_program_auto
 from repro_torch.device import resolve_device
 from repro_torch.graphs.formats import Graph
 from repro_torch.sim.memory import (CacheLike, MemoryLike, resolve_cache,
@@ -67,22 +74,29 @@ def resolve_run_config(spec, config=None, memory: MemoryLike = None,
 def _check_graph(graph) -> Graph:
     if not isinstance(graph, Graph):
         raise TypeError(
-            f"SimSession takes a Graph, got {type(graph).__name__}; "
-            "corpus preset names come with a later slice (see "
-            "ROADMAP.md)")
+            f"expected a Graph, got {type(graph).__name__}; corpus preset "
+            "names come with a later slice (see ROADMAP.md)")
     return graph
 
 
-def _dram_cfg_key(spec_name: str, config):
+def _dram_cfg_key(spec_name: str, config, include_cache: bool):
     """Cache key for state that depends on the config and the DRAM
-    *structure + clock* but not its timing; ``None`` when the config has
-    no pluggable DRAM or is unhashable."""
+    *geometry + clock* but not its timing: the config with ``dram``
+    nulled, plus the resolved device's geometry or structure key and
+    clock.  ``include_cache=True`` keys on ``geometry_key`` (what
+    *packing* depends on: the on-chip cache filters requests before
+    packing); ``False`` on ``structure_key`` (what *trace emission*
+    depends on: models are shared across every cache variant of a memory
+    point).  ``None`` when the config has no pluggable DRAM or is
+    unhashable."""
     if not hasattr(config, "dram_config"):
         return None
     try:
         dram = config.dram_config()
+        dram_key = (dram.geometry_key if include_cache
+                    else dram.structure_key)
         key = (spec_name, dataclasses.replace(config, dram=None),
-               dram.structure_key, dram.clock_ghz)
+               dram_key, dram.clock_ghz)
         hash(key)
         return key
     except (TypeError, dataclasses.FrozenInstanceError):
@@ -90,7 +104,7 @@ def _dram_cfg_key(spec_name: str, config):
 
 
 class SimSession:
-    """A graph bound to caches of algorithm runs and models.
+    """A graph bound to caches of algorithm runs, models and packs.
 
     >>> sess = SimSession(g)
     >>> sess.run(Problem.WCC, accelerator="hitgraph")
@@ -98,22 +112,38 @@ class SimSession:
     # second call reuses the edge-centric WCC execution
     """
 
+    #: max packed programs retained per session: packs are the largest
+    #: cached artifact ([S, C, K] streams), so the cache is bounded with
+    #: insertion-order eviction; only reuse beyond the window re-packs.
+    PACK_CACHE_CAP = 256
+
     def __init__(self, graph: Graph):
         self.graph = _check_graph(graph)
         self._lock = threading.Lock()
         self._runs: Dict[object, Future] = {}
         self._models: Dict[object, Future] = {}
+        self._packs: Dict[object, Future] = {}
+        self.algo_runs = 0
+        self.algo_cache_hits = 0
+        self.pack_cache_hits = 0
+        self.pack_cache_misses = 0
         self.invalidations = 0
         self.invalidation_skips = 0
 
-    def _singleflight(self, cache: Dict[object, Future], key, build):
+    def _singleflight(self, cache: Dict[object, Future], key, build,
+                      count=None):
         """Get-or-build ``cache[key]``: exactly one thread runs
-        ``build()`` per key; concurrent lookups wait on its Future."""
+        ``build()`` per key; concurrent lookups wait on its Future.
+        ``count`` is an optional ``(miss_attr, hit_attr)`` counter
+        pair."""
         with self._lock:
             fut = cache.get(key)
             owner = fut is None
             if owner:
                 fut = cache[key] = Future()
+            if count is not None:
+                attr = count[0] if owner else count[1]
+                setattr(self, attr, getattr(self, attr) + 1)
         if owner:
             try:
                 fut.set_result(build())
@@ -127,7 +157,7 @@ class SimSession:
     def model_for(self, spec, config):
         """Graph-bound model cache, shared across problems and across
         every timing variant of one memory structure."""
-        key = _dram_cfg_key(spec.name, config)
+        key = _dram_cfg_key(spec.name, config, include_cache=False)
         if key is None:
             try:
                 key = (spec.name, config)
@@ -146,21 +176,67 @@ class SimSession:
             self._runs, key,
             lambda: spec.run_algorithm(self.graph, problem, config,
                                        root=root, fixed_iters=fixed_iters,
-                                       device=device))
+                                       device=device),
+            count=("algo_runs", "algo_cache_hits"))
+
+    def packed_program_for(self, spec, problem: Problem, config, model,
+                           run: RunResult, dram, root: int = 0,
+                           fixed_iters: Optional[int] = None, device=None):
+        """Geometry-keyed packed-program cache; returns ``(packed,
+        cache_stats)``, where ``cache_stats`` describes the on-chip
+        hierarchy the program went through before packing (``None`` when
+        the device has no cache).  Packs on ``device`` (default the card)
+        through ``pack_program_auto``.
+
+        The cached pack carries the timing vector it was first built with:
+        callers serve it with *their* case's timing
+        (``serve_packed(packed, timing=...)``), which is what makes the
+        cache sound: nothing in the packed arrays (nor the cache filter,
+        which sees only addresses, program order and timing-free issue
+        bounds) depends on timing."""
+        device = resolve_device(device)
+
+        def _build():
+            program = model.build_program(problem, run)
+            cs = None
+            if dram.cache is not None and dram.cache.enabled:
+                program, cs, _ = cache_mod.filter_program(
+                    program, dram.cache, device=device)
+            return pack_program_auto(program, dram, device=device), cs
+
+        cfg_key = _dram_cfg_key(spec.name, config, include_cache=True)
+        if cfg_key is None:
+            with self._lock:
+                self.pack_cache_misses += 1
+            return _build()
+        key = (cfg_key, spec.algorithm_key(
+            self.graph, problem, config, root=root,
+            fixed_iters=fixed_iters))
+        packed = self._singleflight(
+            self._packs, key, _build,
+            count=("pack_cache_misses", "pack_cache_hits"))
+        with self._lock:
+            while len(self._packs) > self.PACK_CACHE_CAP:
+                oldest = next(iter(self._packs))
+                if oldest == key or not self._packs[oldest].done():
+                    break
+                del self._packs[oldest]
+        return packed
 
     def invalidate(self, touched_partitions) -> int:
-        """Invalidate the session's run and model caches after the bound
-        graph mutated, keyed by which partitions actually changed: an
-        empty ``touched_partitions`` is a guaranteed no-op (every cached
-        entry stays), a non-empty one drops all entries (they are
+        """Invalidate the session's run, model and pack caches after the
+        bound graph mutated, keyed by which partitions actually changed:
+        an empty ``touched_partitions`` is a guaranteed no-op (every
+        cached entry stays), a non-empty one drops all entries (they are
         whole-graph artifacts).  Returns the number of entries dropped."""
         with self._lock:
             if len(touched_partitions) == 0:
                 self.invalidation_skips += 1
                 return 0
-            dropped = len(self._runs) + len(self._models)
+            dropped = len(self._runs) + len(self._models) + len(self._packs)
             self._runs.clear()
             self._models.clear()
+            self._packs.clear()
             self.invalidations += 1
         return dropped
 

@@ -769,3 +769,118 @@ def test_run_study_on_card_equals_cpu(cuda):
     b = optimizations.run_study(g, Problem.WCC, base, device="cpu")
     assert [(r.variant, r.report, r.speedup) for r in a] == \
         [(r.variant, r.report, r.speedup) for r in b]
+
+
+def _batch_timings(M, seed):
+    rng = np.random.default_rng(seed)
+    t = rng.integers(1, 40, size=(M, 7)).astype(np.int32)
+    t[:, 4] = rng.integers(1, 5, size=M)
+    return torch.from_numpy(t)
+
+
+@pytest.mark.parametrize("preset", ["hitgraph", "accugraph"])
+@pytest.mark.parametrize("hit_heavy", [False, True])
+@pytest.mark.parametrize("M", [1, 3, 133])
+@pytest.mark.parametrize("shared", [True, False])
+def test_dram_serve_batch_equals_plain(cuda, preset, hit_heavy, M, shared):
+    """The batched serve against its plain version on the card, bit for
+    bit: one shared program, or M stacked programs whose phase boundaries
+    fall on different steps, each case with its own timing vector."""
+    from repro_torch.kernels.dram_timing.ops import (dram_serve_batch,
+                                                     serve_prepass_batch)
+    from repro_torch.kernels.dram_timing.ref import dram_serve_batch_ref
+    cfg = PRESETS[preset]()
+    n = 1 if shared else min(M, 5)
+    packs = [accel.pack_program(_program(11 + i, hit_heavy, 3, 60), cfg)
+             for i in range(n)]
+    assert len({p.issue.shape for p in packs}) == 1
+    if shared:
+        streams = [torch.as_tensor(np.asarray(getattr(packs[0], f),
+                                              dtype=np.int32), device=cuda)
+                   for f in ("issue", "meta", "boundary")]
+    else:
+        assert len({tuple(np.flatnonzero(p.boundary)) for p in packs}) == n
+        packs = [packs[i % n] for i in range(M)]
+        streams = [torch.as_tensor(np.stack([np.asarray(getattr(p, f),
+                                                        dtype=np.int32)
+                                             for p in packs]), device=cuda)
+                   for f in ("issue", "meta", "boundary")]
+    timing = _batch_timings(M, len(preset) + M).to(cuda)
+    state = vec._cold_batch_state(M, cfg.channels, packs[0].n_banks,
+                                  packs[0].banks_per_rank, cuda)
+    before = (dram_serve_batch.launches, serve_prepass_batch.launches,
+              dram_serve.launches)
+    fin_k, st_k = dram_serve_batch(*streams, timing, state)
+    torch.cuda.synchronize()
+    assert (dram_serve_batch.launches, serve_prepass_batch.launches,
+            dram_serve.launches) == (before[0] + 1, before[1] + 1,
+                                     before[2])
+    fin_p, st_p = dram_serve_batch_ref(*streams, timing, state)
+    assert torch.equal(fin_k, fin_p)
+    for a, b in zip(st_k, st_p):
+        assert torch.equal(a, b)
+
+
+def test_dram_serve_batch_checks_on_card(cuda):
+    from repro_torch.kernels.dram_timing.ops import dram_serve_batch
+    cfg = PRESETS["hitgraph"]()
+    p = accel.pack_program(_program(3, False, 2, 60), cfg)
+    issue, meta, bnd = (torch.as_tensor(np.asarray(a, dtype=np.int32),
+                                        device=cuda)
+                        for a in (p.issue, p.meta, p.boundary))
+    timing = _batch_timings(2, 0).to(cuda)
+    state = vec._cold_batch_state(2, cfg.channels, p.n_banks,
+                                  p.banks_per_rank, cuda)
+    bad = issue.clone()
+    bad[0, 0, 0] = vec.MAX_PHASE_ISSUE
+    with pytest.raises(ValueError, match="int32 range"):
+        dram_serve_batch(bad, meta, bnd, timing, state)
+    ptr = tuple(x.clone() for x in state)
+    ptr[4][0, 0, 0] = -1
+    with pytest.raises(ValueError, match="pointers"):
+        dram_serve_batch(issue, meta, bnd, timing, ptr)
+    with pytest.raises(ValueError, match="cases"):
+        dram_serve_batch(issue[None].expand(3, -1, -1, -1).contiguous(),
+                         meta[None].expand(3, -1, -1, -1).contiguous(),
+                         bnd[None].expand(3, -1).contiguous(), timing,
+                         state)
+    with pytest.raises(ValueError, match="tensors on"):
+        dram_serve_batch(issue, meta, bnd.cpu(), timing, state)
+
+
+@pytest.mark.parametrize("batch_memories", [True, False])
+def test_sweep_on_card_equals_cpu(cuda, batch_memories):
+    """A timing grid (one shared pack an accelerator), a density grid and
+    a clock pair (HitGraph's default memory and DDR3-1333H, stacked packs
+    of one shape) on the card, rows equal to the CPU sweep's; the batched
+    sweep serves through ``dram_serve_batch`` alone."""
+    import dataclasses
+    from repro_torch.kernels import launch_counts, zero_launch_counts
+    from repro_torch.sim import (TIMING_PRESETS, Sweeper, get_accelerator,
+                                 sweep, timing_variants)
+    from repro_torch.sim.session import resolve_run_config
+    g = rmat(8, 5, seed=7).undirected_view()
+    default = resolve_run_config(get_accelerator("hitgraph")).dram_config()
+    slower = dataclasses.replace(default, clock_ghz=2 / 3,
+                                 timing=TIMING_PRESETS["ddr3-1333"],
+                                 name=f"{default.name}@ddr3-1333")
+    grids = [dict(accelerators=["hitgraph", "accugraph"],
+                  memories=[None] + timing_variants(
+                      "ddr4", kinds=("ddr3", "hbm2"))),
+             dict(accelerators=["accugraph"], memories=[None, "ddr4-8gb"]),
+             dict(accelerators=["hitgraph"], memories=[None, slower])]
+    for kw in grids:
+        zero_launch_counts()
+        sw = Sweeper(batch_memories=batch_memories, workers=2)
+        rows = sweep(graphs=[g], problems=["wcc"], sweeper=sw, **kw)
+        launches = launch_counts()
+        want = sweep(graphs=[g], problems=["wcc"], device="cpu",
+                     batch_memories=batch_memories, **kw)
+        assert [r.report for r in rows] == [r.report for r in want]
+        if batch_memories:
+            assert launches["dram_serve_batch"] == \
+                sw.stats.batch_dispatches
+            assert launches["dram_serve"] == 0
+        else:
+            assert launches["dram_serve_batch"] == 0
+            assert launches["dram_serve"] == len(rows)

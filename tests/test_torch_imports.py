@@ -51,6 +51,9 @@ _EVENT_MODULES = {"repro_torch.core.timing", "repro_torch.core.abstractions",
                   "repro_torch.core.optimizations",
                   "repro_torch.algorithms.reference"}
 
+#: the modules of the sweep slice (the sweep engine)
+_SWEEP_MODULES = {"repro_torch.sim.sweep"}
+
 #: an import statement naming jax or the JAX package (not repro_torch)
 _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
                      re.M)
@@ -67,7 +70,7 @@ def test_import_leaves_jax_and_repro_out():
     assert int(n) >= 24
     assert bad == "[]", bad
     assert (_DYNAMIC_MODULES | _STATIONARY_MODULES | _CACHE_MODULES
-            | _EVENT_MODULES <= set(names.split())), names
+            | _EVENT_MODULES | _SWEEP_MODULES <= set(names.split())), names
 
 
 def test_no_jax_or_repro_import_in_sources():
@@ -115,6 +118,11 @@ def test_entry_points_raise_without_cuda(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA"):
         simulate_trace_device(Trace([1, 2], [False, False], [0, 0]),
                               ddr4_2400r())
+    from repro_torch.sim import Sweeper, sweep
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Sweeper(batch_memories=True)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        sweep(graphs=[g], problems=["wcc"])
 
 
 def test_later_slices_raise_not_implemented():
@@ -140,3 +148,6 @@ def test_later_slices_raise_not_implemented():
         simulate("karate", "wcc", device="cpu")
     with pytest.raises(TypeError):
         run_dynamic("karate", "wcc", updates="pa-growth", device="cpu")
+    from repro_torch.sim import sweep
+    with pytest.raises(TypeError, match="ROADMAP.md"):
+        sweep(graphs=["karate"], problems=["wcc"], device="cpu")

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """A/B of design variants of the serve's carry chain on one GPU.
 
-    python3 tools/serve_variants.py [--out FILE]
+    python3 tools/serve_variants.py [--out FILE] [--baseline FILE]
 
 Each variant is ``src/repro_torch/csrc/dram_serve.cu`` with a few
 textual edits (below, each edit must match exactly once).  All variants
@@ -33,6 +33,13 @@ Variants:
 - ``direct_stores``: each finish stored by its lane, one global store a
   lane a step, in place of staging a ring chunk's finishes in shared
   memory and storing them by the whole warp.
+- ``baseline`` (``--baseline FILE``, in place of the variants above):
+  another source of the serve with the same ``repro_dram_serve_batch``
+  entry point (or an earlier source's single-case ``repro_dram_serve``,
+  which takes no case count), built as it is, e.g. an earlier commit's
+  (``git show <commit>:src/repro_torch/csrc/dram_serve.cu >
+  build/baseline.cu``), to A/B a change of the committed source against
+  it.
 
 Prints one JSON line per program and variant, then the card's name and
 power limit.
@@ -224,27 +231,37 @@ def variant_source(edits) -> str:
     return src
 
 
-def build_all(names):
-    """Compile every variant in parallel; name -> loaded library."""
+def build_all(names, baseline=None):
+    """Compile every variant (and ``baseline``, a source file, when
+    given) in parallel; name -> loaded library."""
     OUT_DIR.mkdir(parents=True, exist_ok=True)
     procs = []
     for name in names:
         cu = OUT_DIR / f"{name}.cu"
-        cu.write_text(variant_source(VARIANTS[name]))
+        cu.write_text(baseline.read_text() if name == "baseline"
+                      else variant_source(VARIANTS[name]))
         so = OUT_DIR / f"{name}.so"
         procs.append((name, so, subprocess.Popen(
             [build.nvcc_path(), *build.NVCC_FLAGS, "-shared", str(cu), "-o",
              str(so)], stderr=subprocess.PIPE, text=True)))
     libs = {}
-    argtypes, restype = build.SIGNATURES["repro_dram_serve"]
+    argtypes, restype = build.SIGNATURES["repro_dram_serve_batch"]
     for name, so, p in procs:
         err = p.communicate(timeout=600)[1]
         if p.returncode:
             raise SystemExit(f"{name} does not build:\n{err[-4000:]}")
         lib = ctypes.CDLL(str(so))
-        lib.repro_dram_serve.argtypes = argtypes
-        lib.repro_dram_serve.restype = restype
-        libs[name] = lib
+        if hasattr(lib, "repro_dram_serve_batch"):
+            # one case: M = 1 before the stream
+            fn, cases = lib.repro_dram_serve_batch, (1,)
+            fn.argtypes = argtypes
+        else:
+            # a source from before the case axis: the same arguments
+            # without M
+            fn, cases = lib.repro_dram_serve, ()
+            fn.argtypes = argtypes[:-2] + argtypes[-1:]
+        fn.restype = restype
+        libs[name] = (fn, cases)
     return libs
 
 
@@ -270,11 +287,16 @@ def main() -> int:
     ap.add_argument("--reps", type=int, default=2)
     ap.add_argument("--out", type=Path, default=None,
                     help="also write the JSON lines to this file")
+    ap.add_argument("--baseline", type=Path, default=None,
+                    help="time the committed source against this serve "
+                         "source alone")
     args = ap.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs a CUDA device")
     dev = torch.device("cuda")
-    libs = build_all(list(VARIANTS))
+    names = (list(VARIANTS) if args.baseline is None
+             else ["committed", "baseline"])
+    libs = build_all(names, args.baseline)
     wt = instantiate("wt", 1.0).undirected_view()
     lines, bad = [], []
     for acc in ("hitgraph", "accugraph"):
@@ -289,11 +311,11 @@ def main() -> int:
 
         def call(name):
             stream = torch.cuda.current_stream().cuda_stream
-            code = libs[name].repro_dram_serve(
-                rec.data_ptr(), full[3].data_ptr(),
-                *(x.data_ptr() for x in cold), fin.data_ptr(),
-                *(x.data_ptr() for x in out), S, rec.shape[1], T, C, K, B,
-                R, stream)
+            fn, cases = libs[name]
+            code = fn(rec.data_ptr(), full[3].data_ptr(),
+                      *(x.data_ptr() for x in cold), fin.data_ptr(),
+                      *(x.data_ptr() for x in out), S, rec.shape[1], T, C,
+                      K, B, R, *cases, stream)
             if code:
                 raise SystemExit(f"{name}: CUDA error {code}")
 
