@@ -146,7 +146,24 @@ Phases, one JSON line each:
               equal to the batched rows, and one ``updates="pa-growth"``
               AccuGraph case on ``instantiate("wt", 0.1)`` equal to
               ``run_dynamic`` epoch
-              for epoch (``sweep_paths``).  Then the script's wall time.
+              for epoch (``sweep_paths``).
+11. corpus  — the corpus at each preset's own size, every graph built
+              by the port into a fresh, empty store: the grid of
+              ``benchmarks/corpus_sweep.py`` (6 presets x WCC, PR x both
+              accelerators x default memory, HBM2: 48 rows) through
+              ``Sweeper(workers=2)``; its ordering arms (``powerlaw-
+              social:{degree,bfs,shuffle}``, ``road-grid:{bfs,shuffle}``,
+              WCC, 10 rows) through a batched sweeper; AccuGraph WCC with
+              its BRAM (``cache="default"``) on each grid graph (6 rows);
+              one ``ScenarioSpec`` (an ordering, HBM2 and the BRAM) beside
+              its keyword form, and one dynamic spec (``pa-growth``)
+              beside ``run_dynamic`` on the preset's name.  Every
+              fingerprint, row, counter, warning and epoch equal to the
+              JAX package's pins (``tools/corpus_pins.py``), the
+              benchmark's contracts asserted where those pins hold them,
+              and the launch counts zeroed around each part: every
+              kernel of the port's paths launched.  Then the script's
+              wall time.
 
 Then the kernel table, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -162,6 +179,7 @@ import json
 import subprocess
 import sys
 import time
+import warnings
 from pathlib import Path
 
 import numpy as np
@@ -290,6 +308,259 @@ SWEEP_STATS = {"cases": 8, "algo_runs": 2, "algo_cache_hits": 6,
                "batched_cases": 8, "batch_dispatches": 2}
 SWEEP_WINDOW = 1024
 SWEEP_DYNAMIC_SCALE = 0.1
+
+#: phase 11, the corpus: the grid, the ordering arms and the BRAM cases of
+#: benchmarks/corpus_sweep.py at each preset's own size (graph_scale=1.0,
+#: no cut), then two scenarios in the ScenarioSpec form
+CORPUS = ("karate", "rmat-16", "kron-social", "powerlaw-social",
+          "road-grid", "lj-sample")
+CORPUS_PROBLEMS = ("wcc", "pr")
+CORPUS_ACCELERATORS = ("hitgraph", "accugraph")
+CORPUS_MEMORIES = (None, "hbm2")
+CORPUS_ORDERINGS = ("powerlaw-social:degree", "powerlaw-social:bfs",
+                    "powerlaw-social:shuffle", "road-grid:bfs",
+                    "road-grid:shuffle")
+CORPUS_SPEC = {"graph": "powerlaw-social", "problem": "wcc",
+               "ordering": "degree", "accelerator": "accugraph",
+               "memory": "hbm2", "cache": "default"}
+CORPUS_DYNAMIC = {"graph": "powerlaw-social", "problem": "wcc",
+                  "updates": "pa-growth", "accelerator": "accugraph"}
+CORPUS_STAT_KEYS = ("cases", "algo_runs", "algo_cache_hits",
+                    "pack_cache_hits", "pack_cache_misses", "batched_cases",
+                    "batch_dispatches")
+#: the kernels phase 11 must launch (``sweep_min``, the round sweep's
+#: serial route past its round budget, may; ``dram_timing_serial`` is
+#: on no path)
+CORPUS_KERNELS = ("dram_serve", "serve_prepass", "dram_serve_batch",
+                  "serve_prepass_batch", "dram_timing", "sweep_min_rounds",
+                  "segment_reduce", "edge_scatter", "spmv_ell",
+                  "cache_lookup")
+
+# ---- corpus pins: written by tools/corpus_pins.py ----
+#: the JAX package's numbers for phase 11, made on the CPU by the same calls
+CORPUS_GRAPHS = {
+    'karate': ('karate', 34, 156, '0469df9766907f391dec291af8a2306b'),
+    'rmat-16': ('rmat-16', 65536, 1048576, 'a305eb5a5c3a2e8720f8a14bb32db287'),
+    'kron-social':
+        ('kron-social', 65536, 786432, '2418ebcfdc1fe1aed5f5101dbc7b9cbe'),
+    'powerlaw-social':
+        ('powerlaw-social', 65536, 1048576, '7296b431a2d5cac0f626545f5caa0c8a'),
+    'road-grid':
+        ('road-grid', 65536, 261120, 'b48e698f188af1a7d6b087a65218a82b'),
+    'lj-sample':
+        ('lj-sample', 24237, 344968, 'bf569d436e52388cd6c08d3c292a4b5b'),
+    'powerlaw-social:degree':
+        ('powerlaw-social+degsort', 65536, 1048576, 'be214a8193036b6136bd2a9531434e96'),
+    'powerlaw-social:bfs':
+        ('powerlaw-social+bfsorder', 65536, 1048576, '76ca63441327faa59e3b393ae2ec2565'),
+    'powerlaw-social:shuffle':
+        ('powerlaw-social+shuffle', 65536, 1048576, '4cd39aec5b8543f2f48c037b834f3c0f'),
+    'road-grid:bfs':
+        ('road-grid+bfsorder', 65536, 261120, 'fb071193d9228710283d42e53be95735'),
+    'road-grid:shuffle':
+        ('road-grid+shuffle', 65536, 261120, '911452fe73280d0f3a78c9f83c249f9d'),
+}
+CORPUS_PINS = {
+    ('karate', 'wcc', 'hitgraph', 'default', 'none'):
+        (823.75, 140, 4, 139, 0, 0, 'eb763621d8425a6c'),
+    ('karate', 'wcc', 'hitgraph', 'hbm2', 'none'):
+        (558.0, 140, 4, 132, 0, 0, 'f5db3981257e201f'),
+    ('karate', 'wcc', 'accugraph', 'default', 'none'):
+        (274.1666666666667, 53, 3, 52, 0, 0, '91f1a74f0495efe5'),
+    ('karate', 'wcc', 'accugraph', 'hbm2', 'none'):
+        (245.0, 53, 3, 45, 0, 0, '29b5ab11ec09b1c2'),
+    ('karate', 'pr', 'hitgraph', 'default', 'none'):
+        (236.25, 39, 1, 38, 0, 0, 'd8296a92d996e50c'),
+    ('karate', 'pr', 'hitgraph', 'hbm2', 'none'):
+        (147.0, 39, 1, 31, 0, 0, 'df8a2fb88f9c4c9d'),
+    ('karate', 'pr', 'accugraph', 'default', 'none'):
+        (103.33333333333334, 19, 1, 18, 0, 0, 'fd690427372eb336'),
+    ('karate', 'pr', 'accugraph', 'hbm2', 'none'):
+        (91.0, 19, 1, 11, 0, 0, '6f7a2eaf5a6c6292'),
+    ('rmat-16', 'wcc', 'hitgraph', 'default', 'none'):
+        (5168218.75, 1033531, 7, 1019542, 0, 0, '0c7d7825aa951583'),
+    ('rmat-16', 'wcc', 'hitgraph', 'hbm2', 'none'):
+        (4695053.0, 1033531, 7, 992755, 0, 0, '742561a80a4e4fcd'),
+    ('rmat-16', 'wcc', 'accugraph', 'default', 'none'):
+        (1366136.6666666667, 303261, 4, 297592, 0, 0, '81259d95963e3859'),
+    ('rmat-16', 'wcc', 'accugraph', 'hbm2', 'none'):
+        (1315138.0, 303261, 4, 290263, 0, 0, 'f5d7ea1516744a4c'),
+    ('rmat-16', 'pr', 'hitgraph', 'default', 'none'):
+        (767398.75, 153466, 1, 151031, 0, 0, 'f39cd7767ee43bfb'),
+    ('rmat-16', 'pr', 'hitgraph', 'hbm2', 'none'):
+        (680647.0, 153466, 1, 146764, 0, 0, '4aea6f547cfe44d1'),
+    ('rmat-16', 'pr', 'accugraph', 'default', 'none'):
+        (341724.1666666667, 77825, 1, 76120, 0, 0, '41c5bf4fd50f4e1b'),
+    ('rmat-16', 'pr', 'accugraph', 'hbm2', 'none'):
+        (328771.0, 77825, 1, 74232, 0, 0, '2b7f8a5ceb6c48b9'),
+    ('kron-social', 'wcc', 'hitgraph', 'default', 'none'):
+        (4689331.25, 937737, 8, 923398, 0, 0, '490a97f37fcd9327'),
+    ('kron-social', 'wcc', 'hitgraph', 'hbm2', 'none'):
+        (4102804.0, 937737, 8, 901473, 0, 0, 'fb660e08bdd25ff4'),
+    ('kron-social', 'wcc', 'accugraph', 'default', 'none'):
+        (1038866.6666666667, 237772, 4, 232585, 0, 0, '5c80e1b0ebaa58c5'),
+    ('kron-social', 'wcc', 'accugraph', 'hbm2', 'none'):
+        (987458.0, 237772, 4, 226843, 0, 0, '738ecbfb2be99e35'),
+    ('kron-social', 'pr', 'hitgraph', 'default', 'none'):
+        (623808.75, 124748, 1, 122289, 0, 0, 'a8b8276265d40a75'),
+    ('kron-social', 'pr', 'hitgraph', 'hbm2', 'none'):
+        (526932.0, 124748, 1, 119444, 0, 0, '9757a18963d07864'),
+    ('kron-social', 'pr', 'accugraph', 'default', 'none'):
+        (259930.83333333334, 61441, 1, 59856, 0, 0, '9cae4b72ec7ba44b'),
+    ('kron-social', 'pr', 'accugraph', 'hbm2', 'none'):
+        (246851.0, 61441, 1, 58399, 0, 0, '1636adac042e0f11'),
+    ('powerlaw-social', 'wcc', 'hitgraph', 'default', 'none'):
+        (5262778.75, 1052443, 7, 1038376, 0, 0, '686b5b6e3b7f5919'),
+    ('powerlaw-social', 'wcc', 'hitgraph', 'hbm2', 'none'):
+        (4748886.0, 1052443, 7, 1013283, 0, 0, 'cc1675aa0daf9a10'),
+    ('powerlaw-social', 'wcc', 'accugraph', 'default', 'none'):
+        (1707483.3333333335, 376214, 5, 369585, 0, 0, '039fd88973b499fb'),
+    ('powerlaw-social', 'wcc', 'accugraph', 'hbm2', 'none'):
+        (1643927.0, 376214, 5, 360593, 0, 0, 'f2355cbe94deb075'),
+    ('powerlaw-social', 'pr', 'hitgraph', 'default', 'none'):
+        (797708.75, 159528, 1, 156791, 0, 0, 'ad75af4132130d03'),
+    ('powerlaw-social', 'pr', 'hitgraph', 'hbm2', 'none'):
+        (695977.0, 159528, 1, 152920, 0, 0, 'f028ae71b48e2182'),
+    ('powerlaw-social', 'pr', 'accugraph', 'default', 'none'):
+        (341724.1666666667, 77825, 1, 76120, 0, 0, '6e0d0353bd2620dc'),
+    ('powerlaw-social', 'pr', 'accugraph', 'hbm2', 'none'):
+        (328771.0, 77825, 1, 74232, 0, 0, '4354416c12c67185'),
+    ('road-grid', 'wcc', 'hitgraph', 'default', 'none'):
+        (130799573.75, 26151486, 511, 25525151, 0, 0, 'ee3eb93c2856c947'),
+    ('road-grid', 'wcc', 'hitgraph', 'hbm2', 'none'):
+        (93989416.0, 26151486, 511, 24925927, 0, 0, '209dd6c9e70de949'),
+    ('road-grid', 'wcc', 'accugraph', 'default', 'none'):
+        (198643.33333333334, 53122, 2, 51081, 0, 0, 'e590d5237f5ee32d'),
+    ('road-grid', 'wcc', 'accugraph', 'hbm2', 'none'):
+        (165401.0, 53122, 2, 49849, 0, 0, '7e50a99067effc1c'),
+    ('road-grid', 'pr', 'hitgraph', 'default', 'none'):
+        (306628.75, 61312, 1, 59310, 0, 0, '7268cf7c0052a032'),
+    ('road-grid', 'pr', 'hitgraph', 'hbm2', 'none'):
+        (204439.0, 61312, 1, 57908, 0, 0, '97d36bc7ac0e3efe'),
+    ('road-grid', 'pr', 'accugraph', 'default', 'none'):
+        (103339.16666666667, 28609, 1, 27267, 0, 0, '3f05559d4ef79855'),
+    ('road-grid', 'pr', 'accugraph', 'hbm2', 'none'):
+        (82724.0, 28609, 1, 26612, 0, 0, '68e8c661b36f587a'),
+    ('lj-sample', 'wcc', 'hitgraph', 'default', 'none'):
+        (2014366.25, 402755, 8, 396729, 0, 0, '96b8b8bbfcd41106'),
+    ('lj-sample', 'wcc', 'hitgraph', 'hbm2', 'none'):
+        (1794009.0, 402755, 8, 386279, 0, 0, '41c8922c7a1e456a'),
+    ('lj-sample', 'wcc', 'accugraph', 'default', 'none'):
+        (564539.1666666667, 126786, 5, 123997, 0, 0, '9c6e2959b5b11b0a'),
+    ('lj-sample', 'wcc', 'accugraph', 'hbm2', 'none'):
+        (541176.0, 126786, 5, 122239, 0, 0, '87b84fb4d3f3f340'),
+    ('lj-sample', 'pr', 'hitgraph', 'default', 'none'):
+        (268188.75, 53624, 1, 52535, 0, 0, '2e90f02ff91009a4'),
+    ('lj-sample', 'pr', 'hitgraph', 'hbm2', 'none'):
+        (230522.0, 53624, 1, 50997, 0, 0, '762d210dfec4f9c2'),
+    ('lj-sample', 'pr', 'accugraph', 'default', 'none'):
+        (112899.16666666667, 26106, 1, 25441, 0, 0, 'fca9fe499d84b675'),
+    ('lj-sample', 'pr', 'accugraph', 'hbm2', 'none'):
+        (108224.0, 26106, 1, 25072, 0, 0, '2083412d27d247c9'),
+    ('powerlaw-social:degree', 'wcc', 'hitgraph', 'default', 'none'):
+        (4459081.25, 891720, 6, 880434, 0, 0, '7cbfa0eaa9f01045'),
+    ('powerlaw-social:degree', 'wcc', 'accugraph', 'default', 'none'):
+        (1024549.1666666667, 225336, 3, 221420, 0, 0, '5f44425808ab7bde'),
+    ('powerlaw-social:bfs', 'wcc', 'hitgraph', 'default', 'none'):
+        (5249663.75, 1049820, 7, 1036204, 0, 0, '637689e06789f09f'),
+    ('powerlaw-social:bfs', 'wcc', 'accugraph', 'default', 'none'):
+        (683061.6666666667, 151504, 2, 148721, 0, 0, '6f03029314de5256'),
+    ('powerlaw-social:shuffle', 'wcc', 'hitgraph', 'default', 'none'):
+        (6019466.25, 1203764, 8, 1187261, 0, 0, 'fdaf3ac5c960d39c'),
+    ('powerlaw-social:shuffle', 'wcc', 'accugraph', 'default', 'none'):
+        (1707482.5, 376327, 5, 369670, 0, 0, 'ca24edd9ee389560'),
+    ('road-grid:bfs', 'wcc', 'hitgraph', 'default', 'none'):
+        (130647173.75, 26121006, 511, 25521358, 0, 0, '94ef49815891d096'),
+    ('road-grid:bfs', 'wcc', 'accugraph', 'default', 'none'):
+        (198643.33333333334, 53122, 2, 51081, 0, 0, 'baa64774a434ef05'),
+    ('road-grid:shuffle', 'wcc', 'hitgraph', 'default', 'none'):
+        (86771832.5, 17344703, 410, 17161242, 0, 0, '21a985ac421cb09b'),
+    ('road-grid:shuffle', 'wcc', 'accugraph', 'default', 'none'):
+        (10306110.833333334, 2780527, 106, 2674296, 0, 0, '33f3579b57b66e35'),
+    ('karate', 'wcc', 'accugraph', 'default', 'default'):
+        (144.16666666666669, 21, 3, 20, 48, 32, 'b137f51bcaec23b5'),
+    ('rmat-16', 'wcc', 'accugraph', 'default', 'default'):
+        (1366136.6666666667, 303261, 4, 297592, 294916, 0, 'fe136877873644d6'),
+    ('kron-social', 'wcc', 'accugraph', 'default', 'default'):
+        (1038866.6666666667, 237772, 4, 232585, 229380, 0, '2fe75c1b41c1aa26'),
+    ('powerlaw-social', 'wcc', 'accugraph', 'default', 'default'):
+        (1707483.3333333335, 376214, 5, 369585, 368645, 0, '79bb519033a7c27d'),
+    ('road-grid', 'wcc', 'accugraph', 'default', 'default'):
+        (103339.16666666667, 28609, 2, 27267, 49026, 24513, '4ee2acd3eff63fef'),
+    ('lj-sample', 'wcc', 'accugraph', 'default', 'default'):
+        (424177.5, 28422, 5, 27753, 122955, 98364, '46f0bf696e235074'),
+}
+CORPUS_STATS = {
+    'grid': {
+        'cases': 48,
+        'algo_runs': 24,
+        'algo_cache_hits': 24,
+        'pack_cache_hits': 0,
+        'pack_cache_misses': 48,
+        'batched_cases': 0,
+        'batch_dispatches': 0,
+    },
+    'ordering': {
+        'cases': 10,
+        'algo_runs': 10,
+        'algo_cache_hits': 0,
+        'pack_cache_hits': 0,
+        'pack_cache_misses': 10,
+        'batched_cases': 10,
+        'batch_dispatches': 10,
+    },
+    'bram': {
+        'cases': 60,
+        'algo_runs': 24,
+        'algo_cache_hits': 36,
+        'pack_cache_hits': 6,
+        'pack_cache_misses': 54,
+        'batched_cases': 0,
+        'batch_dispatches': 0,
+    },
+}
+CORPUS_CONTRACTS = {
+    'powerlaw-social:degree runtime <= shuffle, hitgraph': True,
+    'powerlaw-social:degree requests <= shuffle, hitgraph': True,
+    'powerlaw-social:bfs runtime <= shuffle, hitgraph': True,
+    'powerlaw-social:bfs requests <= shuffle, hitgraph': True,
+    'road-grid bfs runtime != shuffle, hitgraph': True,
+    'powerlaw-social:degree runtime <= shuffle, accugraph': True,
+    'powerlaw-social:degree requests <= shuffle, accugraph': True,
+    'powerlaw-social:bfs runtime <= shuffle, accugraph': True,
+    'powerlaw-social:bfs requests <= shuffle, accugraph': True,
+    'road-grid bfs runtime != shuffle, accugraph': True,
+    'karate bram lookups > 0': True,
+    'karate bram hit rate > 0': True,
+    'karate bram runtime <= uncached': True,
+    'rmat-16 bram lookups > 0': True,
+    'rmat-16 bram hit rate > 0': False,
+    'rmat-16 bram runtime <= uncached': True,
+    'kron-social bram lookups > 0': True,
+    'kron-social bram hit rate > 0': False,
+    'kron-social bram runtime <= uncached': True,
+    'powerlaw-social bram lookups > 0': True,
+    'powerlaw-social bram hit rate > 0': False,
+    'powerlaw-social bram runtime <= uncached': True,
+    'road-grid bram lookups > 0': True,
+    'road-grid bram hit rate > 0': True,
+    'road-grid bram runtime <= uncached': True,
+    'lj-sample bram lookups > 0': True,
+    'lj-sample bram hit rate > 0': True,
+    'lj-sample bram runtime <= uncached': True,
+}
+CORPUS_SPEC_PIN = (986349.0, 225336, 3, 216067, 221187, 0, 'b75705ae2e266045')
+CORPUS_SPEC_WARNINGS = [
+    'simulate(graph, problem, accelerator=..., cache=..., memory=...) with per-axis keywords is deprecated; migrate to simulate(ScenarioSpec(graph, problem, accelerator=..., cache=..., memory=...))',
+]
+CORPUS_DYNAMIC_PIN = (4906457.5, 1126494, 12, 1110391, 0, 0, 'aaea0cd56eaacaab')
+CORPUS_EPOCH_PINS = [
+    (0, 5, 0, 0, 0, 1707483.3333333335, 376214, '57d8a5824c33a87c'),
+    (1, 3, 20972, 0, 0, 1280337.5, 296087, 'b9d65d3ae4bcac16'),
+    (2, 2, 21391, 0, 0, 950225.0, 225053, 'd763bbc680a77c1d'),
+    (3, 2, 21819, 0, 0, 968411.6666666667, 229140, '5c70bf5c98913445'),
+]
+# ---- end of corpus pins ----
 
 #: the stationary path: problems, iterations, and the largest relative
 #: error of the values against a float64 recompute.  HitGraph's gather
@@ -2223,6 +2494,249 @@ def run_stacked_pair(sweeper, wt, launches, dev, card) -> dict:
     return out
 
 
+def fields_digest(obj) -> str:
+    """SHA-256 (16 hex digits) of every compared field of a report
+    dataclass (``SimReport``, ``EpochReport``; nested ones and lists of
+    them included): equal digests mean equal reports, in either package."""
+    def canon(v):
+        if dataclasses.is_dataclass(v):
+            return {f.name: canon(getattr(v, f.name))
+                    for f in dataclasses.fields(v) if f.compare}
+        if isinstance(v, (list, tuple)):
+            return [canon(x) for x in v]
+        if isinstance(v, np.generic):
+            v = v.item()
+        if v is None or isinstance(v, (bool, str, int, float)):
+            return v
+        raise TypeError(f"no canonical form for {type(v).__name__}")
+    text = json.dumps(canon(obj), sort_keys=True)
+    return hashlib.sha256(text.encode()).hexdigest()[:16]
+
+
+def report_pin(r) -> tuple:
+    """(runtime_ns, total_requests, iterations, row hits, cache lookups,
+    cache hits, digest of every field) of a ``SimReport``."""
+    return (float(r.runtime_ns), int(r.total_requests), int(r.iterations),
+            int(sum(p.row_hits for p in r.phases)), int(r.cache_lookups),
+            int(r.cache_hits), fields_digest(r))
+
+
+def epoch_pin(e) -> tuple:
+    """(epoch, iterations, inserted, deleted, lines invalidated,
+    runtime_ns, total_requests, digest of every field) of an
+    ``EpochReport``."""
+    return (int(e.epoch), int(e.iterations), int(e.inserted),
+            int(e.deleted), int(e.cache_lines_invalidated),
+            float(e.report.runtime_ns), int(e.report.total_requests),
+            fields_digest(e))
+
+
+def graph_pin(g) -> tuple:
+    return (g.name, int(g.n), int(g.m), g.fingerprint)
+
+
+def corpus_runs(sim, on_part=None, scale=1.0, **kw) -> dict:
+    """Phase 11's runs through the simulation API ``sim``: the port's
+    ``repro_torch.sim`` here (``kw`` is ``device=``), the JAX package's
+    ``repro.sim`` in ``tools/corpus_pins.py``, which makes this phase's
+    pins from the same calls.  ``on_part(name)`` is called after each
+    part; ``scale`` is the graphs' ``graph_scale`` (the phase runs 1.0,
+    each preset's own size; the CPU tests a cut one).  The grid and the BRAM cases share ``Sweeper(workers=2)``, as
+    ``benchmarks/corpus_sweep.py`` does; the ordering arms are graphs of
+    their own and go through a batched sweeper (one ``dram_serve_batch``
+    a signature group)."""
+    clock = time.perf_counter
+    out = {"seconds": {}, "stats": {}}
+
+    def part(name, t0, sweeper=None):
+        out["seconds"][name] = clock() - t0
+        if sweeper is not None:
+            out["stats"][name] = {k: getattr(sweeper.stats, k)
+                                  for k in CORPUS_STAT_KEYS}
+        if on_part is not None:
+            on_part(name)
+
+    sweeper = sim.Sweeper(workers=2, **kw)
+    t0 = clock()
+    out["grid"] = sim.sweep(graphs=CORPUS, problems=CORPUS_PROBLEMS,
+                            accelerators=CORPUS_ACCELERATORS,
+                            memories=CORPUS_MEMORIES, fixed_iters=None,
+                            graph_scale=scale, sweeper=sweeper)
+    part("grid", t0, sweeper)
+    batched = sim.Sweeper(workers=2, batch_memories=True, **kw)
+    t0 = clock()
+    out["ordering"] = sim.sweep(graphs=CORPUS_ORDERINGS, problems=("wcc",),
+                                accelerators=CORPUS_ACCELERATORS,
+                                graph_scale=scale, sweeper=batched)
+    part("ordering", t0, batched)
+    t0 = clock()
+    out["bram"] = sim.sweep(graphs=CORPUS, problems=("wcc",),
+                            accelerators=("accugraph",),
+                            caches=(None, "default"), graph_scale=scale,
+                            sweeper=sweeper)
+    part("bram", t0, sweeper)
+    t0 = clock()
+    spec = sim.ScenarioSpec(**CORPUS_SPEC, graph_scale=scale)
+    out["spec"] = sim.simulate(spec, **kw)
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        out["spec_keywords"] = sim.simulate(
+            sim.resolve_graph(spec.resolved_graph(), scale=scale),
+            spec.problem, accelerator=spec.accelerator, memory=spec.memory,
+            cache=spec.cache, **kw)
+    out["spec_warnings"] = [str(w.message) for w in caught
+                            if issubclass(w.category, DeprecationWarning)]
+    out["dynamic_spec"] = sim.simulate(
+        sim.ScenarioSpec(**CORPUS_DYNAMIC, graph_scale=scale), **kw)
+    axes = dict(CORPUS_DYNAMIC)
+    out["dynamic"] = sim.run_dynamic(axes.pop("graph"), axes.pop("problem"),
+                                     **axes, graph_scale=scale, **kw)
+    part("scenario", t0)
+    out["graphs"] = {sel: sim.resolve_graph(sel, scale=scale)
+                     for sel in CORPUS + CORPUS_ORDERINGS}
+    return out
+
+
+def corpus_keyed(out) -> dict:
+    """Every pinned row of :func:`corpus_runs` by (selector, problem,
+    accelerator, memory, cache); the BRAM part's uncached rows are the
+    grid's and are held to them instead."""
+    by_fp = {g.fingerprint: sel for sel, g in out["graphs"].items()}
+    rows = {}
+    for r in out["grid"] + out["ordering"] + [
+            r for r in out["bram"] if r.cache != "none"]:
+        key = (by_fp[r.case.graph.fingerprint], r.case.problem.value,
+               r.report.system, r.memory, r.cache)
+        assert key not in rows, key
+        rows[key] = r
+    return rows
+
+
+def corpus_contracts(rows) -> dict:
+    """The directions ``benchmarks/corpus_sweep.py`` asserts, each True or
+    False, on the keyed rows of :func:`corpus_keyed`."""
+    out = {}
+    for acc in CORPUS_ACCELERATORS:
+        shuf = rows["powerlaw-social:shuffle", "wcc", acc, "default",
+                    "none"].report
+        for arm in ("powerlaw-social:degree", "powerlaw-social:bfs"):
+            loc = rows[arm, "wcc", acc, "default", "none"].report
+            out[f"{arm} runtime <= shuffle, {acc}"] = bool(
+                loc.runtime_ms <= shuf.runtime_ms * 1.0001)
+            out[f"{arm} requests <= shuffle, {acc}"] = bool(
+                loc.total_requests <= shuf.total_requests)
+        rb = rows["road-grid:bfs", "wcc", acc, "default", "none"].report
+        rs = rows["road-grid:shuffle", "wcc", acc, "default", "none"].report
+        out[f"road-grid bfs runtime != shuffle, {acc}"] = bool(
+            abs(rb.runtime_ms - rs.runtime_ms) > 1e-9)
+    for sel in CORPUS:
+        bram = rows[sel, "wcc", "accugraph", "default", "default"].report
+        plain = rows[sel, "wcc", "accugraph", "default", "none"].report
+        out[f"{sel} bram lookups > 0"] = bram.cache_lookups > 0
+        out[f"{sel} bram hit rate > 0"] = bram.cache_hit_rate > 0
+        out[f"{sel} bram runtime <= uncached"] = bool(
+            bram.runtime_ms <= plain.runtime_ms * 1.0001)
+    return out
+
+
+def run_corpus_phase(card, dev) -> dict:
+    """Phase 11, the corpus.  A fresh, empty store directory; every preset
+    built here by the port's generators and parsers; the four parts of
+    :func:`corpus_runs` on the card, with the kernel launch counts zeroed
+    just before and read after each part.  Every graph's fingerprint,
+    every row and report, every epoch, the sweepers' counters and the
+    deprecation warning are held to the JAX package's pins, the
+    contracts to the directions its pins give (each asserted where they
+    hold), the uncached BRAM rows to the grid's, the ScenarioSpec form to
+    the keyword form and the dynamic spec to ``run_dynamic``.  Returns the
+    launches by part."""
+    import os
+    import tempfile
+    from repro_torch import sim
+    from repro_torch.graphs import corpus
+    from repro_torch.kernels import launch_counts, zero_launch_counts
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def on_part(name):
+        launches[name] = launch_counts()
+        zero_launch_counts()
+
+    with tempfile.TemporaryDirectory(prefix="corpus-store-") as tmp:
+        os.environ["REPRO_GRAPH_CACHE_DIR"] = tmp
+        os.environ["REPRO_GRAPH_CACHE"] = "1"
+        store = corpus.default_store()
+        assert store.root == Path(tmp) and not any(store.root.iterdir()), (
+            "the corpus store was opened before phase 11")
+        zero_launch_counts()
+        out = corpus_runs(sim, on_part=on_part, device=dev)
+        stored = sorted(f.name for f in store.root.iterdir())
+    seconds = time.perf_counter() - t_phase
+    graphs = {sel: graph_pin(g) for sel, g in out["graphs"].items()}
+    assert graphs == CORPUS_GRAPHS, graphs
+    assert len({g.fingerprint for sel, g in out["graphs"].items()
+                if sel in CORPUS}) == len(CORPUS)
+    rows = corpus_keyed(out)
+    got = {k: report_pin(r.report) for k, r in rows.items()}
+    assert len(out["grid"]) == 48 and len(out["ordering"]) == 10
+    assert len(got) == len(CORPUS_PINS) == 64, len(got)
+    differ = sorted(k for k in CORPUS_PINS if got.get(k) != CORPUS_PINS[k])
+    assert not differ, [(k, got.get(k), CORPUS_PINS[k]) for k in differ]
+    for r in out["bram"]:
+        if r.cache == "none":
+            twin = rows[r.graph_name, "wcc", "accugraph", "default", "none"]
+            assert r.report == twin.report, r.graph_name
+    assert out["stats"] == CORPUS_STATS, out["stats"]
+    contracts = corpus_contracts(rows)
+    assert contracts == CORPUS_CONTRACTS, contracts
+    held = sorted(k for k, v in contracts.items() if v)
+    # the scenario form
+    assert out["spec"] == out["spec_keywords"]
+    assert report_pin(out["spec"]) == CORPUS_SPEC_PIN, report_pin(
+        out["spec"])
+    assert out["spec_warnings"] == CORPUS_SPEC_WARNINGS, out[
+        "spec_warnings"]
+    dyn = out["dynamic"]
+    assert out["dynamic_spec"] == dyn.report
+    assert report_pin(dyn.report) == CORPUS_DYNAMIC_PIN, report_pin(
+        dyn.report)
+    epochs = [epoch_pin(e) for e in dyn.epochs]
+    assert epochs == CORPUS_EPOCH_PINS, epochs
+    # the store: one build and one file a preset; each ordering arm is
+    # resolved once (the memo is keyed by transform) and reads its base
+    # preset's file
+    builds_hits = {"builds": store.builds, "hits": store.hits,
+                   "files": len(stored)}
+    assert builds_hits == {"builds": len(CORPUS), "files": len(CORPUS),
+                           "hits": len(CORPUS_ORDERINGS)}, builds_hits
+    total = {k: sum(c[k] for c in launches.values()) for k in KERNELS}
+    missing = [k for k in CORPUS_KERNELS if total[k] == 0]
+    assert not missing, f"never launched in phase 11: {missing}"
+    split = {}
+    for name in ("grid", "ordering", "bram"):
+        st = [r.report.stage_seconds for r in out[name]]
+        split[name] = {"prepare_s": sum(x["prepare"] for x in st),
+                       "serve_s": sum(x["serve"] for x in st),
+                       "wall_s": out["seconds"][name]}
+    emit(phase="corpus", seconds=seconds, part_seconds=out["seconds"],
+         stats=out["stats"], store=builds_hits,
+         launches={name: {k: c[k] for k in KERNELS if c[k]}
+                   for name, c in launches.items()},
+         host_serve_split=split, rows_pinned=len(got),
+         graphs={sel: list(v[:3]) for sel, v in graphs.items()},
+         contracts_held=len(held), contracts_left_out=sorted(
+             k for k, v in contracts.items() if not v), card=card)
+    emit(phase="corpus_scenario",
+         spec=dict(zip(("runtime_ns", "total_requests", "iterations",
+                        "row_hits", "cache_lookups", "cache_hits"),
+                       report_pin(out["spec"])[:6])),
+         keyword_form_equal=True, deprecation_warnings=len(
+             out["spec_warnings"]),
+         dynamic_runtime_ns=dyn.report.runtime_ns, epochs=len(epochs),
+         dynamic_spec_equals_run_dynamic=True)
+    return {"launches": launches, "seconds": seconds}
+
+
 def row_fields(row) -> dict:
     """A sweep row's ``as_dict`` without its wall time."""
     d = row.as_dict()
@@ -2515,9 +3029,14 @@ def main() -> int:
     # ---- 10. the sweep engine ------------------------------------------
     swept = run_sweep_phase(wt, card, dev)
     launches.update(swept["launches"])
+
+    # ---- 11. the corpus -------------------------------------------------
+    corp = run_corpus_phase(card, dev)
+    launches.update({f"corpus_{part}": counts
+                     for part, counts in corp["launches"].items()})
     emit(phase="wall", seconds=time.perf_counter() - t_start,
          event_phase_seconds=event_s, sweep_phase_seconds=swept["seconds"],
-         card=card)
+         corpus_phase_seconds=corp["seconds"], card=card)
 
     ds = kernels["dram_serve"]
     hw = ds["windows"]["hitgraph"]

@@ -346,7 +346,9 @@ def simulate(g: Graph, problem: Problem,
              fixed_iters: Optional[int] = None, device=None) -> SimReport:
     """Simulate ``problem`` on HitGraph with ``cfg`` on ``device`` (default
     the card) through :func:`repro_torch.sim.simulate`, the one entry
-    point for all accelerators, memories and backends."""
+    point for all accelerators, memories and backends, as a
+    :class:`~repro_torch.sim.scenario.ScenarioSpec`."""
     from repro_torch import sim
-    return sim.simulate(g, problem, accelerator="hitgraph", config=cfg,
-                        root=root, fixed_iters=fixed_iters, device=device)
+    return sim.simulate(sim.ScenarioSpec(
+        g, problem, accelerator="hitgraph", config=cfg, root=root,
+        fixed_iters=fixed_iters), device=device)

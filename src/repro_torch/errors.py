@@ -1,8 +1,9 @@
 """Typed preset-resolution errors shared by every string-named axis.
 
-Every user-facing axis that resolves names against a registry (memory
-presets, accelerators, variants) raises :class:`UnknownPresetError` on a
-miss: a :class:`KeyError` subclass that names the *axis*, lists the valid
+Every user-facing axis that resolves names against a registry (graph
+presets, ordering transforms, memory and cache presets, accelerators,
+variants, update streams) raises :class:`UnknownPresetError` on a miss:
+a :class:`KeyError` subclass that names the *axis*, lists the valid
 names, and suggests the nearest valid preset.
 """
 

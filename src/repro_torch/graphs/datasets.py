@@ -6,9 +6,8 @@ produces seeded synthetic stand-ins at a configurable ``scale`` fraction
 
 * social / web graphs -> ``degree_matched`` with skew fit from the
   published avg-degree / SCC profile,
-* rmat-24-16 / rmat-21-86 -> faithful R-MAT regeneration.
-
-The road-network family (``grid_road``) comes with a later slice.
+* rmat-24-16 / rmat-21-86 -> faithful R-MAT regeneration,
+* roadnet-ca -> 2-D grid (high diameter, constant degree).
 """
 
 from __future__ import annotations
@@ -78,9 +77,8 @@ def instantiate(abbr: str, scale: float = 1.0, seed: int = 0) -> Graph:
         log_n = max(int(round(math.log2(n))), 6)
         g = gen.rmat(log_n, spec.rmat_degree, seed=seed, name=spec.name)
     elif spec.family == "road":
-        raise NotImplementedError(
-            "the road-network stand-in (grid_road) is not ported yet; "
-            "see ROADMAP.md")
+        side = max(int(math.sqrt(n)), 8)
+        g = gen.grid_road(side, seed=seed, name=spec.name)
     else:
         g = gen.degree_matched(n, m, skew=spec.skew, seed=seed,
                                name=spec.name)

@@ -4,7 +4,8 @@ Each function turns an object of the JAX package (``repro``) into the
 port's equivalent by reading its fields by name.  Nothing here imports
 ``repro``: any object with the right fields converts, so the tests can
 feed both packages identical graphs, configs, programs, runs and update
-batches, and compare their reports and dynamic results.
+batches, scenarios and corpus presets, and compare their reports and
+dynamic results.
 """
 
 from __future__ import annotations
@@ -13,9 +14,9 @@ import dataclasses
 
 import numpy as np
 
-from repro_torch.algorithms.common import IterStats, RunResult
 import torch
 
+from repro_torch.algorithms.common import IterStats, RunResult
 from repro_torch.core.accel import (DevicePackedProgram, PackedProgram,
                                     PhaseStats, SimReport)
 from repro_torch.core.accugraph import AccuGraphConfig
@@ -24,10 +25,13 @@ from repro_torch.core.dram import DRAMConfig, DRAMOrganization, DRAMTiming
 from repro_torch.core.hitgraph import HitGraphConfig
 from repro_torch.core.timing import TraceResult
 from repro_torch.core.trace import SegmentedTrace, Trace
+from repro_torch.graphs.corpus import GraphPreset
 from repro_torch.graphs.formats import Graph
 from repro_torch.graphs.updates import UpdateBatch, UpdateStream
 from repro_torch.sim.dynamic import DynamicResult, EpochReport
+from repro_torch.sim.policy import PartitionPolicy
 from repro_torch.sim.reference_model import ReferenceConfig
+from repro_torch.sim.scenario import ScenarioSpec
 
 
 def _fields(obj, cls, **converted):
@@ -148,3 +152,30 @@ def dynamic_result(r) -> DynamicResult:
         final_graph=graph(r.final_graph),
         checkpoint=(None if r.checkpoint is None
                     else np.asarray(r.checkpoint)))
+
+
+def graph_preset(p) -> GraphPreset:
+    return _fields(p, GraphPreset, params=tuple(p.params))
+
+
+def scenario_spec(s) -> ScenarioSpec:
+    """A scenario by field: names, numbers and ``None`` as they are, each
+    object through the converter for its class, a ``Problem`` as its
+    string value."""
+    convert = {"Graph": graph, "UpdateStream": update_stream,
+               "DRAMConfig": dram_config, "CacheConfig": cache_config,
+               "HitGraphConfig": hitgraph_config,
+               "AccuGraphConfig": accugraph_config,
+               "ReferenceConfig": reference_config,
+               "PartitionPolicy": lambda p: _fields(p, PartitionPolicy)}
+
+    def axis(v):
+        if v is None or isinstance(v, (str, int, float)):
+            return v
+        return convert[type(v).__name__](v)
+
+    return _fields(s, ScenarioSpec,
+                   problem=getattr(s.problem, "value", s.problem),
+                   **{f: axis(getattr(s, f)) for f in (
+                       "graph", "updates", "memory", "cache", "config",
+                       "policy")})

@@ -47,6 +47,7 @@ from repro_torch.core import delta
 from repro_torch.core.accel import SimReport
 from repro_torch.core.trace import Trace
 from repro_torch.device import resolve_device
+from repro_torch.graphs.corpus import GraphLike, resolve_graph
 from repro_torch.graphs.formats import Graph
 from repro_torch.graphs.updates import (UpdatesLike, apply_batch,
                                         resolve_updates)
@@ -54,8 +55,8 @@ from repro_torch.kernels import launch_counts
 from repro_torch.sim.backends import make_backend
 from repro_torch.sim.memory import CacheLike, MemoryLike
 from repro_torch.sim.registry import get_accelerator
-from repro_torch.sim.session import (SimSession, _check_graph,
-                                     _coerce_problem, resolve_run_config)
+from repro_torch.sim.session import (SimSession, _coerce_problem,
+                                     resolve_run_config)
 
 
 @dataclasses.dataclass
@@ -157,20 +158,23 @@ class DynamicTimeline:
     When the timeline *owns* its session (``session=None``), every step
     rebinds it to the mutated graph (:meth:`SimSession.rebind` — a no-op
     for empty batches); a caller-shared session stays bound to the base
-    graph.  Everything runs on ``device`` (default the card; raises
-    without CUDA).
+    graph.  ``graph`` is a :class:`Graph` or a corpus preset name (built
+    at ``graph_scale`` / ``graph_seed``).  Everything runs on ``device``
+    (default the card; raises without CUDA).
     """
 
-    def __init__(self, graph: Graph, problem, *,
+    def __init__(self, graph: GraphLike, problem, *,
                  updates: UpdatesLike = None,
                  accelerator: str = "hitgraph", config=None,
                  memory: MemoryLike = None, cache: CacheLike = None,
                  backend: Optional[str] = None,
                  variant: Optional[str] = None,
                  root: int = 0, fixed_iters: Optional[int] = None,
+                 graph_scale: float = 1.0, graph_seed: int = 0,
                  session: Optional[SimSession] = None, device=None,
                  **overrides):
         self.device = resolve_device(device)
+        graph = resolve_graph(graph, scale=graph_scale, seed=graph_seed)
         self.problem = _coerce_problem(problem)
         self.stream = resolve_updates(updates)
         self._spec = get_accelerator(accelerator)
@@ -185,7 +189,7 @@ class DynamicTimeline:
                 f"(supported: "
                 f"{[p.value for p in incremental.INCREMENTAL_PROBLEMS]})")
         self._owns_session = session is None
-        self._session = (SimSession(_check_graph(graph)) if session is None
+        self._session = (SimSession(graph) if session is None
                          else session)
         self.base_graph = self._session.graph
         self._root = root
@@ -340,12 +344,13 @@ class DynamicTimeline:
             checkpoint=self.verify() if verify else None)
 
 
-def run_dynamic(graph: Graph, problem, *, updates: UpdatesLike,
+def run_dynamic(graph: GraphLike, problem, *, updates: UpdatesLike,
                 accelerator: str = "hitgraph", config=None,
                 memory: MemoryLike = None, cache: CacheLike = None,
                 backend: Optional[str] = None,
                 variant: Optional[str] = None,
                 root: int = 0, fixed_iters: Optional[int] = None,
+                graph_scale: float = 1.0, graph_seed: int = 0,
                 session: Optional[SimSession] = None,
                 verify: bool = False, device=None,
                 **overrides) -> DynamicResult:
@@ -354,7 +359,10 @@ def run_dynamic(graph: Graph, problem, *, updates: UpdatesLike,
     ``updates=None`` degenerates to the static pipeline wrapped in a
     single epoch-0 row.  ``session`` shares the static-prefix caches with
     other runs on the same graph; ``verify`` recomputes the final graph
-    statically and checks bit-identity."""
+    statically and checks bit-identity.  ``graph`` is a :class:`Graph` or
+    a corpus preset name, built at ``graph_scale`` / ``graph_seed``."""
+    device = resolve_device(device)
+    graph = resolve_graph(graph, scale=graph_scale, seed=graph_seed)
     # a shared-or-fresh session is passed through explicitly, so the
     # timeline never rebinds a caller's per-graph session
     timeline = DynamicTimeline(
@@ -362,7 +370,7 @@ def run_dynamic(graph: Graph, problem, *, updates: UpdatesLike,
         config=config, memory=memory, cache=cache, backend=backend,
         variant=variant, root=root, fixed_iters=fixed_iters,
         session=(session if session is not None
-                 else SimSession(_check_graph(graph))),
+                 else SimSession(graph)),
         device=device, **overrides)
     n_epochs = timeline.stream.epochs if timeline.stream is not None \
         else 0

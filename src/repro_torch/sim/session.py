@@ -1,9 +1,11 @@
 """Session facade: the public entry point for running simulations.
 
-``simulate(graph, problem, accelerator=..., memory=..., device=...)``
-resolves the accelerator spec, the memory device and the DRAM backend,
-and returns the shared :class:`~repro_torch.core.accel.SimReport`.  It
-runs on the card unless ``device`` says otherwise.
+``simulate(graph, problem, accelerator=..., memory=..., device=...)``, or
+``simulate(ScenarioSpec(...), device=...)``, resolves the graph (a
+:class:`Graph` or a corpus preset name), the accelerator spec, the memory
+device and the DRAM backend, and returns the shared
+:class:`~repro_torch.core.accel.SimReport`.  It runs on the card unless
+``device`` says otherwise.
 
 :class:`SimSession` binds a graph and caches, across repeated calls:
 
@@ -24,8 +26,7 @@ share one session per graph); a session rebinds to a mutated graph
 
 ``simulate(..., updates=...)`` runs a dynamic-graph update stream through
 :func:`repro_torch.sim.dynamic.run_dynamic` and returns its aggregate
-report.  Not in this slice (each raises and names ROADMAP.md): corpus
-preset names and ``ScenarioSpec`` as the graph argument.
+report.
 """
 
 from __future__ import annotations
@@ -40,7 +41,7 @@ from repro_torch.algorithms.common import Problem, RunResult
 from repro_torch.core import cache as cache_mod
 from repro_torch.core.accel import SimReport, pack_program_auto
 from repro_torch.device import resolve_device
-from repro_torch.graphs.formats import Graph
+from repro_torch.graphs.corpus import GraphLike, resolve_graph
 from repro_torch.sim.memory import (CacheLike, MemoryLike, resolve_cache,
                                    resolve_memory)
 from repro_torch.sim.policy import resolve_partitioned_config
@@ -69,14 +70,6 @@ def resolve_run_config(spec, config=None, memory: MemoryLike = None,
         # must not discard the requested on-chip cache
         cfg = spec.make_config(cfg, cache=cache_cfg)
     return cfg
-
-
-def _check_graph(graph) -> Graph:
-    if not isinstance(graph, Graph):
-        raise TypeError(
-            f"expected a Graph, got {type(graph).__name__}; corpus preset "
-            "names come with a later slice (see ROADMAP.md)")
-    return graph
 
 
 def _dram_cfg_key(spec_name: str, config, include_cache: bool):
@@ -117,8 +110,10 @@ class SimSession:
     #: insertion-order eviction; only reuse beyond the window re-packs.
     PACK_CACHE_CAP = 256
 
-    def __init__(self, graph: Graph):
-        self.graph = _check_graph(graph)
+    def __init__(self, graph: GraphLike):
+        # corpus preset names resolve here, so a session can be opened
+        # directly on a scenario: ``SimSession("powerlaw-social")``
+        self.graph = resolve_graph(graph)
         self._lock = threading.Lock()
         self._runs: Dict[object, Future] = {}
         self._models: Dict[object, Future] = {}
@@ -240,12 +235,12 @@ class SimSession:
             self.invalidations += 1
         return dropped
 
-    def rebind(self, graph: Graph, touched_partitions) -> int:
+    def rebind(self, graph: GraphLike, touched_partitions) -> int:
         """Swap the resident graph (a long-lived session whose graph
         evolves in place) and invalidate accordingly.  Returns the number
         of cache entries dropped."""
         dropped = self.invalidate(touched_partitions)
-        self.graph = _check_graph(graph)
+        self.graph = resolve_graph(graph)
         return dropped
 
     def run(self, problem, accelerator: str = "hitgraph", *,
@@ -275,7 +270,7 @@ class SimSession:
         return report
 
 
-def simulate(graph: Graph, problem=None,
+def simulate(graph: GraphLike, problem=None,
              accelerator: str = "hitgraph", *,
              config=None, memory: MemoryLike = None,
              cache: CacheLike = None,
@@ -286,7 +281,12 @@ def simulate(graph: Graph, problem=None,
 
     Parameters
     ----------
-    graph:        a :class:`Graph`.
+    graph:        a :class:`Graph` instance, a corpus preset name
+                  (``"karate"``, ``"powerlaw-social:degree"``, ... — see
+                  :data:`repro_torch.graphs.corpus.GRAPH_PRESETS`), or a
+                  :class:`~repro_torch.sim.scenario.ScenarioSpec` bundling
+                  every scenario axis (the preferred form; the per-axis
+                  keywords below stay as a deprecated adapter).
     problem:      a :class:`Problem` or its string value (``"wcc"``,
                   ``"bfs"``, ``"sssp"``, ``"pr"``, ``"spmv"``).
     accelerator:  registered name (``"hitgraph"``, ``"accugraph"``,
@@ -319,19 +319,29 @@ def simulate(graph: Graph, problem=None,
     backend:      ``"vectorized"`` (the fused serve), ``"event"`` (the
                   element-granularity replay on the host; slow), or
                   ``None`` for the accelerator's preferred backend.
+
+    ``backend`` and ``device`` are execution knobs, not scenario axes:
+    they stay keywords even for the ``ScenarioSpec`` form.
     """
-    if problem is None:
-        raise TypeError("simulate() needs a problem")
+    from repro_torch.sim.scenario import coerce_scenario
+    spec = coerce_scenario(
+        "simulate", graph, problem, accelerator=accelerator,
+        config=config, memory=memory, cache=cache, variant=variant,
+        updates=updates, root=root, fixed_iters=fixed_iters)
     device = resolve_device(device)
-    cfg = resolve_partitioned_config(config, graph)
-    if updates is not None:
+    g = resolve_graph(spec.resolved_graph(), scale=spec.graph_scale,
+                      seed=spec.graph_seed)
+    cfg = resolve_partitioned_config(spec.resolved_config(), g)
+    if spec.updates is not None:
         from repro_torch.sim.dynamic import run_dynamic
         return run_dynamic(
-            graph, problem, updates=updates, accelerator=accelerator,
-            config=cfg, memory=memory, cache=cache, backend=backend,
-            variant=variant, root=root, fixed_iters=fixed_iters,
-            device=device, **overrides).report
-    return SimSession(graph).run(
-        problem, accelerator, config=cfg, memory=memory, cache=cache,
-        backend=backend, variant=variant, root=root,
-        fixed_iters=fixed_iters, device=device, **overrides)
+            g, spec.problem, updates=spec.updates,
+            accelerator=spec.accelerator, config=cfg, memory=spec.memory,
+            cache=spec.cache, backend=backend, variant=spec.variant,
+            root=spec.root, fixed_iters=spec.fixed_iters, device=device,
+            **overrides).report
+    return SimSession(g).run(
+        spec.problem, spec.accelerator, config=cfg, memory=spec.memory,
+        cache=spec.cache, backend=backend, variant=spec.variant,
+        root=spec.root, fixed_iters=spec.fixed_iters, device=device,
+        **overrides)

@@ -25,8 +25,10 @@ What is shared and what is not:
   a shape are served together by one batched serve
   (``dram_serve_batch``: one CTA a case on the card).
 
-Not in this slice (each raises and names ROADMAP.md): corpus preset names
-as graphs, ``ScenarioSpec`` cases and ``devices > 1``.
+Graphs are :class:`Graph` values or corpus preset names, resolved when a
+case is built; cases may be :class:`~repro_torch.sim.scenario.ScenarioSpec`
+values.  Not in this slice (it raises and names ROADMAP.md):
+``devices > 1``.
 """
 
 from __future__ import annotations
@@ -48,6 +50,7 @@ from repro_torch.core.accel import (DevicePackedProgram, ProgramStats,
                                     SimReport, finalize_program,
                                     finalize_program_device, serve_packed)
 from repro_torch.device import resolve_device
+from repro_torch.graphs.corpus import GraphLike, resolve_graph
 from repro_torch.graphs.formats import Graph
 from repro_torch.graphs.updates import (UpdatesLike, resolve_updates,
                                         updates_name)
@@ -56,16 +59,18 @@ from repro_torch.sim.memory import (CacheLike, MemoryLike, cache_name,
                                     resolve_memory)
 from repro_torch.sim.policy import resolve_partitioned_config
 from repro_torch.sim.registry import get_accelerator
-from repro_torch.sim.session import (SimSession, _check_graph,
-                                     _coerce_problem)
+from repro_torch.sim.scenario import ScenarioSpec
+from repro_torch.sim.session import SimSession, _coerce_problem
 
 
 @dataclasses.dataclass(frozen=True)
 class SweepCase:
     """One grid point of a sweep.
 
-    ``graph`` is a :class:`Graph` (corpus preset names come with a later
-    slice; see ROADMAP.md).  ``config`` may carry a
+    ``graph`` is a :class:`Graph` or a corpus preset name (resolved here,
+    at ``graph_scale`` / ``graph_seed``, through the memoized corpus
+    cache, so every case naming one scenario shares one graph object and
+    one session).  ``config`` may carry a
     :class:`~repro_torch.sim.policy.PartitionPolicy` in its
     ``partition_elements`` field; it resolves against the graph here, so
     every downstream consumer sees a concrete config.
@@ -77,10 +82,9 @@ class SweepCase:
     thread.  A non-``None`` ``updates`` (an ``UPDATE_PRESETS`` name or an
     ``UpdateStream``) makes the case dynamic: it runs
     :func:`repro_torch.sim.dynamic.run_dynamic` and yields one aggregate
-    row with the per-epoch reports attached (:attr:`SweepRow.epochs`).
-    ``graph_scale`` / ``graph_seed`` are kept for corpus names."""
+    row with the per-epoch reports attached (:attr:`SweepRow.epochs`)."""
 
-    graph: Graph
+    graph: GraphLike
     problem: Problem
     accelerator: str = "hitgraph"
     memory: MemoryLike = None
@@ -95,7 +99,10 @@ class SweepCase:
 
     def __post_init__(self):
         object.__setattr__(self, "problem", _coerce_problem(self.problem))
-        _check_graph(self.graph)
+        object.__setattr__(
+            self, "graph",
+            resolve_graph(self.graph, scale=self.graph_scale,
+                          seed=self.graph_seed))
         object.__setattr__(
             self, "config",
             resolve_partitioned_config(self.config, self.graph))
@@ -144,7 +151,11 @@ class SweepRow:
     """One simulated grid point.  A dynamic case stays 1:1 with its grid
     point: ``report`` aggregates the whole update timeline and ``epochs``
     carries the per-epoch :class:`~repro_torch.sim.dynamic.EpochReport`
-    rows (``None`` for static cases)."""
+    rows (``None`` for static cases).  A static case served by the sweep
+    records in ``report.stage_seconds`` its ``prepare`` seconds (algorithm
+    run, model, trace and pack, on a worker) and its ``serve`` seconds
+    (its share of a batched serve); ``run_case`` keeps the session's
+    stages."""
 
     case: SweepCase
     report: SimReport
@@ -368,9 +379,9 @@ class Sweeper:
         caches, the packed program through the geometry-keyed pack cache.
 
         On the card the workers launch work (the algorithm engine, the
-        device pack) while other threads serve; ``run_timed`` synchronises
-        the device, so a report's ``stage_seconds`` then include other
-        threads' work.  Those timings are not sweep fields."""
+        device pack) while other threads serve, so a row's ``prepare``
+        and ``serve`` seconds may include other threads' work.  Those
+        timings are not sweep fields."""
         if case.updates is not None:
             # dynamic cases go through run_case on the serving thread in
             # every mode: their epochs share one mutating memory timeline
@@ -448,9 +459,11 @@ class Sweeper:
                         return s
                     stats = self._guard(i, case, _serve)
                     stats.attach_cache(cstats)
-                    rows[i] = SweepRow(
-                        case, model.make_report(case.problem, run_, stats),
-                        prep_s + time.perf_counter() - t0)
+                    report = model.make_report(case.problem, run_, stats)
+                    serve_s = time.perf_counter() - t0
+                    report.stage_seconds = {"prepare": prep_s,
+                                            "serve": serve_s}
+                    rows[i] = SweepRow(case, report, prep_s + serve_s)
             except BaseException:
                 # stop at this case boundary: drop queued preps (running
                 # ones finish under the executor's exit) and let the
@@ -485,8 +498,9 @@ class Sweeper:
             else:
                 stats = finalize_program(packed, fins[m])
             stats.attach_cache(cstats)
-            rows[i] = SweepRow(case, model.make_report(
-                case.problem, run_, stats), wall + share)
+            report = model.make_report(case.problem, run_, stats)
+            report.stage_seconds = {"prepare": wall, "serve": share}
+            rows[i] = SweepRow(case, report, wall + share)
 
     def _run_batched(self, cases: Sequence[SweepCase],
                      control=None) -> List[SweepRow]:
@@ -534,7 +548,7 @@ class Sweeper:
         return rows
 
 
-def sweep(graphs: Iterable[Graph] = (), problems: Iterable = (),
+def sweep(graphs: Iterable[GraphLike] = (), problems: Iterable = (),
           accelerators: Iterable[str] = ("hitgraph", "accugraph"),
           memories: Iterable[MemoryLike] = (None,),
           caches: Iterable[CacheLike] = (None,),
@@ -543,7 +557,7 @@ def sweep(graphs: Iterable[Graph] = (), problems: Iterable = (),
           configs: Optional[Dict[str, Any]] = None,
           root: int = 0, fixed_iters: Optional[int] = None,
           backend: Optional[str] = None,
-          cases: Optional[Sequence[SweepCase]] = None,
+          cases: Optional[Sequence] = None,
           batch_memories: bool = False, workers: int = 1,
           devices: int = 1,
           graph_scale: float = 1.0, graph_seed: int = 0,
@@ -553,8 +567,15 @@ def sweep(graphs: Iterable[Graph] = (), problems: Iterable = (),
 
     Either pass the axes (``graphs x problems x accelerators x memories
     x caches x variants x updates``, expanded as an outer product in that
-    order) or an explicit ``cases`` list of :class:`SweepCase` values for
-    irregular grids.  ``graphs`` entries are :class:`Graph` instances.
+    order) or an explicit ``cases`` list — of :class:`SweepCase` and/or
+    :class:`~repro_torch.sim.scenario.ScenarioSpec` values — for
+    irregular grids; a single ``ScenarioSpec`` as the first positional
+    argument runs a one-case sweep.  ``graphs`` entries are
+    :class:`Graph` instances or corpus preset names (``"karate"``,
+    ``"powerlaw-social:degree"``, ... — see
+    :data:`~repro_torch.graphs.corpus.GRAPH_PRESETS`), resolved through
+    the content-addressed corpus cache at ``graph_scale`` /
+    ``graph_seed``.
     ``configs`` maps accelerator name -> config dataclass for the grid
     form.  ``caches`` sweeps the on-chip hierarchy axis (``None`` /
     preset names / ``"default"`` / ``CacheConfig``; see
@@ -569,6 +590,8 @@ def sweep(graphs: Iterable[Graph] = (), problems: Iterable = (),
     in one batched serve.  Pass a :class:`Sweeper` to share its caches
     and stats across calls or to read ``sweeper.stats`` afterwards (it
     then decides the device)."""
+    if cases is None and isinstance(graphs, ScenarioSpec):
+        cases = [graphs]
     if cases is None:
         configs = configs or {}
         cases = [
@@ -582,13 +605,8 @@ def sweep(graphs: Iterable[Graph] = (), problems: Iterable = (),
                 variants, updates)
         ]
     else:
-        cases = list(cases)
-        for c in cases:
-            if not isinstance(c, SweepCase):
-                raise TypeError(
-                    f"sweep cases must be SweepCase values, got "
-                    f"{type(c).__name__}; ScenarioSpec cases come with a "
-                    "later slice (see ROADMAP.md)")
+        cases = [c.to_case() if isinstance(c, ScenarioSpec) else c
+                 for c in cases]
     if sweeper is None:
         sweeper = Sweeper(backend=backend, batch_memories=batch_memories,
                           workers=workers, devices=devices, device=device)

@@ -884,3 +884,23 @@ def test_sweep_on_card_equals_cpu(cuda, batch_memories):
         else:
             assert launches["dram_serve_batch"] == 0
             assert launches["dram_serve"] == len(rows)
+
+
+def test_corpus_names_on_card_equal_cpu(cuda, monkeypatch):
+    """Corpus names on the card: ``simulate("karate", "wcc")`` and a sweep
+    over two presets (one with an ordering suffix) equal the CPU port's
+    reports, and the card's run launched the serve."""
+    from repro_torch.kernels import launch_counts, zero_launch_counts
+    from repro_torch.sim import ScenarioSpec, sweep
+    monkeypatch.setenv("REPRO_GRAPH_CACHE", "0")
+    zero_launch_counts()
+    a = simulate("karate", "wcc")
+    assert launch_counts()["dram_serve"] == 1
+    assert a == simulate("karate", "wcc", device="cpu")
+    assert simulate(ScenarioSpec("karate", "wcc")) == a
+    kw = dict(graphs=["karate", "road-grid:bfs"], problems=["wcc", "pr"],
+              accelerators=["hitgraph", "accugraph"], graph_scale=0.01)
+    rows = sweep(**kw)
+    want = sweep(device="cpu", **kw)
+    assert [r.graph_name for r in rows] == [r.graph_name for r in want]
+    assert [r.report for r in rows] == [r.report for r in want]

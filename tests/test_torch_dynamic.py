@@ -226,7 +226,13 @@ def test_shared_session_untouched(graphs):
     assert res.final_graph is not g
 
 
-def test_rejected_inputs(graphs):
+def r_run_dynamic_report(name):
+    return interop.sim_report(
+        r_run_dynamic(name, "wcc", updates="pa-growth").report)
+
+
+def test_rejected_inputs(graphs, monkeypatch):
+    monkeypatch.setenv("REPRO_GRAPH_CACHE", "0")
     _, g = graphs
     with pytest.raises(ValueError, match="incremental"):
         run_dynamic(g, "sssp", updates="pa-growth", device="cpu")
@@ -242,8 +248,11 @@ def test_rejected_inputs(graphs):
     assert simulate(g, "wcc", updates="pa-growth", backend="event",
                     device="cpu") == simulate(g, "wcc", updates="pa-growth",
                                               device="cpu")
-    with pytest.raises(TypeError, match="ROADMAP.md"):
-        run_dynamic("karate", "wcc", updates="pa-growth", device="cpu")
+    # corpus names are ported: the name form runs the preset's graph
+    by_name = run_dynamic("karate", "wcc", updates="pa-growth", device="cpu")
+    assert by_name.report == r_run_dynamic_report("karate")
+    with pytest.raises(KeyError, match="graph"):
+        run_dynamic("karatee", "wcc", updates="pa-growth", device="cpu")
     with pytest.raises(IndexError, match="delete_idx"):
         apply_batch(g, UpdateBatch(epoch=1, insert_src=[], insert_dst=[],
                                    delete_idx=[g.m + 5]))

@@ -54,6 +54,13 @@ _EVENT_MODULES = {"repro_torch.core.timing", "repro_torch.core.abstractions",
 #: the modules of the sweep slice (the sweep engine)
 _SWEEP_MODULES = {"repro_torch.sim.sweep"}
 
+#: the modules of the corpus slice (the corpus, the file parsers, the
+#: scenario form)
+_CORPUS_MODULES = {"repro_torch.graphs.corpus", "repro_torch.graphs.formats",
+                   "repro_torch.graphs.generators",
+                   "repro_torch.graphs.datasets", "repro_torch.sim.scenario",
+                   "repro_torch.interop"}
+
 #: an import statement naming jax or the JAX package (not repro_torch)
 _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
                      re.M)
@@ -70,7 +77,8 @@ def test_import_leaves_jax_and_repro_out():
     assert int(n) >= 24
     assert bad == "[]", bad
     assert (_DYNAMIC_MODULES | _STATIONARY_MODULES | _CACHE_MODULES
-            | _EVENT_MODULES | _SWEEP_MODULES <= set(names.split())), names
+            | _EVENT_MODULES | _SWEEP_MODULES | _CORPUS_MODULES
+            <= set(names.split())), names
 
 
 def test_no_jax_or_repro_import_in_sources():
@@ -123,9 +131,17 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         Sweeper(batch_memories=True)
     with pytest.raises(RuntimeError, match="CUDA"):
         sweep(graphs=[g], problems=["wcc"])
+    from repro_torch.sim import ScenarioSpec
+    with pytest.raises(RuntimeError, match="CUDA"):
+        simulate("karate", "wcc")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        simulate(ScenarioSpec("karate", "wcc", updates="pa-growth"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        run_dynamic("karate", "wcc", updates="pa-growth")
 
 
-def test_later_slices_raise_not_implemented():
+def test_later_slices_raise_not_implemented(monkeypatch):
+    monkeypatch.setenv("REPRO_GRAPH_CACHE", "0")
     from repro_torch.graphs.generators import rmat
     from repro_torch.sim import run_dynamic, simulate
 
@@ -144,10 +160,15 @@ def test_later_slices_raise_not_implemented():
     res = run_dynamic(g, "wcc", updates="pa-growth", cache="default",
                       device="cpu")
     assert res.report.prefetch_hits > 0 and res.n_epochs == 4
-    with pytest.raises(TypeError):
-        simulate("karate", "wcc", device="cpu")
-    with pytest.raises(TypeError):
-        run_dynamic("karate", "wcc", updates="pa-growth", device="cpu")
-    from repro_torch.sim import sweep
-    with pytest.raises(TypeError, match="ROADMAP.md"):
-        sweep(graphs=["karate"], problems=["wcc"], device="cpu")
+    # corpus names and ScenarioSpec are ported: every entry point takes them
+    from repro_torch.sim import ScenarioSpec, sweep
+    r = simulate("karate", "wcc", device="cpu")
+    assert r.graph == "karate" and r.runtime_ns > 0
+    assert simulate(ScenarioSpec("karate", "wcc"), device="cpu") == r
+    res = run_dynamic("karate", "wcc", updates="pa-growth", device="cpu")
+    assert res.n_epochs == 4
+    rows = sweep(graphs=["karate"], problems=["wcc"], device="cpu")
+    assert [row.graph_name for row in rows] == ["karate", "karate"]
+    # devices > 1 is the one input of the sweep still to come
+    with pytest.raises(ValueError, match="ROADMAP.md"):
+        sweep(graphs=["karate"], problems=["wcc"], devices=2, device="cpu")

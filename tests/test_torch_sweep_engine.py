@@ -688,12 +688,18 @@ def test_dynamic_rows_identical_across_workers(dyn_graphs, workers):
 
 # ---- not in this slice ----------------------------------------------------
 
-def test_out_of_slice_inputs_raise(small):
+def test_out_of_slice_inputs_raise(small, monkeypatch):
+    monkeypatch.setenv("REPRO_GRAPH_CACHE", "0")
     r_g, g = small
-    with pytest.raises(TypeError, match="ROADMAP.md"):
-        SweepCase("karate", "wcc")
-    with pytest.raises(TypeError, match="ROADMAP.md"):
-        sweep(cases=[RScenarioSpec(r_g, "wcc")], device=CPU)
+    # corpus names and ScenarioSpec cases are ported: they run, equal to
+    # the JAX package's rows; only devices > 1 still raises
+    case = SweepCase("karate", "wcc")
+    assert case.graph is SweepCase("karate", "bfs").graph
+    assert case.graph.fingerprint == interop.graph(
+        RSweepCase("karate", "wcc").graph).fingerprint
+    spec = RScenarioSpec(r_g, "wcc", accelerator="accugraph")
+    _assert_rows_equal(sweep(cases=[interop.scenario_spec(spec)],
+                             device=CPU), r_sweep(cases=[spec]))
     with pytest.raises(ValueError, match="ROADMAP.md"):
         Sweeper(devices=2, device=CPU)
     with pytest.raises(ValueError, match="ROADMAP.md"):
