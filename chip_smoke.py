@@ -162,8 +162,24 @@ Phases, one JSON line each:
               JAX package's pins (``tools/corpus_pins.py``), the
               benchmark's contracts asserted where those pins hold them,
               and the launch counts zeroed around each part: every
-              kernel of the port's paths launched.  Then the script's
-              wall time.
+              kernel of the port's paths launched.
+12. service — the service and the tuner (``service_runs``), counts zeroed
+              around each part: ``benchmarks/service_load.py``'s workload
+              (4 clients x 3 one-case HitGraph jobs on the lj and yt
+              stand-ins at ``SERVICE_SCALE``) through one resident
+              ``SimService`` (every job done, no retry, every row equal
+              to the JAX package's pin), then under the benchmark's fault
+              mix at chaos seed 0 (the chaos plans pinned, each planned
+              fault injected once, every job done and its row equal to
+              the clean one); a resident graph (phase 11's dynamic spec)
+              taking two update jobs, each epoch equal to its pin and to
+              ``run_dynamic`` (run outside the graph's launch count);
+              ``benchmarks/autotune.py``'s search on powerlaw-social at
+              its own size, with 2 and 1 preparing workers and through
+              the service's ``submit_search``, each front equal to the
+              pin and non-dominated in the 16-point exhaustive sweep
+              (``tools/service_pins.py`` makes the pins).  Then the
+              script's wall time.
 
 Then the kernel table, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -561,6 +577,200 @@ CORPUS_EPOCH_PINS = [
     (3, 2, 21819, 0, 0, 968411.6666666667, 229140, '5c70bf5c98913445'),
 ]
 # ---- end of corpus pins ----
+
+#: phase 12, the service and the tuner.  The service part mirrors
+#: benchmarks/service_load.py: CLIENTS threads of JOBS_PER_CLIENT one-case
+#: jobs (HitGraph PR/BFS/WCC, ``fixed_iters`` 2-4, roots 0-3, on the lj and
+#: yt stand-ins, undirected, with the comparability configs), WORKERS
+#: preparing threads, its retry policy, admission budget and deadlines,
+#: clean and under DEFAULT_FAULT_MIX at chaos seed 0 (site: rate,
+#: max_attempts, crash).  SERVICE_SCALE cuts the stand-ins from 1.0 to
+#: 0.1 (lj: 484,757 vertices, 13.8 M undirected edges), the largest size
+#: at which the JAX package makes the pins on a CPU in minutes.  Then a
+#: resident graph (phase 11's dynamic spec) taking SERVICE_UPDATES update
+#: jobs, and benchmarks/autotune.py's search at each preset's own size
+#: (its default graph_scale is 0.02).
+SERVICE_SCALE = 0.1
+SERVICE_ABBRS = ("lj", "yt")
+SERVICE_CLIENTS = 4
+SERVICE_JOBS_PER_CLIENT = 3
+SERVICE_WORKERS = 2
+SERVICE_FAULT_SEED = 0
+SERVICE_FAULT_MIX = {"sweep.prepare": (0.4, 2, False),
+                     "dram.serve": (0.25, 1, False),
+                     "graphstore.read": (0.5, 1, False),
+                     "worker.crash": (0.1, 1, True)}
+SERVICE_RESIDENT = CORPUS_DYNAMIC
+SERVICE_UPDATES = 2
+TUNE_GRAPH = "powerlaw-social"
+TUNE_PROBLEM = "pr"
+TUNE_SEED = 7
+TUNE_SPACE = {"n_pes": ["1", "4"], "pipelines": ["8"],
+              "partition_elements": ["parts4", "parts16"],
+              "memory": ["ddr3", "hbm2"], "cache": ["none", "prefetch-8"]}
+TUNE_BUDGET = {"rungs": (2, 4), "initial": 8, "keep": 0.5,
+               "max_case_evals": 16}
+SERVICE_PARTS = ("clean", "faulted", "resident", "tuner")
+#: the kernels each part must launch
+SERVICE_KERNELS = {
+    "clean": ("dram_serve", "serve_prepass", "edge_scatter",
+              "segment_reduce"),
+    "faulted": ("dram_serve", "serve_prepass", "edge_scatter",
+                "segment_reduce"),
+    "resident": ("dram_serve", "serve_prepass", "dram_timing",
+                 "sweep_min_rounds"),
+    "tuner": ("dram_serve_batch", "serve_prepass_batch", "dram_serve",
+              "serve_prepass", "edge_scatter", "segment_reduce"),
+}
+
+# ---- service pins: written by tools/service_pins.py ----
+#: the JAX package's numbers for phase 12, made on the CPU by the same calls
+SERVICE_GRAPHS = {
+    'lj':
+        ('live-journal_undir', 484757, 13798754, '6f9cd0727cd63b55032dc40c46e3a65d'),
+    'yt':
+        ('youtube_undir', 115782, 597524, 'eb042eca96d3befac5e8bd734ab50c03'),
+}
+SERVICE_PLANS = {
+    '6f9cd0727cd63b55032dc40c46e3a65d|pr|hitgraph|default|none|baseline|0|2|static':
+        (('transient', 1), None, None, None),
+    'eb042eca96d3befac5e8bd734ab50c03|bfs|hitgraph|default|none|baseline|1|3|static':
+        (None, ('transient', 1), None, None),
+    '6f9cd0727cd63b55032dc40c46e3a65d|wcc|hitgraph|default|none|baseline|2|4|static':
+        (None, None, None, None),
+    'eb042eca96d3befac5e8bd734ab50c03|pr|hitgraph|default|none|baseline|3|2|static':
+        (('transient', 2), None, ('transient', 1), None),
+    '6f9cd0727cd63b55032dc40c46e3a65d|bfs|hitgraph|default|none|baseline|0|3|static':
+        (None, None, None, None),
+    'eb042eca96d3befac5e8bd734ab50c03|wcc|hitgraph|default|none|baseline|1|4|static':
+        (('transient', 1), None, ('transient', 1), None),
+    '6f9cd0727cd63b55032dc40c46e3a65d|pr|hitgraph|default|none|baseline|2|2|static':
+        (None, None, None, None),
+    'eb042eca96d3befac5e8bd734ab50c03|bfs|hitgraph|default|none|baseline|3|3|static':
+        (('transient', 2), ('transient', 1), ('transient', 1), None),
+    '6f9cd0727cd63b55032dc40c46e3a65d|wcc|hitgraph|default|none|baseline|0|4|static':
+        (None, ('transient', 1), None, None),
+    'eb042eca96d3befac5e8bd734ab50c03|pr|hitgraph|default|none|baseline|1|2|static':
+        (('transient', 2), None, None, None),
+    '6f9cd0727cd63b55032dc40c46e3a65d|bfs|hitgraph|default|none|baseline|2|3|static':
+        (('transient', 2), None, ('transient', 1), None),
+    'eb042eca96d3befac5e8bd734ab50c03|wcc|hitgraph|default|none|baseline|3|4|static':
+        (None, None, None, None),
+}
+SERVICE_PINS = {
+    '6f9cd0727cd63b55032dc40c46e3a65d|bfs|hitgraph|default|none|baseline|0|3|static':
+        (30093870.0, 9028021, 6, 8760805, 0, 0, 'b3bb1605eb22398a'),
+    '6f9cd0727cd63b55032dc40c46e3a65d|bfs|hitgraph|default|none|baseline|2|3|static':
+        (30120174.166666668, 9029489, 6, 8760324, 0, 0, 'c9f34705a4656e28'),
+    '6f9cd0727cd63b55032dc40c46e3a65d|pr|hitgraph|default|none|baseline|0|2|static':
+        (15453746.666666668, 4636080, 2, 4348888, 0, 0, '871cd3b7f7f1d193'),
+    '6f9cd0727cd63b55032dc40c46e3a65d|pr|hitgraph|default|none|baseline|2|2|static':
+        (15453746.666666668, 4636080, 2, 4348888, 0, 0, '871cd3b7f7f1d193'),
+    '6f9cd0727cd63b55032dc40c46e3a65d|wcc|hitgraph|default|none|baseline|0|4|static':
+        (38178016.66666667, 11453265, 6, 10982181, 0, 0, '1b37b4bea91f18b6'),
+    '6f9cd0727cd63b55032dc40c46e3a65d|wcc|hitgraph|default|none|baseline|2|4|static':
+        (38178016.66666667, 11453265, 6, 10982181, 0, 0, '1b37b4bea91f18b6'),
+    'eb042eca96d3befac5e8bd734ab50c03|bfs|hitgraph|default|none|baseline|1|3|static':
+        (242330.0, 72691, 1, 72123, 0, 0, 'ecf8e5cac7d3aff8'),
+    'eb042eca96d3befac5e8bd734ab50c03|bfs|hitgraph|default|none|baseline|3|3|static':
+        (2786466.666666667, 835728, 9, 824737, 0, 0, '037246efcc70e751'),
+    'eb042eca96d3befac5e8bd734ab50c03|pr|hitgraph|default|none|baseline|1|2|static':
+        (826860.0, 248014, 2, 240282, 0, 0, '79b31d3c591f93d2'),
+    'eb042eca96d3befac5e8bd734ab50c03|pr|hitgraph|default|none|baseline|3|2|static':
+        (826860.0, 248014, 2, 240282, 0, 0, '79b31d3c591f93d2'),
+    'eb042eca96d3befac5e8bd734ab50c03|wcc|hitgraph|default|none|baseline|1|4|static':
+        (3151223.3333333335, 945155, 9, 925006, 0, 0, '870a437d415a224a'),
+    'eb042eca96d3befac5e8bd734ab50c03|wcc|hitgraph|default|none|baseline|3|4|static':
+        (3151223.3333333335, 945155, 9, 925006, 0, 0, '870a437d415a224a'),
+}
+SERVICE_EPOCH_PINS = [
+    (0, 5, 0, 0, 0, 1707483.3333333335, 376214, 'b230681ae5a796a3'),
+    (1, 3, 20972, 0, 0, 1280337.5, 296087, 'b9d65d3ae4bcac16'),
+    (2, 2, 21391, 0, 0, 950225.0, 225053, 'd763bbc680a77c1d'),
+]
+TUNE_SEARCH = {
+    'front': [
+        ('hitgraph|n_pes=4|pipelines=8|partition_elements=parts4|memory=ddr3|cache=none', (1009006.25, 770360.0, 0.0)),
+    ],
+    'rungs': [
+        {'fixed_iters': 2, 'evaluated': 8, 'survivors': 4},
+        {'fixed_iters': 4, 'evaluated': 4, 'survivors': 4},
+    ],
+    'stats': {
+        'case_evals': 12,
+        'dispatches': 2,
+        'generations': 2,
+        'sampled': 8,
+        'evolved': 0,
+        'rejected_invalid': 0,
+        'budget_truncations': 0,
+        'failed_candidates': 0,
+    },
+}
+TUNE_EXHAUSTIVE = {
+    'hitgraph|n_pes=1|pipelines=8|partition_elements=parts4|memory=ddr3|cache=none':
+        (3852116.25, 770360.0, 0.0),
+    'hitgraph|n_pes=1|pipelines=8|partition_elements=parts4|memory=ddr3|cache=prefetch-8':
+        (3852116.25, 770360.0, 512.0),
+    'hitgraph|n_pes=1|pipelines=8|partition_elements=parts4|memory=hbm2|cache=none':
+        (3114060.0, 770360.0, 0.0),
+    'hitgraph|n_pes=1|pipelines=8|partition_elements=parts4|memory=hbm2|cache=prefetch-8':
+        (3113900.0, 770360.0, 512.0),
+    'hitgraph|n_pes=1|pipelines=8|partition_elements=parts16|memory=ddr3|cache=none':
+        (4781376.25, 956212.0, 0.0),
+    'hitgraph|n_pes=1|pipelines=8|partition_elements=parts16|memory=ddr3|cache=prefetch-8':
+        (4781376.25, 956212.0, 512.0),
+    'hitgraph|n_pes=1|pipelines=8|partition_elements=parts16|memory=hbm2|cache=none':
+        (3576468.0, 956212.0, 0.0),
+    'hitgraph|n_pes=1|pipelines=8|partition_elements=parts16|memory=hbm2|cache=prefetch-8':
+        (3576148.0, 956212.0, 512.0),
+    'hitgraph|n_pes=4|pipelines=8|partition_elements=parts4|memory=ddr3|cache=none':
+        (1009006.25, 770360.0, 0.0),
+    'hitgraph|n_pes=4|pipelines=8|partition_elements=parts4|memory=ddr3|cache=prefetch-8':
+        (1009006.25, 770360.0, 512.0),
+    'hitgraph|n_pes=4|pipelines=8|partition_elements=parts4|memory=hbm2|cache=none':
+        (3258886.0, 770360.0, 0.0),
+    'hitgraph|n_pes=4|pipelines=8|partition_elements=parts4|memory=hbm2|cache=prefetch-8':
+        (3258886.0, 770360.0, 512.0),
+    'hitgraph|n_pes=4|pipelines=8|partition_elements=parts16|memory=ddr3|cache=none':
+        (1241531.25, 956212.0, 0.0),
+    'hitgraph|n_pes=4|pipelines=8|partition_elements=parts16|memory=ddr3|cache=prefetch-8':
+        (1241531.25, 956212.0, 512.0),
+    'hitgraph|n_pes=4|pipelines=8|partition_elements=parts16|memory=hbm2|cache=none':
+        (1680370.0, 956212.0, 0.0),
+    'hitgraph|n_pes=4|pipelines=8|partition_elements=parts16|memory=hbm2|cache=prefetch-8':
+        (1680370.0, 956212.0, 512.0),
+}
+TUNE_SWEEP_STATS = {
+    'workers=2': {
+        'cases': 12,
+        'algo_runs': 2,
+        'algo_cache_hits': 10,
+        'pack_cache_hits': 0,
+        'pack_cache_misses': 12,
+        'batched_cases': 12,
+        'batch_dispatches': 9,
+    },
+    'workers=1': {
+        'cases': 12,
+        'algo_runs': 2,
+        'algo_cache_hits': 10,
+        'pack_cache_hits': 0,
+        'pack_cache_misses': 12,
+        'batched_cases': 12,
+        'batch_dispatches': 9,
+    },
+    'exhaustive': {
+        'cases': 16,
+        'algo_runs': 1,
+        'algo_cache_hits': 15,
+        'pack_cache_hits': 0,
+        'pack_cache_misses': 16,
+        'batched_cases': 16,
+        'batch_dispatches': 8,
+    },
+}
+# ---- end of service pins ----
 
 #: the stationary path: problems, iterations, and the largest relative
 #: error of the values against a float64 recompute.  HitGraph's gather
@@ -2737,6 +2947,412 @@ def run_corpus_phase(card, dev) -> dict:
     return {"launches": launches, "seconds": seconds}
 
 
+def service_workload(pkg: str, scale: float) -> list:
+    """``benchmarks/service_load.py``'s ``_workload`` through package
+    ``pkg`` (``"repro_torch"`` or ``"repro"``): one one-case batch a job,
+    job ``i`` on ``SERVICE_ABBRS[i % 2]``'s stand-in (undirected) with its
+    comparability config (HitGraph, 1 PE, 16 pipelines, ``q`` scaled from
+    1,024,000, one 8 Gb DDR4-2400R channel in the contiguous order),
+    problem PR/BFS/WCC by ``i % 3``, root ``i % 4``, ``fixed_iters`` 2 +
+    ``i % 3``."""
+    import importlib
+    datasets = importlib.import_module(f"{pkg}.graphs.datasets")
+    dram = importlib.import_module(f"{pkg}.core.dram")
+    hitgraph = importlib.import_module(f"{pkg}.core.hitgraph")
+    policy = importlib.import_module(f"{pkg}.sim.policy")
+    sweep_mod = importlib.import_module(f"{pkg}.sim.sweep")
+    graphs, cfgs = [], []
+    for abbr in SERVICE_ABBRS:
+        g = datasets.instantiate(abbr, scale=scale)
+        q = policy.scaled_q(1_024_000, datasets.TABLE1[abbr].vertices, g.n,
+                            floor=256)
+        mem = dataclasses.replace(dram.ddr4_2400r(channels=1, density="8Gb"),
+                                  order=dram.CONTIGUOUS_ORDER)
+        graphs.append(g.undirected_view())
+        cfgs.append(hitgraph.HitGraphConfig(n_pes=1, pipelines=16,
+                                            partition_elements=q, dram=mem))
+    return [[sweep_mod.SweepCase(
+        graph=graphs[i % 2], problem=("pr", "bfs", "wcc")[i % 3],
+        accelerator="hitgraph", config=cfgs[i % 2], root=i % 4,
+        fixed_iters=2 + i % 3)]
+        for i in range(SERVICE_CLIENTS * SERVICE_JOBS_PER_CLIENT)]
+
+
+def service_drive(svc, batches, engine, key_of) -> dict:
+    """``benchmarks/service_load.py``'s ``_drive``: SERVICE_CLIENTS
+    concurrent clients, each submitting its share of ``batches`` one job
+    at a time (tenant per client, a 60 s deadline on every third job) and
+    blocking on the result.  Returns the outcomes, latencies and every
+    row returned, by ``key_of(case)``."""
+    import threading
+    from concurrent.futures import ThreadPoolExecutor
+    lock = threading.Lock()
+    latencies, rows = [], {}
+    outcomes = {"done": 0, "failed": 0, "cancelled": 0, "expired": 0,
+                "shed": 0}
+
+    def client(idx):
+        for n, cases in enumerate(batches[idx::SERVICE_CLIENTS]):
+            deadline = None if (idx + n) % 3 else 60.0
+            t0 = time.perf_counter()
+            try:
+                job = svc.submit(cases, tenant=f"tenant-{idx}",
+                                 deadline=deadline)
+            except engine.AdmissionError:
+                with lock:
+                    outcomes["shed"] += 1
+                continue
+            try:
+                got, outcome = svc.result(job, timeout=240), "done"
+            except engine.ServiceError as e:
+                got, outcome = e.rows, svc.poll(job)
+            dt = time.perf_counter() - t0
+            with lock:
+                outcomes[outcome] += 1
+                latencies.append(dt)
+                rows.update((key_of(r.case), r) for r in got)
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(max_workers=SERVICE_CLIENTS) as pool:
+        list(pool.map(client, range(SERVICE_CLIENTS)))
+    wall = time.perf_counter() - t0
+    latencies.sort()
+
+    def pct(p):
+        return latencies[min(len(latencies) - 1, int(p * len(latencies)))]
+
+    return {"wall_s": wall, "jobs": len(latencies), "rows": rows,
+            "cases_per_sec": len(rows) / wall,
+            "latency_p50_ms": pct(0.50) * 1e3,
+            "latency_p99_ms": pct(0.99) * 1e3, **outcomes}
+
+
+def service_runs(pkg: str, scale: float = SERVICE_SCALE,
+                 preset_scale: float = 1.0, parts=SERVICE_PARTS,
+                 on_part=None, **kw) -> dict:
+    """Phase 12's runs through package ``pkg``: ``"repro_torch"`` here
+    (``kw`` is ``device=``), ``"repro"`` in ``tools/service_pins.py``,
+    which makes this phase's pins from the same calls.  ``parts`` picks
+    among SERVICE_PARTS, run in that order on one resident service (the
+    clean one; the faulted part opens its own, as the benchmark does);
+    ``on_part(name)`` is called after each, and after the resident
+    part's ``run_dynamic`` of the same spec ("resident_reference"), which
+    runs outside the resident graph's window.  ``scale`` is the stand-ins'
+    scale, ``preset_scale`` the resident and tuner presets'
+    ``graph_scale`` (the phase runs 1.0; the CPU tests cut both)."""
+    import importlib
+    engine = importlib.import_module(f"{pkg}.serve.engine")
+    chaos = importlib.import_module(f"{pkg}.serve.chaos")
+    sim = importlib.import_module(f"{pkg}.sim")
+    tune = importlib.import_module(f"{pkg}.tune")
+    key_of = importlib.import_module(f"{pkg}.sim.sweep").case_chaos_key
+    clock = time.perf_counter
+    out = {"seconds": {}}
+
+    def part(name, t0):
+        out["seconds"][name] = clock() - t0
+        if on_part is not None:
+            on_part(name)
+
+    batches = service_workload(pkg, scale)
+    out["graphs"] = {abbr: batches[i][0].graph
+                     for i, abbr in enumerate(SERVICE_ABBRS)}
+    out["keys"] = [key_of(b[0]) for b in batches]
+    fault_cfg = chaos.ChaosConfig(seed=SERVICE_FAULT_SEED, sites={
+        site: chaos.SiteConfig(rate=rate, max_attempts=attempts,
+                               crash=crash)
+        for site, (rate, attempts, crash) in SERVICE_FAULT_MIX.items()})
+    out["plans"] = {k: tuple(chaos.plan(site, k, fault_cfg)
+                             for site in SERVICE_FAULT_MIX)
+                    for k in out["keys"]}
+    retry = engine.RetryPolicy(retries=8, backoff_base_s=0.002,
+                               backoff_cap_s=0.05)
+    admission = engine.AdmissionConfig(
+        max_tenant_jobs=SERVICE_JOBS_PER_CLIENT + 1)
+    # an explicitly empty model: the service arms REPRO_CHAOS_SITES at
+    # start when no model is active, and the clean service stays clean
+    with chaos.scope(chaos.ChaosConfig(seed=0, sites={})):
+        svc = engine.SimService(workers=SERVICE_WORKERS, retry=retry,
+                                admission=admission, **kw)
+    try:
+        if "clean" in parts:
+            t0 = clock()
+            with chaos.scope(chaos.ChaosConfig(seed=0, sites={})):
+                out["warm"] = svc.result(svc.submit(batches[0]),
+                                         timeout=600)[0]
+                out["clean"] = service_drive(svc, batches, engine, key_of)
+            out["clean"]["stats"] = dict(vars(svc.service_stats))
+            part("clean", t0)
+        if "faulted" in parts:
+            t0 = clock()
+            with chaos.scope(fault_cfg):
+                with engine.SimService(
+                        workers=SERVICE_WORKERS, retry=retry,
+                        admission=admission,
+                        breaker=engine.BreakerConfig(threshold=50),
+                        **kw) as fsvc:
+                    out["faulted"] = service_drive(fsvc, batches, engine,
+                                                   key_of)
+                    out["faulted"]["stats"] = dict(vars(fsvc.service_stats))
+                    out["faulted"]["injected"] = chaos.injected_log()
+            part("faulted", t0)
+        if "resident" in parts:
+            t0 = clock()
+            spec = sim.ScenarioSpec(**SERVICE_RESIDENT,
+                                    graph_scale=preset_scale)
+            rid = svc.open_graph(spec, tenant="resident")
+            eps = [svc.result(svc.graph_job(rid), timeout=1200)]
+            # each epoch pinned as it comes back: epoch 0's report shares
+            # the timeline's phase list, which later epochs extend (a
+            # quirk of the JAX package, copied)
+            pins = [epoch_pin(eps[0])]
+            for _ in range(SERVICE_UPDATES):
+                eps.append(svc.result(svc.submit_update(rid), timeout=1200))
+                pins.append(epoch_pin(eps[-1]))
+            out["resident"] = {"epochs": eps, "pins": pins,
+                               "info": svc.graph_info(rid)}
+            svc.close_graph(rid)
+            part("resident", t0)
+            # what the epochs are held to, in a window of its own: its
+            # launches are not the resident graph's
+            t0 = clock()
+            axes = dict(SERVICE_RESIDENT)
+            out["resident"]["run_dynamic"] = sim.run_dynamic(
+                axes.pop("graph"), axes.pop("problem"), **axes,
+                graph_scale=preset_scale, **kw)
+            part("resident_reference", t0)
+        if "tuner" in parts:
+            t0 = clock()
+            space = sim.get_accelerator("hitgraph").design_space().restrict(
+                **TUNE_SPACE)
+            budget = tune.HalvingBudget(**TUNE_BUDGET)
+            g = sim.resolve_graph(TUNE_GRAPH, scale=preset_scale)
+            tuned = {"searches": {}, "stats": {}}
+            for workers in (SERVICE_WORKERS, 1):
+                sweeper = sim.Sweeper(workers=workers, batch_memories=True,
+                                      **kw)
+                name = f"workers={workers}"
+                tuned["searches"][name] = tune.SearchDriver(
+                    space, seed=TUNE_SEED, budget=budget,
+                    sweeper=sweeper).search(g, TUNE_PROBLEM)
+                tuned["stats"][name] = {k: getattr(sweeper.stats, k)
+                                        for k in CORPUS_STAT_KEYS}
+            sweeper = sim.Sweeper(workers=SERVICE_WORKERS,
+                                  batch_memories=True, **kw)
+            points = space.enumerate()
+            rows = sweeper.run([p.to_case(g, TUNE_PROBLEM,
+                                          fixed_iters=budget.rungs[-1])
+                                for p in points])
+            tuned["exhaustive"] = {p.key: r for p, r in zip(points, rows)}
+            tuned["vectors"] = {p.key: tuple(tune.objectives_of(r))
+                                for p, r in zip(points, rows)}
+            tuned["stats"]["exhaustive"] = {
+                k: getattr(sweeper.stats, k) for k in CORPUS_STAT_KEYS}
+            sid = svc.submit_search(space, budget, graph=g,
+                                    problem=TUNE_PROBLEM, seed=TUNE_SEED)
+            tuned["searches"]["service"] = svc.search_result(sid,
+                                                             timeout=1800)
+            out["tuner"] = tuned
+            part("tuner", t0)
+    finally:
+        svc.close()
+    return out
+
+
+def search_pin(res) -> dict:
+    """The front (keys, objective vectors), the rung reports and the
+    search's counters but its wall time, of a ``SearchResult``."""
+    stats = dataclasses.asdict(res.stats)
+    stats.pop("wall_s")
+    return {"front": [(e.key, tuple(e.objectives)) for e in res.front],
+            "rungs": [dataclasses.asdict(r) for r in res.rungs],
+            "stats": stats}
+
+
+def service_pin_values(out) -> dict:
+    """The pin constants phase 12 holds the card to, by name, from one
+    :func:`service_runs` (what ``tools/service_pins.py`` writes)."""
+    pins = {"SERVICE_GRAPHS": {a: graph_pin(g)
+                               for a, g in out["graphs"].items()},
+            "SERVICE_PLANS": out["plans"]}
+    if "clean" in out:
+        rows = out["clean"]["rows"]
+        pins["SERVICE_PINS"] = {k: report_pin(rows[k].report)
+                                for k in sorted(rows)}
+    if "resident" in out:
+        pins["SERVICE_EPOCH_PINS"] = out["resident"]["pins"]
+    if "tuner" in out:
+        t = out["tuner"]
+        pins["TUNE_SEARCH"] = search_pin(t["searches"][
+            f"workers={SERVICE_WORKERS}"])
+        pins["TUNE_EXHAUSTIVE"] = t["vectors"]
+        pins["TUNE_SWEEP_STATS"] = t["stats"]
+    return pins
+
+
+def service_injections(plans) -> list:
+    """The faults that the chaos ``plans`` (by case key, one a site of
+    SERVICE_FAULT_MIX) inject into the service workload, sorted: every
+    faulted attempt ``(site, key, attempt, kind)`` of each site a job
+    reaches.  A one-case job reaches each site until it passes, whatever
+    the scheduling; ``graphstore.read`` never, the cases hold their
+    graphs."""
+    want = []
+    for key, per_site in plans.items():
+        for site, p in zip(SERVICE_FAULT_MIX, per_site):
+            if p is None or site == "graphstore.read":
+                continue
+            kind, k = p
+            want += [(site, key, a, kind)
+                     for a in range(1 if kind == "permanent" else k)]
+    return sorted(want)
+
+
+def service_resident_launches(epochs) -> dict:
+    """The kernel launches the resident graph's epochs report, summed."""
+    total = {}
+    for ep in epochs:
+        for k, n in ep.report.kernel_launches.items():
+            total[k] = total.get(k, 0) + n
+    return {k: n for k, n in total.items() if n}
+
+
+def run_service_phase(card, dev) -> dict:
+    """Phase 12, the service and the tuner.  The four parts of
+    :func:`service_runs` on the card, with the kernel launch counts zeroed
+    just before and read after each part.  The clean part: every job
+    done, no retry, no quarantine, every row equal to the JAX package's
+    pin.  The faulted part: the chaos plans of every case and site equal
+    the pins, each planned fault injected once, every job done, no
+    quarantine, every row equal to the clean part's.  The resident
+    graph: every epoch equal to its pin and to ``run_dynamic`` of the
+    same spec, whose launches are counted apart; the graph's own, one
+    serve an epoch and one ``dram_timing`` an update, what its epochs
+    report.  The tuner: the
+    front of each search (two worker counts and the service) equal to the
+    pin, non-dominated in the exhaustive space, whose vectors equal the
+    pins too; the batched serves launched once a dispatch.  Returns the
+    launches by part."""
+    from repro_torch.kernels import launch_counts, zero_launch_counts
+    from repro_torch.tune import dominates
+    t_phase = time.perf_counter()
+    launches = {}
+
+    def on_part(name):
+        launches[name] = launch_counts()
+        zero_launch_counts()
+
+    zero_launch_counts()
+    out = service_runs("repro_torch", on_part=on_part, device=dev)
+    seconds = time.perf_counter() - t_phase
+    reference = launches.pop("resident_reference")
+    got = service_pin_values(out)
+    n_jobs = SERVICE_CLIENTS * SERVICE_JOBS_PER_CLIENT
+    for name in ("SERVICE_GRAPHS", "SERVICE_PLANS"):
+        assert got[name] == globals()[name], (name, got[name])
+    # the clean service
+    clean = out["clean"]
+    assert (clean["done"], clean["jobs"]) == (n_jobs, n_jobs), clean
+    assert clean["stats"]["retries"] == 0, clean["stats"]
+    assert clean["stats"]["quarantined"] == 0, clean["stats"]
+    differ = sorted(k for k in SERVICE_PINS
+                    if got["SERVICE_PINS"].get(k) != SERVICE_PINS[k])
+    assert len(got["SERVICE_PINS"]) == n_jobs and not differ, [
+        (k, got["SERVICE_PINS"].get(k), SERVICE_PINS[k]) for k in differ]
+    assert out["warm"].report == clean["rows"][out["keys"][0]].report
+    # the faulted service
+    faulted = out["faulted"]
+    assert faulted["injected"], "chaos injected no fault"
+    assert faulted["jobs"] + faulted["shed"] == n_jobs, faulted
+    # every fault of the pinned plans is transient and within the retry
+    # budget: every job done, and each planned fault injected once
+    assert (faulted["done"], faulted["shed"], len(faulted["rows"])) == (
+        n_jobs, 0, n_jobs), faulted
+    assert faulted["stats"]["quarantined"] == 0, faulted["stats"]
+    assert sorted(faulted["injected"]) == service_injections(
+        SERVICE_PLANS), faulted["injected"]
+    for k, row in faulted["rows"].items():
+        assert row.report == clean["rows"][k].report, k
+        assert report_pin(row.report) == SERVICE_PINS[k], k
+    # the resident graph
+    res = out["resident"]
+    assert res["pins"] == SERVICE_EPOCH_PINS, res["pins"]
+    local = res["run_dynamic"].epochs
+    for ep, want in zip(res["epochs"][1:], local[1:]):
+        assert ep == want, ep.epoch
+    ep0, want0 = res["epochs"][0], local[0]
+    n0 = len(ep0.report.phases)
+    assert (ep0.iterations, ep0.report.runtime_ns,
+            ep0.report.total_requests, ep0.report.phases[:n0]) == (
+        want0.iterations, want0.report.runtime_ns,
+        want0.report.total_requests, want0.report.phases[:n0])
+    assert res["info"]["epoch"] == SERVICE_UPDATES
+    # the resident graph's own launches: one serve an epoch, one delta
+    # rewrite an update, what its epochs report
+    own = launches["resident"]
+    assert own["dram_serve"] == own["serve_prepass"] == SERVICE_UPDATES + 1, \
+        own
+    assert own["dram_timing"] == SERVICE_UPDATES, own
+    assert {k: n for k, n in own.items() if n} == \
+        service_resident_launches(res["epochs"]), own
+    # the tuner
+    tuned = out["tuner"]
+    for name, search in tuned["searches"].items():
+        assert search_pin(search)["front"] == TUNE_SEARCH["front"], name
+    assert search_pin(tuned["searches"][f"workers={SERVICE_WORKERS}"]) == \
+        TUNE_SEARCH
+    assert got["TUNE_EXHAUSTIVE"] == TUNE_EXHAUSTIVE
+    assert got["TUNE_SWEEP_STATS"] == TUNE_SWEEP_STATS, got[
+        "TUNE_SWEEP_STATS"]
+    for key, objectives in TUNE_SEARCH["front"]:
+        dominating = [k for k, v in TUNE_EXHAUSTIVE.items()
+                      if dominates(v, objectives)]
+        assert not dominating, (key, dominating)
+    # launches: each part's kernels; the tuner's batched serves one a
+    # dispatch (the pinned SweepStats), its service search one serve a
+    # case
+    missing = {p: [k for k in ks if launches[p][k] == 0]
+               for p, ks in SERVICE_KERNELS.items()}
+    assert not any(missing.values()), f"never launched: {missing}"
+    assert launches["clean"]["dram_serve"] == n_jobs + 1, launches["clean"]
+    assert launches["tuner"]["dram_serve_batch"] == sum(
+        s["batch_dispatches"] for s in TUNE_SWEEP_STATS.values())
+    assert launches["tuner"]["dram_serve"] == TUNE_SEARCH["stats"][
+        "case_evals"]
+    split = {}
+    for name in ("clean", "faulted"):
+        st = [r.report.stage_seconds for r in out[name]["rows"].values()]
+        split[name] = {"prepare_s": sum(x.get("prepare", 0.0) for x in st),
+                       "serve_s": sum(x.get("serve", 0.0) for x in st),
+                       "wall_s": out[name]["wall_s"]}
+    st = [r.report.stage_seconds for r in tuned["exhaustive"].values()]
+    split["tuner_exhaustive"] = {
+        "prepare_s": sum(x["prepare"] for x in st),
+        "serve_s": sum(x["serve"] for x in st)}
+    drop = ("rows", "injected")
+    emit(phase="service", seconds=seconds, part_seconds=out["seconds"],
+         graphs={a: list(v[:3]) for a, v in got["SERVICE_GRAPHS"].items()},
+         clean={k: v for k, v in clean.items() if k not in drop},
+         faulted={**{k: v for k, v in faulted.items() if k not in drop},
+                  "injected": len(faulted["injected"]),
+                  "surviving_rows": len(faulted["rows"])},
+         rows_pinned=len(SERVICE_PINS),
+         launches={name: {k: c[k] for k in KERNELS if c[k]}
+                   for name, c in launches.items()},
+         host_serve_split=split, card=card)
+    emit(phase="service_resident", epochs=res["pins"],
+         equal_run_dynamic=True,
+         run_dynamic_launches={k: n for k, n in reference.items() if n},
+         card=card)
+    emit(phase="service_tuner",
+         front=TUNE_SEARCH["front"], searches=sorted(tuned["searches"]),
+         exhaustive_points=len(TUNE_EXHAUSTIVE),
+         sweep_stats=got["TUNE_SWEEP_STATS"],
+         search_seconds={k: v.stats.wall_s
+                         for k, v in tuned["searches"].items()}, card=card)
+    return {"launches": launches, "seconds": seconds}
+
+
 def row_fields(row) -> dict:
     """A sweep row's ``as_dict`` without its wall time."""
     d = row.as_dict()
@@ -3034,9 +3650,15 @@ def main() -> int:
     corp = run_corpus_phase(card, dev)
     launches.update({f"corpus_{part}": counts
                      for part, counts in corp["launches"].items()})
+
+    # ---- 12. the service and the tuner ----------------------------------
+    served = run_service_phase(card, dev)
+    launches.update({f"service_{part}": counts
+                     for part, counts in served["launches"].items()})
     emit(phase="wall", seconds=time.perf_counter() - t_start,
          event_phase_seconds=event_s, sweep_phase_seconds=swept["seconds"],
-         corpus_phase_seconds=corp["seconds"], card=card)
+         corpus_phase_seconds=corp["seconds"],
+         service_phase_seconds=served["seconds"], card=card)
 
     ds = kernels["dram_serve"]
     hw = ds["windows"]["hitgraph"]

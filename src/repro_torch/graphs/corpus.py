@@ -44,6 +44,7 @@ from repro_torch.errors import UnknownPresetError
 from repro_torch.graphs import generators as gen
 from repro_torch.graphs.formats import (Graph, load_matrix_market,
                                         load_snap_edgelist)
+from repro_torch.serve import chaos
 
 # ---------------------------------------------------------------------------
 # Ordering transforms (vertex relabelings).
@@ -300,8 +301,12 @@ class GraphStore:
         if not path.exists():
             return None
         try:
+            # chaos site: an injected read fault is indistinguishable
+            # from a truncated/corrupt entry and takes the same
+            # rebuild-never-trust path below
+            chaos.maybe_inject("graphstore.read", key)
             return load_graph_binary(path)
-        except (CorpusCacheError, OSError):
+        except (CorpusCacheError, OSError, chaos.InjectedFault):
             return None
 
     def store(self, key: str, g: Graph) -> Optional[Path]:

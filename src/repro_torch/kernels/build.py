@@ -20,6 +20,8 @@ import threading
 from pathlib import Path
 from typing import List, Optional
 
+from repro_torch.errors import KernelError
+
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
@@ -83,7 +85,7 @@ def nvcc_path() -> str:
         return str(cand)
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError(
+        raise KernelError(
             "nvcc not found (looked in $CUDA_HOME/bin and on PATH); the "
             "CUDA kernels build only where the CUDA toolkit is installed")
     return found
@@ -128,7 +130,7 @@ def build(verbose: bool = False) -> Path:
         if proc.returncode != 0:
             failed.append(f"{src.name}:\n{err}")
     if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        raise KernelError("nvcc failed:\n" + "\n".join(failed))
     tmp = lib.with_name(f"{lib.stem}.{os.getpid()}.tmp.so")
     objs = [str(obj) for _src, obj, _p in procs]
     link = subprocess.run([nvcc, *NVCC_FLAGS, "-shared", *objs, "-o",
@@ -136,18 +138,25 @@ def build(verbose: bool = False) -> Path:
     for obj in objs:
         os.unlink(obj)
     if link.returncode != 0:
-        raise RuntimeError(f"nvcc link failed:\n{link.stderr}")
+        raise KernelError(f"nvcc link failed:\n{link.stderr}")
     os.replace(tmp, lib)
     return lib
 
 
 def library() -> ctypes.CDLL:
     """The loaded kernel library (built on first use), with every entry
-    point's argument and return types declared."""
+    point's argument and return types declared.  A library that does not
+    load raises :class:`KernelError` (not the ``OSError`` of ``ctypes``,
+    which a retry policy would take for an I/O blip)."""
     global _lib
     with _lock:
         if _lib is None:
-            lib = ctypes.CDLL(str(build()))
+            path = build()
+            try:
+                lib = ctypes.CDLL(str(path))
+            except OSError as e:
+                raise KernelError(
+                    f"the kernel library {path} did not load: {e}") from e
             for name, (argtypes, restype) in SIGNATURES.items():
                 fn = getattr(lib, name)
                 fn.argtypes = argtypes
@@ -161,5 +170,5 @@ def check_launch(code: int, what: str) -> None:
     runs, and a later synchronize would not report it."""
     if code != 0:
         msg = library().repro_cuda_error_string(code).decode()
-        raise RuntimeError(f"{what} launch failed: CUDA error {code} "
+        raise KernelError(f"{what} launch failed: CUDA error {code} "
                            f"({msg})")

@@ -62,6 +62,12 @@ class PartitionPolicy:
             return max(math.ceil(g.n / self.count), self.floor)
         return scaled_q(self.q_full, self.n_full, g.n, floor=self.floor)
 
+    def label(self) -> str:
+        """Stable display form (design-point keys, sweep rows)."""
+        if self.count is not None:
+            return f"parts{self.count}"
+        return f"qfull{self.q_full}@{self.n_full}"
+
 
 def resolve_partitioned_config(config, g: Graph):
     """Return ``config`` with any :class:`PartitionPolicy` sitting in its

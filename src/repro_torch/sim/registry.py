@@ -80,6 +80,13 @@ class AcceleratorSpec:
         """Named optimization variants as config-field overrides."""
         return {"baseline": {}}
 
+    def design_space(self):
+        """The accelerator's default searchable design space (a
+        :class:`repro_torch.tune.space.DesignSpace`), or ``None`` when the
+        spec declares none.  Implementations import ``repro_torch.tune``
+        lazily — the tune package depends on this module."""
+        return None
+
     def apply_variant(self, config, variant: Optional[str]):
         if variant is None or variant == "baseline":
             return config

@@ -72,6 +72,37 @@ class HitGraphSpec(AcceleratorSpec):
         return CacheConfig(prefetch_degree=8,
                            name="hitgraph-stream-prefetch")
 
+    def design_space(self):
+        """Default searchable space (paper Tab. 4 geometry +/- a factor
+        of ~4 each way, the three memory grades, and the prefetch-depth
+        ladder).  Partition sizing is graph-relative
+        (:class:`~repro_torch.sim.policy.PartitionPolicy` counts) so one
+        space serves every scenario scale.  The ``pes-within-channels``
+        constraint prunes points whose scatter/gather engines outnumber
+        the memory channels they are pinned to."""
+        from repro_torch.sim.memory import resolve_memory
+        from repro_torch.sim.policy import PartitionPolicy
+        from repro_torch.tune.space import Constraint, DesignSpace, Dimension
+
+        def pes_within_channels(a) -> bool:
+            return a["n_pes"] <= resolve_memory(a["memory"]).channels
+
+        return DesignSpace(
+            accelerator=self.name,
+            dimensions=(
+                Dimension("n_pes", (1, 2, 4, 8)),
+                Dimension("pipelines", (4, 8, 16)),
+                Dimension("partition_elements",
+                          tuple(PartitionPolicy(count=c)
+                                for c in (4, 16, 64))),
+                Dimension("memory", ("ddr3", "ddr4", "hbm2")),
+                Dimension("cache",
+                          ("none", "prefetch-4", "prefetch-8")),
+            ),
+            constraints=(
+                Constraint("pes-within-channels", pes_within_channels),
+            ))
+
 
 @register_accelerator
 class AccuGraphSpec(AcceleratorSpec):
@@ -128,6 +159,44 @@ class AccuGraphSpec(AcceleratorSpec):
         never reaches DRAM."""
         return CacheConfig(lines=32768, ways=16,
                            name="accugraph-vertex-bram")
+
+    #: searchable BRAM budget: the original's 2 MiB of vertex storage
+    BRAM_BUDGET_BYTES = 2 * 1024 * 1024
+
+    def design_space(self):
+        """Default searchable space: pipeline widths around the paper
+        geometry, all-BRAM vs partitioned execution, the DDR4 grades plus
+        the HBM2 stack, and a vertex-cache capacity ladder that includes
+        an over-budget 4 MiB point, which the ``bram-budget`` constraint
+        prunes."""
+        from repro_torch.sim.memory import resolve_cache
+        from repro_torch.sim.policy import PartitionPolicy
+        from repro_torch.tune.space import Constraint, DesignSpace, Dimension
+
+        budget = self.BRAM_BUDGET_BYTES
+
+        def bram_within_budget(a) -> bool:
+            cache = resolve_cache(a["cache"], self)
+            return cache is None or cache.capacity_bytes <= budget
+
+        return DesignSpace(
+            accelerator=self.name,
+            dimensions=(
+                Dimension("edge_pipelines", (8, 16, 32)),
+                Dimension("vertex_pipelines", (4, 8)),
+                Dimension("partition_elements",
+                          (None,) + tuple(PartitionPolicy(count=c)
+                                          for c in (4, 16))),
+                Dimension("memory", ("ddr4", "ddr4-8gb", "hbm2")),
+                Dimension("cache",
+                          ("none", "vertex-256k", "vertex-1m",
+                           "vertex-2m",
+                           CacheConfig(lines=65536, ways=16,
+                                       name="vertex-4m"))),
+            ),
+            constraints=(
+                Constraint("bram-budget", bram_within_budget),
+            ))
 
 
 @register_accelerator

@@ -54,6 +54,7 @@ from repro_torch.graphs.corpus import GraphLike, resolve_graph
 from repro_torch.graphs.formats import Graph
 from repro_torch.graphs.updates import (UpdatesLike, resolve_updates,
                                         updates_name)
+from repro_torch.serve import chaos
 from repro_torch.sim.memory import (CacheLike, MemoryLike, cache_name,
                                     memory_name, resolve_cache,
                                     resolve_memory)
@@ -115,6 +116,18 @@ class SweepCase:
         resolve_memory(self.memory)
         resolve_cache(self.cache, spec)
         object.__setattr__(self, "updates", resolve_updates(self.updates))
+
+
+def case_chaos_key(case: "SweepCase") -> str:
+    """Stable identity of one grid point, used for deterministic fault
+    injection and supervisor crash attribution: everything that *names*
+    the case, nothing that depends on object identity or scheduling.
+    Equal to the JAX package's string for the same case."""
+    return "|".join((case.graph.fingerprint, case.problem.value,
+                     case.accelerator, memory_name(case.memory),
+                     cache_name(case.cache), case.variant or "baseline",
+                     str(case.root), str(case.fixed_iters),
+                     updates_name(case.updates)))
 
 
 class SweepInterrupted(RuntimeError):
@@ -287,6 +300,7 @@ class Sweeper:
         """One case through ``SimSession.run`` (one serve a case), or
         ``run_dynamic`` for a dynamic case, on this sweeper's sessions;
         the stats sync is left to the caller."""
+        chaos.maybe_inject("dram.serve", case_chaos_key(case))
         sess = self._session(case.graph)
         backend = self.backend if backend is None else backend
         t0 = time.perf_counter()
@@ -386,6 +400,9 @@ class Sweeper:
             # dynamic cases go through run_case on the serving thread in
             # every mode: their epochs share one mutating memory timeline
             return None
+        key = case_chaos_key(case)
+        chaos.maybe_inject("worker.crash", key)
+        chaos.maybe_inject("sweep.prepare", key)
         sess = self._session(case.graph)
         spec = get_accelerator(case.accelerator)
         cfg = spec.make_config(case.config,
@@ -451,6 +468,8 @@ class Sweeper:
                     t0 = time.perf_counter()
 
                     def _serve():
+                        chaos.maybe_inject("dram.serve",
+                                           case_chaos_key(case))
                         if packed is None:
                             return ProgramStats([], 0, 0, 0, 0)
                         s, _ = serve_packed(

@@ -904,3 +904,35 @@ def test_corpus_names_on_card_equal_cpu(cuda, monkeypatch):
     want = sweep(device="cpu", **kw)
     assert [r.graph_name for r in rows] == [r.graph_name for r in want]
     assert [r.report for r in rows] == [r.report for r in want]
+
+
+def test_service_on_card_equals_cpu(cuda, monkeypatch):
+    """A karate job through ``SimService()`` on the card launches the serve
+    and its rows equal the ``device="cpu"`` service's; a small search
+    through ``SearchDriver(space)`` on the card finds the CPU's front."""
+    from repro_torch.kernels import launch_counts, zero_launch_counts
+    from repro_torch.serve import SimService
+    from repro_torch.sim import SweepCase, get_accelerator
+    from repro_torch.tune import HalvingBudget, SearchDriver
+    monkeypatch.setenv("REPRO_GRAPH_CACHE", "0")
+    cases = [SweepCase("karate", p) for p in ("wcc", "bfs", "pr")]
+    zero_launch_counts()
+    with SimService(workers=2) as svc:
+        rows = svc.result(svc.submit(cases), timeout=120)
+    launches = launch_counts()
+    with SimService(workers=2, device="cpu") as svc:
+        want = svc.result(svc.submit(cases), timeout=120)
+    assert launches["dram_serve"] == len(cases)
+    assert [r.report for r in rows] == [r.report for r in want]
+    space = get_accelerator("hitgraph").design_space().restrict(
+        n_pes=["1", "4"], pipelines=["8"], memory=["ddr3", "hbm2"],
+        cache=["none", "prefetch-8"])
+    budget = HalvingBudget(rungs=(1, 2), initial=6, keep=0.5)
+    zero_launch_counts()
+    res = SearchDriver(space, seed=7, budget=budget).search("karate", "bfs")
+    assert launch_counts()["dram_serve_batch"] > 0
+    cpu = SearchDriver(space, seed=7, budget=budget,
+                       device="cpu").search("karate", "bfs")
+    assert res.front_keys() == cpu.front_keys()
+    assert [e.objectives for e in res.front] == [e.objectives
+                                                for e in cpu.front]

@@ -61,6 +61,12 @@ _CORPUS_MODULES = {"repro_torch.graphs.corpus", "repro_torch.graphs.formats",
                    "repro_torch.graphs.datasets", "repro_torch.sim.scenario",
                    "repro_torch.interop"}
 
+#: the modules of the service slice (the service, chaos and the tuner)
+_SERVICE_MODULES = {"repro_torch.serve", "repro_torch.serve.chaos",
+                    "repro_torch.serve.engine", "repro_torch.tune",
+                    "repro_torch.tune.space", "repro_torch.tune.sampler",
+                    "repro_torch.tune.pareto", "repro_torch.tune.halving"}
+
 #: an import statement naming jax or the JAX package (not repro_torch)
 _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
                      re.M)
@@ -78,7 +84,7 @@ def test_import_leaves_jax_and_repro_out():
     assert bad == "[]", bad
     assert (_DYNAMIC_MODULES | _STATIONARY_MODULES | _CACHE_MODULES
             | _EVENT_MODULES | _SWEEP_MODULES | _CORPUS_MODULES
-            <= set(names.split())), names
+            | _SERVICE_MODULES <= set(names.split())), names
 
 
 def test_no_jax_or_repro_import_in_sources():
@@ -138,6 +144,13 @@ def test_entry_points_raise_without_cuda(monkeypatch):
         simulate(ScenarioSpec("karate", "wcc", updates="pa-growth"))
     with pytest.raises(RuntimeError, match="CUDA"):
         run_dynamic("karate", "wcc", updates="pa-growth")
+    from repro_torch.serve import SimService
+    from repro_torch.sim import get_accelerator
+    from repro_torch.tune import SearchDriver
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SimService()
+    with pytest.raises(RuntimeError, match="CUDA"):
+        SearchDriver(get_accelerator("hitgraph").design_space())
 
 
 def test_later_slices_raise_not_implemented(monkeypatch):
@@ -169,6 +182,21 @@ def test_later_slices_raise_not_implemented(monkeypatch):
     assert res.n_epochs == 4
     rows = sweep(graphs=["karate"], problems=["wcc"], device="cpu")
     assert [row.graph_name for row in rows] == ["karate", "karate"]
+    # the service and the tuner are ported: they run on the CPU when asked
+    from repro_torch.serve import SimService
+    from repro_torch.sim import SweepCase, get_accelerator
+    from repro_torch.tune import HalvingBudget, SearchDriver
+    with SimService(device="cpu") as svc:
+        rows = svc.result(svc.submit(SweepCase("karate", "wcc")), timeout=60)
+    assert rows[0].report == simulate("karate", "wcc", device="cpu")
+    space = get_accelerator("hitgraph").design_space().restrict(
+        memory=["ddr4"], cache=["none"])
+    res = SearchDriver(space, budget=HalvingBudget(rungs=(2,), initial=2),
+                       device="cpu").search("karate", "bfs")
+    assert res.front and res.stats.case_evals == 2
+    # no serve_backend knob: the device picks the serve (ROADMAP.md §3)
+    with pytest.raises(TypeError, match="serve_backend"):
+        simulate("karate", "wcc", serve_backend="scan", device="cpu")
     # devices > 1 is the one input of the sweep still to come
     with pytest.raises(ValueError, match="ROADMAP.md"):
         sweep(graphs=["karate"], problems=["wcc"], devices=2, device="cpu")
