@@ -178,8 +178,22 @@ Phases, one JSON line each:
               its own size, with 2 and 1 preparing workers and through
               the service's ``submit_search``, each front equal to the
               pin and non-dominated in the 16-point exhaustive sweep
-              (``tools/service_pins.py`` makes the pins).  Then the
-              script's wall time.
+              (``tools/service_pins.py`` makes the pins).
+13. lock_witness — the port's threads on the card under the lock witness
+              (``REPRO_ANALYSIS_LOCKS=1`` for this phase only), counts and
+              the witness's record zeroed around each part: a cold
+              ``SimSession`` on the full-size wiki-talk stand-in taking 16
+              WCC runs (HitGraph and AccuGraph, mixed order) from 8
+              threads, every report equal to the main path's field for
+              field, one algorithm run an engine and one serve a run; a
+              ``Sweeper(workers=8)`` timing grid on powerlaw-social (8
+              cases, batched serves) equal to ``workers=1``, timed with
+              the witness off and on; a ``SimService`` taking two jobs
+              twice from 4 submitting threads, repeated submissions'
+              rows equal; 8 threads saving powerlaw-social to one key of
+              a fresh ``GraphStore`` (one file, no tmp litter, read back
+              equal).  No hazard recorded.  Then the script's wall
+              time.
 
 Then the kernel table, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -194,6 +208,7 @@ import hashlib
 import json
 import subprocess
 import sys
+import threading
 import time
 import warnings
 from pathlib import Path
@@ -781,6 +796,20 @@ TUNE_SWEEP_STATS = {
 STATIONARY = ("pr", "spmv")
 STATIONARY_ITERS = 3
 STATIONARY_RTOL = 1e-3
+
+#: phase 13, the lock witness: the threaded full-size session's runs and
+#: threads, the seed of their mixed order; the sweeper grid's preset (at
+#: its own size), its problem and timing variants (the default memory and
+#: these kinds: 4 cases an accelerator sharing one pack) and threads; the
+#: service's submitting threads; the store's saving threads and the saves
+#: each makes
+LOCK_RUNS = 16
+LOCK_THREADS = 8
+LOCK_SEED = 13
+LOCK_GRAPH = "powerlaw-social"
+LOCK_KINDS = ("ddr3", "hbm2", "ddr4-3200")
+LOCK_SUBMITTERS = 4
+LOCK_SAVES = 3
 
 
 def emit(**kw) -> None:
@@ -2206,7 +2235,7 @@ def check_sweep(dev) -> dict:
             res = sweep_min_block(vk, block, add)
             sweep_min(vs, block.src, block.dst, add)
             sweep_min_ref(vp, block.src, block.dst, add)
-            rounds = sweep_min_rounds_ref(vr, block.src, block.dst, add)
+            rounds = sweep_min_rounds_ref(vr, block, add)
             torch.cuda.synchronize()
             worst = max(worst, max_abs_diff(vk, vp), max_abs_diff(vs, vp),
                         max_abs_diff(vr, vp))
@@ -3360,6 +3389,209 @@ def row_fields(row) -> dict:
     return d
 
 
+def report_diff(got, want) -> list:
+    """The compared fields (every dataclass field but the
+    ``compare=False`` ones, the stage times and launch counts) in which
+    two ``SimReport`` differ."""
+    return [f.name for f in dataclasses.fields(want)
+            if f.compare and getattr(got, f.name) != getattr(want, f.name)]
+
+
+def threaded_session_runs(graph, want, device, runs=LOCK_RUNS,
+                          threads=LOCK_THREADS, seed=LOCK_SEED) -> dict:
+    """Phase 13's part (a): a cold ``SimSession`` on ``graph`` and
+    ``threads`` threads issuing ``runs`` WCC runs of the accelerators of
+    ``want`` (accelerator -> the report of a serial run) in a seeded mixed
+    order.  Every report equal to ``want``'s field for field; one
+    algorithm run an engine (the rest are the session's hits)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.sim import SimSession
+    accs = sorted(want) * (runs // len(want))
+    order = [accs[i] for i in np.random.default_rng(seed).permutation(
+        len(accs))]
+    sess = SimSession(graph)
+    with ThreadPoolExecutor(threads) as pool:
+        got = list(pool.map(lambda acc: sess.run("wcc", acc, device=device),
+                            order))
+    bad = [(i, acc, report_diff(r, want[acc]))
+           for i, (acc, r) in enumerate(zip(order, got))
+           if report_diff(r, want[acc])]
+    assert not bad, f"threaded session runs differ from the serial: {bad}"
+    assert (sess.algo_runs, sess.algo_cache_hits) == (
+        len(want), runs - len(want)), (sess.algo_runs, sess.algo_cache_hits)
+    return {"runs": len(order), "threads": threads, "order": order,
+            "algo_runs": sess.algo_runs,
+            "algo_cache_hits": sess.algo_cache_hits}
+
+
+def witness_sweep_cases(graph) -> list:
+    """Phase 13's part (b) grid: WCC on ``graph`` on both accelerators,
+    each under its default memory and ``LOCK_KINDS`` timing variants of
+    it."""
+    from repro_torch.sim import (SweepCase, get_accelerator,
+                                 timing_variants)
+    from repro_torch.sim.session import resolve_run_config
+    cases = []
+    for acc in ("hitgraph", "accugraph"):
+        default = resolve_run_config(get_accelerator(acc)).dram_config()
+        cases += [SweepCase(graph, "wcc", accelerator=acc, memory=m)
+                  for m in [None] + timing_variants(default,
+                                                    kinds=LOCK_KINDS)]
+    return cases
+
+
+def witness_service_jobs(graph) -> list:
+    """Phase 13's part (c) jobs, each submitted twice: PR on HitGraph (one
+    case, the per-case serve) and BFS on HitGraph under its default memory
+    and ``LOCK_KINDS`` timing variants (one batched serve)."""
+    from repro_torch.sim import (SweepCase, get_accelerator,
+                                 timing_variants)
+    from repro_torch.sim.session import resolve_run_config
+    default = resolve_run_config(get_accelerator("hitgraph")).dram_config()
+    return [[SweepCase(graph, "pr", accelerator="hitgraph")],
+            [SweepCase(graph, "bfs", accelerator="hitgraph", memory=m)
+             for m in [None] + timing_variants(default, kinds=LOCK_KINDS)]]
+
+
+def lock_witness_parts(wt, want, device, graph=LOCK_GRAPH,
+                       runs=LOCK_RUNS) -> dict:
+    """The four parts of phase 13 under the witness (the caller sets
+    ``REPRO_ANALYSIS_LOCKS``), each with the launch counts and the
+    witness's record zeroed just before it and read just after: (a)
+    :func:`threaded_session_runs` on ``wt``; (b) a
+    ``Sweeper(workers=LOCK_THREADS)`` grid (:func:`witness_sweep_cases` on
+    the preset ``graph``) against ``workers=1``, rows equal, the threaded
+    grid run again with the witness off (a fresh sweeper each run); (c) a
+    ``SimService`` taking :func:`witness_service_jobs` twice from
+    ``LOCK_SUBMITTERS`` threads, the rows of each repeated submission
+    equal; (d) ``LOCK_THREADS`` threads saving ``graph`` to one key of a
+    fresh ``GraphStore``, ``LOCK_SAVES`` times each: one file, no tmp
+    litter, the file reading back the graph.  Returns by part: seconds,
+    threads, launches, locks made by role, the findings; and the threaded
+    grid's seconds with the witness on and off."""
+    import os
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.analysis import locks
+    from repro_torch.graphs.corpus import (GRAPH_PRESETS, GraphStore,
+                                           resolve_graph)
+    from repro_torch.kernels import launch_counts, zero_launch_counts
+    from repro_torch.serve.engine import DONE, SimService
+    from repro_torch.sim import Sweeper
+    parts, counts_by_part, found = {}, {}, []
+
+    def start():
+        zero_launch_counts()
+        locks.reset()
+        return time.perf_counter()
+
+    def finish(name, t0, threads, **extra):
+        seconds = time.perf_counter() - t0
+        hazards = [h.format() for h in locks.findings()]
+        found.extend(f"{name}: {h}" for h in hazards)
+        counts = counts_by_part[name] = launch_counts()
+        parts[name] = {"seconds": seconds, "threads": threads,
+                       "launches": {k: n for k, n in counts.items() if n},
+                       "locks_made": locks.made(),
+                       "findings": len(hazards), **extra}
+        return counts
+
+    t0 = start()
+    out = threaded_session_runs(wt, want, device, runs=runs)
+    counts = finish("session", t0, out["threads"], runs=out["runs"],
+                    algo_runs=out["algo_runs"],
+                    algo_cache_hits=out["algo_cache_hits"])
+    # the session caches runs, models and packs, never serves: one serve
+    # (a pre-pass and the records) a run
+    assert (counts["dram_serve"], counts["serve_prepass"]) == (
+        out["runs"], out["runs"]), counts
+
+    g = resolve_graph(graph)
+    cases = witness_sweep_cases(g)
+
+    def grid(workers):
+        return [row_fields(r) for r in Sweeper(
+            workers=workers, batch_memories=True, device=device).run(cases)]
+
+    want_rows = grid(1)
+    flag = os.environ.get(locks.ENV_FLAG)
+    os.environ[locks.ENV_FLAG] = "0"
+    try:
+        t_off = time.perf_counter()
+        off_rows = grid(LOCK_THREADS)
+        off_s = time.perf_counter() - t_off
+    finally:
+        os.environ[locks.ENV_FLAG] = flag
+    t0 = start()
+    on_rows = grid(LOCK_THREADS)
+    on_s = time.perf_counter() - t0
+    finish("sweeper", t0, LOCK_THREADS, cases=len(cases))
+    assert on_rows == want_rows and off_rows == want_rows, (
+        "the threaded sweeper's rows differ from workers=1")
+
+    jobs = witness_service_jobs(g)
+    t0 = start()
+    with SimService(batch_memories=True, device=device) as svc:
+        with ThreadPoolExecutor(LOCK_SUBMITTERS) as pool:
+            ids = list(pool.map(svc.submit, jobs * 2))
+        rows = [[row_fields(r) for r in svc.result(i, timeout=600)]
+                for i in ids]
+        assert all(svc.poll(i) == DONE for i in ids)
+    finish("service", t0, LOCK_SUBMITTERS + 1, jobs=len(ids))
+    assert rows[0] == rows[2] and rows[1] == rows[3], (
+        "a repeated service submission's rows differ")
+
+    key = GRAPH_PRESETS[graph].key(1.0, 0)
+    with tempfile.TemporaryDirectory(prefix="witness-store-") as tmp:
+        store = GraphStore(tmp)
+        t0 = start()
+        barrier = threading.Barrier(LOCK_THREADS)
+
+        def save():
+            barrier.wait(timeout=60)
+            for _ in range(LOCK_SAVES):
+                assert store.store(key, g) is not None
+
+        with ThreadPoolExecutor(LOCK_THREADS) as pool:
+            for f in [pool.submit(save) for _ in range(LOCK_THREADS)]:
+                f.result()
+        files = sorted(p.name for p in Path(tmp).iterdir())
+        back = store.load(key)
+        finish("store", t0, LOCK_THREADS, saves=LOCK_THREADS * LOCK_SAVES)
+    assert files == [store.path_for(key).name], files
+    assert back is not None and back.fingerprint == g.fingerprint
+    return {"parts": parts, "launches": counts_by_part, "findings": found,
+            "sweeper_witness_s": {"off": off_s, "on": on_s}}
+
+
+def run_lock_witness_phase(card, dev, wt, reports) -> dict:
+    """Phase 13, the port's threads on the card under the lock witness
+    (``REPRO_ANALYSIS_LOCKS=1`` for this phase only):
+    :func:`lock_witness_parts`, part (a) on the full-size wiki-talk
+    stand-in held to the main path's ``reports``; then no hazard recorded
+    in any part.  Returns the launches by part and the seconds."""
+    import os
+    from repro_torch.analysis import locks
+    t_phase = time.perf_counter()
+    flag = os.environ.get(locks.ENV_FLAG)
+    os.environ[locks.ENV_FLAG] = "1"
+    try:
+        out = lock_witness_parts(wt, reports, dev)
+    finally:
+        if flag is None:
+            os.environ.pop(locks.ENV_FLAG, None)
+        else:
+            os.environ[locks.ENV_FLAG] = flag
+    seconds = time.perf_counter() - t_phase
+    emit(phase="lock_witness", seconds=seconds, parts=out["parts"],
+         sweeper_witness_s=out["sweeper_witness_s"],
+         findings=len(out["findings"]), card=card)
+    assert out["findings"] == [], (
+        "the lock witness recorded hazards:\n  "
+        + "\n  ".join(out["findings"]))
+    return {"launches": out["launches"], "seconds": seconds}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3655,10 +3887,16 @@ def main() -> int:
     served = run_service_phase(card, dev)
     launches.update({f"service_{part}": counts
                      for part, counts in served["launches"].items()})
+
+    # ---- 13. the lock witness -------------------------------------------
+    witnessed = run_lock_witness_phase(card, dev, wt, reports)
+    launches.update({f"lock_{part}": counts
+                     for part, counts in witnessed["launches"].items()})
     emit(phase="wall", seconds=time.perf_counter() - t_start,
          event_phase_seconds=event_s, sweep_phase_seconds=swept["seconds"],
          corpus_phase_seconds=corp["seconds"],
-         service_phase_seconds=served["seconds"], card=card)
+         service_phase_seconds=served["seconds"],
+         lock_witness_phase_seconds=witnessed["seconds"], card=card)
 
     ds = kernels["dram_serve"]
     hw = ds["windows"]["hitgraph"]

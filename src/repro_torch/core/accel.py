@@ -699,6 +699,15 @@ class SimReport:
     kernel_launches: Dict[str, int] = dataclasses.field(
         default_factory=dict, compare=False)
 
+    TIMING_ONLY_FIELDS = {
+        "stage_seconds": "wall-clock seconds of this run's stages — a "
+                         "measurement of the host, never part of the "
+                         "simulated result",
+        "kernel_launches": "the kernels this run launched — where the "
+                           "result was computed (the CPU's plain "
+                           "versions launch none), not what it is",
+    }
+
     @property
     def cache_hit_rate(self) -> float:
         """On-chip hit rate over the reads that probed the cache."""

@@ -65,6 +65,11 @@ class CacheConfig:
     #: under different names compare equal
     name: str = dataclasses.field(default="", compare=False)
 
+    TIMING_ONLY_FIELDS = {
+        "name": "display only — same-geometry configs under different "
+                "names must share pack-cache entries",
+    }
+
     def __post_init__(self) -> None:
         if self.lines < 0 or self.ways < 1 or self.prefetch_degree < 0:
             raise ValueError(f"invalid cache geometry: {self}")

@@ -87,6 +87,14 @@ class DRAMConfig:
     order: AddressOrder = DEFAULT_ORDER
     cache: Optional["CacheConfig"] = None
 
+    TIMING_ONLY_FIELDS = {
+        "name": "display label only",
+        "standard": "display label; geometry lives in org/channels",
+        "timing": "served timing vector — packing never reads timings",
+        "clock_ghz": "keyed separately by SimSession next to the "
+                     "geometry key (timing-only scale factor)",
+    }
+
     @property
     def banks_per_channel(self) -> int:
         return self.org.ranks * self.org.banks

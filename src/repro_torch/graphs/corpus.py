@@ -40,6 +40,7 @@ from typing import Callable, Dict, Iterable, List, Optional, Union
 
 import numpy as np
 
+from repro_torch.analysis import locks
 from repro_torch.errors import UnknownPresetError
 from repro_torch.graphs import generators as gen
 from repro_torch.graphs.formats import (Graph, load_matrix_market,
@@ -194,7 +195,7 @@ def save_graph_binary(path: Union[str, Path], g: Graph,
         path.name + f".tmp{os.getpid()}.{threading.get_ident()}"
         f".{next(_TMP_SEQ)}")
     try:
-        with open(tmp, "wb") as f:
+        with locks.witness_write(tmp), open(tmp, "wb") as f:
             f.write(_MAGIC)
             f.write(struct.pack("<IQQB", CORPUS_CACHE_VERSION, g.n,
                                 g.m, flags))
@@ -468,8 +469,9 @@ GRAPH_PRESETS: Dict[str, GraphPreset] = _presets()
 
 GraphLike = Union[Graph, str]
 
-_resolve_lock = threading.Lock()
-_resolved: Dict[tuple, Graph] = {}
+_resolve_lock = locks.make_lock("corpus-resolve")
+_resolved: Dict[tuple, Graph] = \
+    locks.make_dict("corpus._resolved", _resolve_lock)
 _default_store: Optional[GraphStore] = None
 
 

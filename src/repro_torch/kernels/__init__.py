@@ -3,6 +3,20 @@ plain PyTorch version beside it and a launch counter on its wrapper."""
 
 from typing import Callable, Dict
 
+from repro_torch.analysis import locks
+
+#: the counters are bumped from several threads at once (the sweep's
+#: workers, the service's, a caller's own): ``+=`` on an attribute is not
+#: atomic, so every count and reset holds this lock
+_count_lock = locks.make_lock("kernel-launches")
+
+
+def count_launch(fn: Callable) -> None:
+    """Add one to ``fn.launches``: each wrapper calls this where it
+    launches its kernel, and nowhere else."""
+    with _count_lock:
+        fn.launches += 1
+
 
 def wrappers() -> Dict[str, Callable]:
     """Every kernel wrapper, by kernel name; each counts its launches in
@@ -39,10 +53,14 @@ def wrappers() -> Dict[str, Callable]:
 
 def launch_counts() -> Dict[str, int]:
     """The launch counter of every kernel wrapper, by kernel name."""
-    return {name: fn.launches for name, fn in wrappers().items()}
+    fns = wrappers()
+    with _count_lock:
+        return {name: fn.launches for name, fn in fns.items()}
 
 
 def zero_launch_counts() -> None:
     """Set every wrapper's launch counter to 0."""
-    for fn in wrappers().values():
-        fn.launches = 0
+    fns = wrappers()
+    with _count_lock:
+        for fn in fns.values():
+            fn.launches = 0

@@ -16,10 +16,10 @@ import hashlib
 import os
 import shutil
 import subprocess
-import threading
 from pathlib import Path
 from typing import List, Optional
 
+from repro_torch.analysis import locks
 from repro_torch.errors import KernelError
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -74,7 +74,8 @@ SIGNATURES = {
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 
-_lock = threading.Lock()
+#: the first caller builds and loads the library; the rest wait on it
+_lock = locks.make_lock("kernel-library")
 _lib: Optional[ctypes.CDLL] = None
 
 

@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import count_launch
 from repro_torch.kernels.build import check_launch, library
 from repro_torch.kernels.cache_lookup.ref import cache_lookup_ref
 
@@ -65,7 +66,7 @@ def cache_lookup(seg_ptr: torch.Tensor, tag: torch.Tensor,
                                       age.data_ptr(), hit.data_ptr(), U, W,
                                       stream)
     check_launch(code, "cache_lookup")
-    cache_lookup.launches += 1
+    count_launch(cache_lookup)
     return hit
 
 

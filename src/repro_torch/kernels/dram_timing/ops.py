@@ -41,11 +41,13 @@ from repro_torch.core.vectorized import (MAX_PHASE_ISSUE, NEG_INF32,
                                          init_channel_carry, pack_channels,
                                          timing_params)
 from repro_torch.device import resolve_device
+from repro_torch.kernels import count_launch
 from repro_torch.kernels.build import check_launch, library
 from repro_torch.kernels.dram_timing.ref import (dram_serve_batch_ref,
                                                  dram_serve_ref,
                                                  dram_timing_chunked_ref,
                                                  dram_timing_ref,
+                                                 dram_timing_serial_ref,
                                                  serve_prepass_batch_ref,
                                                  serve_prepass_ref,
                                                  serve_records_batch_ref,
@@ -120,7 +122,7 @@ def serve_prepass(issue: torch.Tensor, meta: torch.Tensor,
                                  banks_per_rank, R, S_pad)
     rec = _launch_prepass(issue, meta, boundary, timing[None],
                           banks_per_rank, R, T, "serve_prepass")
-    serve_prepass.launches += 1
+    count_launch(serve_prepass)
     return rec[0]
 
 
@@ -139,7 +141,7 @@ def serve_records(rec: torch.Tensor, timing: torch.Tensor, state: State,
     fin, out = _launch_records(rec[None], timing[None],
                                tuple(x[None] for x in state), S,
                                "dram_serve")
-    dram_serve.launches += 1
+    count_launch(dram_serve)
     return fin[0], tuple(x[0] for x in out)
 
 
@@ -254,7 +256,7 @@ def serve_prepass_batch(issue: torch.Tensor, meta: torch.Tensor,
                                        banks_per_rank, R, S_pad)
     rec = _launch_prepass(issue, meta, boundary, timing, banks_per_rank, R,
                           T, "serve_prepass_batch")
-    serve_prepass_batch.launches += 1
+    count_launch(serve_prepass_batch)
     return rec
 
 
@@ -271,7 +273,7 @@ def serve_records_batch(rec: torch.Tensor, timing: torch.Tensor,
     if rec.device.type == "cpu":
         return serve_records_batch_ref(rec, timing, state, S)
     fin, out = _launch_records(rec, timing, state, S, "dram_serve_batch")
-    dram_serve_batch.launches += 1
+    count_launch(dram_serve_batch)
     return fin, out
 
 
@@ -437,7 +439,7 @@ def dram_timing(issue: torch.Tensor, bank: torch.Tensor, row: torch.Tensor,
         library().repro_dram_timing, (issue, bank, row, valid, timing),
         carry, C, L)
     check_launch(code, "dram_timing")
-    dram_timing.launches += 1
+    count_launch(dram_timing)
     _check_wrapped(kind)
     return finish, kind, out
 
@@ -476,7 +478,7 @@ def dram_timing_chunks(issue: torch.Tensor, bank: torch.Tensor,
         (issue, bank, row, valid, timing), carry, C, L,
         (T, group, ctypes.cast(ms, ctypes.c_void_p) if ms else None))
     check_launch(code, "dram_timing")
-    dram_timing.launches += 1
+    count_launch(dram_timing)
     _check_wrapped(kind)
     return finish, kind, out, list(ms) if ms else None
 
@@ -486,10 +488,11 @@ def dram_timing_serial(issue: torch.Tensor, bank: torch.Tensor,
                        timing: torch.Tensor, carry: State):
     """:func:`dram_timing` by the serial kernel: one lane a channel walks
     its slots in int32 that wraps as the JAX scan does.  The plain
-    version for CPU tensors."""
+    version (:func:`~.ref.dram_timing_serial_ref`) for CPU tensors."""
     C, L, B, R = _check_timing(issue, bank, row, valid, timing, carry)
     if issue.device.type == "cpu":
-        return dram_timing_ref(issue, bank, row, valid, timing, carry)
+        return dram_timing_serial_ref(issue, bank, row, valid, timing,
+                                      carry)
     if issue.device.type != "cuda":
         raise ValueError(f"dram_timing_serial runs on CUDA or CPU, not "
                          f"{issue.device}")
@@ -497,7 +500,7 @@ def dram_timing_serial(issue: torch.Tensor, bank: torch.Tensor,
         library().repro_dram_timing_serial,
         (issue, bank, row, valid, timing), carry, C, L)
     check_launch(code, "dram_timing_serial")
-    dram_timing_serial.launches += 1
+    count_launch(dram_timing_serial)
     return finish, kind, out
 
 

@@ -16,8 +16,9 @@ equals a step-by-step run over the whole padded stream.
 (``src/repro/core/vectorized.py:227, 279``) in torch, channels side by
 side, one Python-loop iteration per slot.  Invalid slots leave the carry
 untouched, so it stops at the last slot that is valid in any channel.
-:func:`dram_timing_chunked_ref` computes the same by the card's chunked
-max-plus passes, with the chunk length a parameter.
+:func:`dram_timing_serial_ref` is the same scan under the serial
+kernel's name.  :func:`dram_timing_chunked_ref` computes the same by the
+card's chunked max-plus passes, with the chunk length a parameter.
 
 :func:`serve_prepass_ref` and :func:`serve_records_ref` are the two
 halves of the card's serve (``csrc/dram_serve.cu``) in torch: the
@@ -103,6 +104,15 @@ def dram_timing_ref(issue: torch.Tensor, bank: torch.Tensor,
             -1).to(torch.int8)
     return finish, kind, (open_row, act_time, bank_avail, bus_free,
                           act_hist, act_ptr, last_act)
+
+
+def dram_timing_serial_ref(issue: torch.Tensor, bank: torch.Tensor,
+                           row: torch.Tensor, valid: torch.Tensor,
+                           timing: torch.Tensor, carry: State):
+    """The plain version of ``csrc/dram_timing_serial.cu``: one channel
+    walks its slots in int32 that wraps, which is :func:`dram_timing_ref`
+    slot for slot."""
+    return dram_timing_ref(issue, bank, row, valid, timing, carry)
 
 
 def timing_state_width(banks_per_rank: int) -> int:

@@ -14,6 +14,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import count_launch
 from repro_torch.kernels.build import check_launch, library
 from repro_torch.kernels.edge_scatter.ref import edge_scatter_ref
 
@@ -66,7 +67,7 @@ def edge_scatter(src: torch.Tensor, weights: torch.Tensor,
             active.data_ptr(), upd.data_ptr(), valid.data_ptr(),
             src.shape[0], values.shape[0], OPS[op], stream)
     check_launch(code, "edge_scatter")
-    edge_scatter.launches += 1
+    count_launch(edge_scatter)
     return upd, valid
 
 

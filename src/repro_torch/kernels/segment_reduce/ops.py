@@ -13,6 +13,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import count_launch
 from repro_torch.kernels.build import check_launch, library
 from repro_torch.kernels.segment_reduce.ref import segment_reduce_ref
 
@@ -74,7 +75,7 @@ def segment_reduce(ids: torch.Tensor, values: torch.Tensor,
             scratch.data_ptr(), ids.shape[0], d, num_segments, OPS[op],
             int(bf16), stream)
     check_launch(code, "segment_reduce")
-    segment_reduce.launches += 1
+    count_launch(segment_reduce)
     return out
 
 

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.graphs.formats import CSR
+from repro_torch.kernels import count_launch
 from repro_torch.kernels.build import check_launch, library
 from repro_torch.kernels.spmv_ell.ref import (SLICE_ROWS, spmv_ell_ref,
                                               spmv_sell_ref)
@@ -217,7 +218,7 @@ def _launch(cols, vals, x, y, slice_ptr, slice_rows, n_slices, chunk_ptr,
             slice_ptr, slice_rows, n_slices, chunk_ptr, chunk_rows,
             n_chunks, y.shape[0], k, x.shape[0], stream)
     check_launch(code, what)
-    spmv_ell.launches += 1
+    count_launch(spmv_ell)
 
 
 def spmv_ell(cols: torch.Tensor, vals: torch.Tensor,

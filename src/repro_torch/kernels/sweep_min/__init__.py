@@ -1,2 +1,3 @@
-"""Asynchronous min-relaxation sweep: ``ops.sweep_min`` (kernel wrapper)
-and ``ops.sweep_min_ref`` (plain version)."""
+"""Asynchronous min-relaxation sweep: ``ops.sweep_min`` /
+``ops.sweep_min_rounds`` (kernel wrappers) and ``ref.sweep_min_ref`` /
+``ref.sweep_min_rounds_ref`` (plain versions)."""

@@ -16,10 +16,10 @@ Two hand-written CUDA kernels, each behind its own wrapper and counter:
 ``sweep_min_block(values, block, add)``, the engine's entry point, runs
 the rounds up to a budget and, if they do not converge, restores the
 values and takes the serial route.  For CPU tensors the kernels' wrappers
-run their plain versions (:func:`sweep_min_rounds_ref`, the round
-algorithm in torch ops, and :func:`sweep_min_ref`, the sequential loop)
-and ``sweep_min_block`` runs the sequential loop.  No fallback: a CUDA
-tensor goes to a kernel or the call raises.
+run their plain versions (``ref.py``: :func:`sweep_min_rounds_ref`, the
+round algorithm in torch ops, and :func:`sweep_min_ref`, the sequential
+loop) and ``sweep_min_block`` runs the sequential loop.  No fallback: a
+CUDA tensor goes to a kernel or the call raises.
 """
 
 from __future__ import annotations
@@ -29,8 +29,15 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from repro_torch.kernels import count_launch
 from repro_torch.kernels.build import check_launch, library
 from repro_torch.kernels.spmv_ell.ops import SlicedEll, pack_in_edges
+# the plain versions live in ref.py; importing them here keeps
+# ``ops.sweep_min_ref`` / ``ops.sweep_min_rounds_ref`` working
+from repro_torch.kernels.sweep_min.ref import (_check_edges, _check_peak,
+                                               _check_values, _rounds,
+                                               sweep_min_ref,
+                                               sweep_min_rounds_ref)
 
 #: the serial route's time per edge (its fastest, on a path) and a
 #: round's fixed cost and time per slot on an H100 (chip_smoke.py's
@@ -41,36 +48,6 @@ SERIAL_NS_PER_EDGE = 103.0
 ROUND_NS = 13_500.0
 ROUND_NS_PER_SLOT = 0.0096
 MIN_ROUNDS = 2
-
-
-def _wrap32(x: int) -> int:
-    """int32 two's-complement wrap, as the device arithmetic does."""
-    return (x + 2**31) % 2**32 - 2**31
-
-
-def sweep_min_ref(values: torch.Tensor, src: torch.Tensor,
-                  dst: torch.Tensor, add: int) -> None:
-    """The plain sequential sweep, one Python-loop iteration per edge."""
-    vals = values.tolist()
-    for s, d in zip(src.tolist(), dst.tolist()):
-        vals[d] = min(vals[d], _wrap32(vals[s] + add))
-    values.copy_(torch.tensor(vals, dtype=values.dtype))
-
-
-def _check_edges(values, src, dst) -> None:
-    for t in (values, src, dst):
-        if t.dtype != torch.int32 or t.dim() != 1:
-            raise TypeError("sweep_min takes 1-D int32 tensors")
-        if not t.is_contiguous():
-            raise ValueError("sweep_min takes contiguous tensors")
-        if t.device != values.device:
-            raise ValueError(f"tensors on {t.device} and {values.device}")
-    if src.shape != dst.shape:
-        raise ValueError("src and dst differ in length")
-    n, m = values.shape[0], src.shape[0]
-    if m and (int(torch.minimum(src.min(), dst.min())) < 0
-              or int(torch.maximum(src.max(), dst.max())) >= n):
-        raise ValueError("edge endpoints out of range")
 
 
 def sweep_min(values: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
@@ -91,7 +68,7 @@ def sweep_min(values: torch.Tensor, src: torch.Tensor, dst: torch.Tensor,
                                    dst.data_ptr(), src.shape[0], int(add),
                                    stream)
     check_launch(code, "sweep_min")
-    sweep_min.launches += 1
+    count_launch(sweep_min)
 
 
 sweep_min.launches = 0
@@ -151,61 +128,6 @@ def pack_sweep_block(src, dst, n: int, device=None) -> SweepBlock:
                            .to(torch.int32).contiguous() for a in (src, dst)))
 
 
-def _check_values(values: torch.Tensor, n: int, add: int, device) -> None:
-    """Everything but the values' peak, which needs a read of the card."""
-    if values.dtype != torch.int32 or values.dim() != 1:
-        raise TypeError("sweep values must be 1-D int32")
-    if not values.is_contiguous():
-        raise ValueError("sweep values must be contiguous")
-    if values.shape[0] != n:
-        raise ValueError(f"{values.shape[0]} values for a block of {n} "
-                         f"vertices")
-    if values.device != torch.device(device):
-        raise ValueError(f"values on {values.device}, block on {device}")
-    if int(add) < 0:
-        raise ValueError(f"the round sweep needs add >= 0, got {add}")
-
-
-def _check_peak(peak: int, add: int) -> None:
-    if peak + int(add) >= 2**31:
-        raise ValueError("values.max() + add must stay below 2**31 (the "
-                         "rounds are exact only where nothing wraps)")
-
-
-def _rounds(values, src, dst, add, max_rounds) -> tuple:
-    """The synchronous rounds, at most ``max_rounds`` (None: no limit):
-    (rounds run, whether the last one changed nothing)."""
-    s, d = src.long(), dst.long()
-    up, down = s > d, s < d
-    base = values.scatter_reduce(0, d[up], values[s[up]] + add, "amin")
-    d_down, s_down = d[down], s[down]
-    rounds = 0
-    while max_rounds is None or rounds < max_rounds:
-        rounds += 1
-        y = base.scatter_reduce(0, d_down, values[s_down] + add, "amin")
-        y = torch.minimum(y, values)
-        if torch.equal(y, values):
-            return rounds, True
-        values.copy_(y)
-    return rounds, False
-
-
-def sweep_min_rounds_ref(values: torch.Tensor, src: torch.Tensor,
-                         dst: torch.Tensor, add: int) -> int:
-    """The round algorithm in torch ops, synchronous: from ``x0 =
-    values``, each round sets ``y[v] = min(y[v], x0[u] + add for u > v,
-    y_prev[u] + add for u < v)`` over the in-edges ``u -> v``, until a
-    round changes nothing.  Updates ``values`` in place (to the serial
-    sweep's result when ``dst`` is non-decreasing) and returns the rounds,
-    the last one included.  The kernel reads values of the same round
-    too, so it needs at most as many."""
-    _check_edges(values, src, dst)
-    _check_values(values, values.shape[0], add, values.device)
-    if values.numel():
-        _check_peak(int(values.max()), add)
-    return _rounds(values, src, dst, add, None)[0]
-
-
 def sweep_min_rounds(values: torch.Tensor, x0: torch.Tensor,
                      block: SweepBlock, add: int, max_rounds: int,
                      status: torch.Tensor) -> None:
@@ -236,7 +158,7 @@ def sweep_min_rounds(values: torch.Tensor, x0: torch.Tensor,
             a.chunk_ptr.data_ptr(), a.chunk_rows.data_ptr(), a.n_chunks,
             block.n, int(add), int(max_rounds), status.data_ptr(), stream)
     check_launch(code, "sweep_min_rounds")
-    sweep_min_rounds.launches += 1
+    count_launch(sweep_min_rounds)
 
 
 sweep_min_rounds.launches = 0

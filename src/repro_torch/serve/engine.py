@@ -66,6 +66,7 @@ import time
 from collections import deque
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
+from repro_torch.analysis import locks
 from repro_torch.serve import chaos
 from repro_torch.sim.sweep import (SweepCase, SweepError, SweepInterrupted,
                              SweepRow, SweepStats, Sweeper,
@@ -364,9 +365,11 @@ class SimService:
         self._monitor = chaos.StragglerMonitor()
         # ordering discipline: _lock may nest the queue condition, never
         # reverse; _jobs and _tenant_jobs are guarded by _lock
-        self._lock = threading.Lock()
-        self._jobs: Dict[int, SimJob] = {}
-        self._tenant_jobs: Dict[str, int] = {}
+        self._lock = locks.make_lock("service")
+        self._jobs: Dict[int, SimJob] = \
+            locks.make_dict("SimService._jobs", self._lock)
+        self._tenant_jobs: Dict[str, int] = \
+            locks.make_dict("SimService._tenant_jobs", self._lock)
         self._qcond = threading.Condition()
         self._queue: "deque[Optional[SimJob]]" = deque()
         self._queued_cost = 0.0
@@ -718,7 +721,7 @@ class SimService:
                              else DONE)
             # search-thread supervisor: _finished MUST be set on any
             # exit or search_result() blocks forever
-            except BaseException as e:
+            except BaseException as e:  # repro: noqa[bare-base-exception]
                 sj.error = e
                 sj.status = FAILED
             finally:
@@ -924,7 +927,7 @@ class SimService:
         # dying (injected WorkerCrash or a genuine interpreter-level
         # failure), and the whole point is to replace it instead of
         # silently losing the service.
-        except BaseException as e:
+        except BaseException as e:  # repro: noqa[bare-base-exception]
             self._supervise_crash(e)
 
     def _run_loop(self) -> None:

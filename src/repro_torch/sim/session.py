@@ -32,12 +32,12 @@ report.
 from __future__ import annotations
 
 import dataclasses
-import threading
 import time
 from concurrent.futures import Future
 from typing import Dict, Optional
 
 from repro_torch.algorithms.common import Problem, RunResult
+from repro_torch.analysis import locks
 from repro_torch.core import cache as cache_mod
 from repro_torch.core.accel import SimReport, pack_program_auto
 from repro_torch.device import resolve_device
@@ -114,10 +114,15 @@ class SimSession:
         # corpus preset names resolve here, so a session can be opened
         # directly on a scenario: ``SimSession("powerlaw-social")``
         self.graph = resolve_graph(graph)
-        self._lock = threading.Lock()
-        self._runs: Dict[object, Future] = {}
-        self._models: Dict[object, Future] = {}
-        self._packs: Dict[object, Future] = {}
+        # race-instrumented under REPRO_ANALYSIS_LOCKS=1 — every access
+        # to the three single-flight caches must hold the session lock
+        self._lock = locks.make_lock("session")
+        self._runs: Dict[object, Future] = \
+            locks.make_dict("SimSession._runs", self._lock)
+        self._models: Dict[object, Future] = \
+            locks.make_dict("SimSession._models", self._lock)
+        self._packs: Dict[object, Future] = \
+            locks.make_dict("SimSession._packs", self._lock)
         self.algo_runs = 0
         self.algo_cache_hits = 0
         self.pack_cache_hits = 0

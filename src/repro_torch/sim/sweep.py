@@ -35,7 +35,6 @@ from __future__ import annotations
 
 import dataclasses
 import itertools
-import threading
 import time
 from collections import defaultdict, deque
 from concurrent.futures import ThreadPoolExecutor
@@ -45,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.algorithms.common import Problem
+from repro_torch.analysis import locks
 from repro_torch.core import vectorized as vec
 from repro_torch.core.accel import (DevicePackedProgram, ProgramStats,
                                     SimReport, finalize_program,
@@ -265,8 +265,9 @@ class Sweeper:
         self.batch_memories = batch_memories
         self.workers = workers
         self.devices = devices
-        self._sessions_lock = threading.Lock()
-        self._sessions: Dict[str, SimSession] = {}
+        self._sessions_lock = locks.make_lock("sweeper-sessions")
+        self._sessions: Dict[str, SimSession] = \
+            locks.make_dict("Sweeper._sessions", self._sessions_lock)
         self.stats = SweepStats(workers=workers, devices=devices)
 
     def _session(self, g: Graph) -> SimSession:

@@ -89,9 +89,11 @@ class FrontEntry:
     objectives: Tuple[float, ...]         # OBJECTIVES order
     row: SweepRow = dataclasses.field(compare=False)
 
-    # ``row`` is outside the identity: evidence payload — front identity is
-    # (key, objectives); the backing row carries reports that never shape
-    # membership
+    TIMING_ONLY_FIELDS = {
+        "row": "evidence payload — front identity is (key, objectives); "
+               "the backing row carries reports that never shape "
+               "membership",
+    }
 
     def as_dict(self) -> Dict[str, float]:
         d = dict(zip(OBJECTIVES, self.objectives))

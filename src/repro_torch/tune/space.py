@@ -101,9 +101,11 @@ class Constraint:
     predicate: Callable[[Mapping[str, Any]], bool] = dataclasses.field(
         compare=False)
 
-    # ``predicate`` is outside the identity: callables are identity-compared
-    # by Python; the declared name is the constraint's identity in
-    # diagnostics and stats
+    TIMING_ONLY_FIELDS = {
+        "predicate": "callables are identity-compared by Python; the "
+                     "declared name is the constraint's identity in "
+                     "diagnostics and stats",
+    }
 
     def ok(self, assignment: Mapping[str, Any]) -> bool:
         return bool(self.predicate(assignment))
@@ -124,9 +126,11 @@ class DesignSpace:
     #: optional shared base config the dimension overrides apply onto
     base_config: Any = dataclasses.field(default=None, compare=False)
 
-    # ``base_config`` is outside the identity: starting template only —
-    # every searched field is overridden by a dimension value, and case
-    # identity is DesignPoint.key over those values
+    TIMING_ONLY_FIELDS = {
+        "base_config": "starting template only — every searched field "
+                       "is overridden by a dimension value, and case "
+                       "identity is DesignPoint.key over those values",
+    }
 
     def __post_init__(self) -> None:
         object.__setattr__(self, "dimensions", tuple(self.dimensions))
@@ -246,9 +250,11 @@ class DesignPoint:
     space: DesignSpace = dataclasses.field(compare=False)
     assignment: Tuple[Tuple[str, Any], ...] = ()
 
-    # ``space`` is outside the identity: back-reference for to_case()/labels
-    # — point identity is the canonical key over (accelerator, assignment),
-    # explicit in __hash__/__eq__ below
+    TIMING_ONLY_FIELDS = {
+        "space": "back-reference for to_case()/labels — point identity "
+                 "is the canonical key over (accelerator, assignment), "
+                 "explicit in __hash__/__eq__ below",
+    }
 
     @property
     def values(self) -> Dict[str, Any]:

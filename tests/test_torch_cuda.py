@@ -28,7 +28,9 @@ from repro_torch.kernels.dram_timing.ops import (CHUNK_LENS, chunk_steps,
                                                  dram_timing_serial,
                                                  serve_prepass,
                                                  serve_records)
-from repro_torch.kernels.dram_timing.ref import serve_prepass_ref
+from repro_torch.kernels.dram_timing.ops import dram_serve_batch
+from repro_torch.kernels.dram_timing.ref import (dram_serve_batch_ref,
+                                                 serve_prepass_ref)
 from repro_torch.kernels.sweep_min import ops as sweep_ops
 from repro_torch.kernels.sweep_min.ops import (pack_sweep_block, sweep_min,
                                                sweep_min_block,
@@ -192,7 +194,7 @@ def test_sweep_min_block_equals_plain(cuda, add, start):
         before[0] + 1, before[1])
     assert res.route == "rounds"
     sweep_min_ref(vals_p, block.src, block.dst, add)
-    rounds = sweep_min_rounds_ref(vals_r, block.src, block.dst, add)
+    rounds = sweep_min_rounds_ref(vals_r, block, add)
     assert torch.equal(vals_k, vals_p) and torch.equal(vals_r, vals_p)
     assert 1 <= res.rounds <= rounds
 
@@ -354,6 +356,34 @@ def test_dram_timing_chunked_equals_plain_and_serial(cuda, memory):
     fin2, kind2, st = dram_timing(*rest, timing, st)
     _same_timing((torch.cat([fin1, fin2], 1), torch.cat([kind1, kind2], 1),
                   st), dram_timing_ref(*args, timing, cold))
+
+
+
+@pytest.mark.parametrize("memory", sorted(_TIMING_MEMORIES))
+def test_timing_kernels_equal_their_named_plain_versions(cuda, memory):
+    """Each timing kernel against the plain version named for it, bit for
+    bit, with a warm carry: the serial kernel against
+    ``dram_timing_serial_ref``, the chunked scan at every chunk length
+    against ``dram_timing_chunked_ref`` (the card's passes in torch at
+    the same chunk length)."""
+    from repro_torch.kernels.dram_timing.ref import (dram_timing_chunked_ref,
+                                                     dram_timing_serial_ref)
+    cfg = _TIMING_MEMORIES[memory]()
+    packed = _channel_streams(cfg, seed=80 + len(memory), n=4000)
+    args = [torch.as_tensor(a, device=cuda) for a in
+            (packed.issue, packed.bank, packed.row, packed.valid)]
+    timing = torch.as_tensor(vec.timing_params(cfg.timing), device=cuda)
+    cold = vec.init_channel_carry(cfg.channels, cfg.banks_per_channel,
+                                  cfg.org.banks, cuda)
+    h = packed.issue.shape[1] // 4
+    warm = dram_timing_ref(*(a[:, :h].contiguous() for a in args), timing,
+                           cold)[2]
+    rest = [a[:, h:].contiguous() for a in args]
+    _same_timing(dram_timing_serial(*rest, timing, warm),
+                 dram_timing_serial_ref(*rest, timing, warm))
+    for T in CHUNK_LENS:
+        _same_timing(dram_timing_chunks(*rest, timing, warm, T)[:3],
+                     dram_timing_chunked_ref(*rest, timing, warm, T))
 
 
 def test_dram_timing_single_slot_and_all_invalid_on_card(cuda):
@@ -821,6 +851,48 @@ def test_dram_serve_batch_equals_plain(cuda, preset, hit_heavy, M, shared):
         assert torch.equal(a, b)
 
 
+
+@pytest.mark.parametrize("preset", ["hitgraph", "accugraph"])
+@pytest.mark.parametrize("M", [1, 3])
+def test_serve_records_equal_plain(cuda, preset, M):
+    """The serve's carry chain alone, single and batched, against its
+    plain record walk (``serve_records_ref``, ``serve_records_batch_ref``)
+    on the card's own records, bit for bit, from a warm carry, one launch
+    counted a call."""
+    from repro_torch.kernels.dram_timing.ops import (serve_prepass_batch,
+                                                     serve_records_batch)
+    from repro_torch.kernels.dram_timing.ref import (serve_records_batch_ref,
+                                                     serve_records_ref)
+    cfg = PRESETS[preset]()
+    packed = accel.pack_program(_program(21 + M, False, 4, 200), cfg)
+    streams = [torch.as_tensor(np.asarray(a, dtype=np.int32), device=cuda)
+               for a in (packed.issue, packed.meta, packed.boundary)]
+    S, C, K = packed.issue.shape
+    B, Rk = packed.n_banks, packed.n_banks // packed.banks_per_rank
+    T = chunk_steps(C, K)
+    timing = _batch_timings(M, 5 + M).to(cuda)
+    cold = vec._cold_batch_state(M, C, B, packed.banks_per_rank, cuda)
+    half = S // 2
+    warm = dram_serve_batch_ref(*(x[:half].contiguous() for x in streams),
+                                timing, cold)[1]
+    rest = [x[half:].contiguous() for x in streams]
+    rec = serve_prepass_batch(*rest, timing, packed.banks_per_rank, Rk, T)
+    before = (dram_serve.launches, dram_serve_batch.launches)
+    fin_k, st_k = serve_records_batch(rec, timing, warm, S - half)
+    fin_p, st_p = serve_records_batch_ref(rec, timing, warm, S - half)
+    assert torch.equal(fin_k, fin_p)
+    assert all(torch.equal(a, b) for a, b in zip(st_k, st_p))
+    case = tuple(x[M - 1] for x in warm)
+    fin_k, st_k = serve_records(rec[M - 1], timing[M - 1], case, S - half)
+    fin_p, st_p = serve_records_ref(rec[M - 1], timing[M - 1], case,
+                                    S - half)
+    torch.cuda.synchronize()
+    assert (dram_serve.launches, dram_serve_batch.launches) == (
+        before[0] + 1, before[1] + 1)
+    assert torch.equal(fin_k, fin_p)
+    assert all(torch.equal(a, b) for a, b in zip(st_k, st_p))
+
+
 def test_dram_serve_batch_checks_on_card(cuda):
     from repro_torch.kernels.dram_timing.ops import dram_serve_batch
     cfg = PRESETS["hitgraph"]()
@@ -936,3 +1008,32 @@ def test_service_on_card_equals_cpu(cuda, monkeypatch):
     assert res.front_keys() == cpu.front_keys()
     assert [e.objectives for e in res.front] == [e.objectives
                                                 for e in cpu.front]
+
+
+def test_threaded_session_under_the_witness_on_card(cuda, monkeypatch):
+    """chip_smoke's phase 13 part (a) at a small size: a cold session on
+    rmat(10, 4) taking 16 WCC runs (HitGraph and AccuGraph, mixed order)
+    from 8 threads under ``REPRO_ANALYSIS_LOCKS=1``; every report equal to
+    a serial run's, one serve launch (and one pre-pass) a run, no hazard
+    recorded."""
+    import sys
+    from pathlib import Path
+    from repro_torch.analysis import locks
+    from repro_torch.kernels import launch_counts, zero_launch_counts
+    from repro_torch.sim import SimSession
+    sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+    import chip_smoke
+    g = rmat(10, 4, seed=12).undirected_view()
+    want = {acc: SimSession(g).run("wcc", acc, device=cuda)
+            for acc in ("hitgraph", "accugraph")}
+    monkeypatch.setenv(locks.ENV_FLAG, "1")
+    locks.reset()
+    zero_launch_counts()
+    out = chip_smoke.threaded_session_runs(g, want, cuda, runs=16,
+                                           threads=8)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    assert (counts["dram_serve"], counts["serve_prepass"]) == (16, 16)
+    assert out["algo_runs"] == 2 and locks.made() == {"session": 1}
+    assert locks.findings() == []
+    locks.reset()

@@ -77,7 +77,7 @@ def test_rounds_equal_serial_and_jax(n, m, seed, add, start, q_div):
         st_, dt_ = (torch.as_tensor(a.astype(np.int32)) for a in (s, d))
         want = _jax_sweep(vals_s.numpy(), s, d, add)
         sweep_min_ref(vals_s, st_, dt_, add)
-        rounds = sweep_min_rounds_ref(vals_r, st_, dt_, add)
+        rounds = sweep_min_rounds_ref(vals_r, SweepBlock(n, st_, dt_), add)
         np.testing.assert_array_equal(vals_s.numpy(), want)
         np.testing.assert_array_equal(vals_r.numpy(), want)
         assert 1 <= rounds <= n + 1
@@ -104,7 +104,7 @@ def test_path_round_counts(problem, ascending):
     want = x.clone()
     sweep_min_ref(want, src_t, dst_t, add)
     got = x.clone()
-    rounds = sweep_min_rounds_ref(got, src_t, dst_t, add)
+    rounds = sweep_min_rounds_ref(got, SweepBlock(n, src_t, dst_t), add)
     assert torch.equal(got, want)
     if ascending:
         assert rounds == n
@@ -149,8 +149,7 @@ def test_block_wrapper_rejects_its_preconditions():
                         good, 1)
     with pytest.raises(ValueError, match="2\\*\\*31"):
         sweep_min_rounds_ref(torch.tensor([0, 2**31 - 1, 4],
-                                          dtype=torch.int32),
-                             good.src, good.dst, 1)
+                                          dtype=torch.int32), good, 1)
     with pytest.raises(ValueError, match="values for a block"):
         sweep_min_block(torch.zeros(4, dtype=torch.int32), good, 0)
     with pytest.raises(TypeError):
@@ -183,7 +182,7 @@ def test_rounds_wrapper_status_on_cpu(max_rounds):
 
 
 def _rounds_sweep(values, src, dst, add):
-    sweep_min_rounds_ref(values, src, dst, add)
+    sweep_min_rounds_ref(values, SweepBlock(values.shape[0], src, dst), add)
 
 
 @pytest.mark.parametrize("problem", ["wcc", "bfs"])
