@@ -192,7 +192,25 @@ Phases, one JSON line each:
               twice from 4 submitting threads, repeated submissions'
               rows equal; 8 threads saving powerlaw-social to one key of
               a fresh ``GraphStore`` (one file, no tmp litter, read back
-              equal).  No hazard recorded.  Then the script's wall
+              equal).  No hazard recorded.
+14. distributed — the distributed engine and the sharded serve, counts
+              zeroed around each part: (a) ``algorithms.distributed``'s
+              ``run_wcc`` and ``run_sssp`` (from vertex 0, isolated in the
+              stand-in, and from its vertex of highest degree) over a
+              one-rank NCCL group (``FileStore`` rendezvous, no network)
+              on the full-size wiki-talk stand-in, the labels equal to the
+              main path's HitGraph WCC values and the distances to the
+              single-process edge-centric engine's; (b) phase 10's
+              full-size HitGraph program and its 4 timing variants through
+              ``sharded_fused_scan_batch_shared`` over meshes repeating
+              the card 4 and 3 times (the second pads 2 cases), and the
+              full-size stacked pair through ``sharded_fused_scan_batch``
+              over 2, each bit-equal to the unsharded ``fused_scan_batch``
+              with one ``dram_serve_batch`` launch a shard, timed beside
+              it; (c) ``Sweeper(devices=1)`` over HitGraph's timing grid
+              equal to phase 10's rows with no sharded serve, and
+              ``Sweeper(devices=cards + 1)`` raising at its first batched
+              group, naming the card count.  Then the script's wall
               time.
 
 Then the kernel table, the card's name and power limit, and last
@@ -2632,7 +2650,27 @@ def run_sweep_phase(wt, card, dev) -> dict:
          dynamic_equal_run_dynamic=True, dynamic_seconds=dyn_s,
          run_case_seconds=solo_s, phase_seconds=phase_s, card=card)
     return {"launches": launches, "serve": serve, "window": window,
-            "seconds": phase_s}
+            "seconds": phase_s, "sweeper": sweeper, "cases": cases,
+            "rows": rows, "memories": mems}
+
+
+def hitgraph_default_memory():
+    """HitGraph's default memory, the base of phase 10's timing variants."""
+    from repro_torch.sim import get_accelerator
+    from repro_torch.sim.session import resolve_run_config
+    return resolve_run_config(get_accelerator("hitgraph")).dram_config()
+
+
+def stacked_pair_memories():
+    """HitGraph's default memory (DDR3-1600K) and DDR3-1333H, the same
+    structure at 2/3 GHz with ``TIMING_PRESETS["ddr3-1333"]``: two packs of
+    one shape (the pack key holds the clock)."""
+    from repro_torch.sim.memory import TIMING_PRESETS
+    default = hitgraph_default_memory()
+    slower = dataclasses.replace(default, clock_ghz=2 / 3,
+                                 timing=TIMING_PRESETS["ddr3-1333"],
+                                 name=f"{default.name}@ddr3-1333")
+    return default, slower
 
 
 def run_stacked_pair(sweeper, wt, launches, dev, card) -> dict:
@@ -2654,13 +2692,9 @@ def run_stacked_pair(sweeper, wt, launches, dev, card) -> dict:
                                                      dram_serve_batch,
                                                      serve_prepass_batch)
     from repro_torch.sim import SweepCase, get_accelerator
-    from repro_torch.sim.memory import TIMING_PRESETS
     from repro_torch.sim.session import resolve_run_config
     spec = get_accelerator("hitgraph")
-    default = resolve_run_config(spec).dram_config()
-    slower = dataclasses.replace(default, clock_ghz=2 / 3,
-                                 timing=TIMING_PRESETS["ddr3-1333"],
-                                 name=f"{default.name}@ddr3-1333")
+    default, slower = stacked_pair_memories()
     pair = [SweepCase(wt, "wcc", accelerator="hitgraph", memory=m)
             for m in (None, slower)]
     zero_launch_counts()
@@ -3592,6 +3626,236 @@ def run_lock_witness_phase(card, dev, wt, reports) -> dict:
     return {"launches": out["launches"], "seconds": seconds}
 
 
+def session_pack(sess, acc, memory, dev):
+    """The WCC pack of ``acc`` under ``memory`` (a ``DRAMConfig``, None for
+    its default) from ``sess``'s caches."""
+    from repro_torch.algorithms.common import Problem
+    from repro_torch.sim import get_accelerator
+    from repro_torch.sim.session import resolve_run_config
+    spec = get_accelerator(acc)
+    cfg = resolve_run_config(spec, memory=memory)
+    packed, _ = sess.packed_program_for(
+        spec, Problem.WCC, cfg, sess.model_for(spec, cfg),
+        sess.algorithm_run(spec, Problem.WCC, cfg, 0, None, dev),
+        cfg.dram_config(), device=dev)
+    return packed
+
+
+def nccl_engine_runs(wt, hitgraph_wcc, card, dev) -> dict:
+    """Phase 14 (a): ``run_wcc`` and ``run_sssp`` on ``wt`` over a one-rank
+    NCCL group set up through a ``FileStore`` (no network) and torn down
+    in a ``finally``.  The labels must equal ``hitgraph_wcc`` (the main
+    path's HitGraph WCC values); the distances from vertex 0 (isolated in
+    the stand-in) and from the vertex of highest degree must equal the
+    single-process edge-centric engine's on ``wt.with_unit_weights()``.
+    Returns the launches."""
+    import os
+    import tempfile
+    import torch.distributed as dist
+    from repro_torch.algorithms import distributed as DG
+    from repro_torch.algorithms import edge_centric
+    from repro_torch.algorithms.common import INF32, Problem
+    from repro_torch.kernels import launch_counts, zero_launch_counts
+    unit = wt.with_unit_weights()
+    hub = int(np.argmax(np.bincount(wt.src, minlength=wt.n)))
+    roots = {"sssp": 0, "sssp_hub": hub}
+    runs = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group("nccl", store=dist.FileStore(
+            os.path.join(tmp, "store"), 1), rank=0, world_size=1)
+        try:
+            backend = str(dist.get_backend())
+            world = dist.get_world_size()
+            zero_launch_counts()
+            torch.cuda.synchronize()
+            for name in ("wcc",) + tuple(roots):
+                stats = {}
+                t0 = time.perf_counter()
+                if name == "wcc":
+                    values = DG.run_wcc(wt, stats=stats)
+                else:
+                    values = DG.run_sssp(unit, root=roots[name], stats=stats)
+                runs[name] = (values, stats, time.perf_counter() - t0)
+            launches = launch_counts()
+        finally:
+            dist.destroy_process_group()
+    lines = {}
+    for name, (values, stats, seconds) in runs.items():
+        line = {"iterations": stats["iterations"], "seconds": seconds,
+                "setup_s": stats["setup_seconds"],
+                "first_step_s": stats["step_seconds"][0],
+                "later_steps_s": sum(stats["step_seconds"][1:]),
+                "gather_s": stats["gather_seconds"]}
+        if name == "wcc":
+            line.update(components=int(np.unique(values).size),
+                        equal_main_path=bool(np.array_equal(
+                            values, hitgraph_wcc)))
+        else:
+            t0 = time.perf_counter()
+            single = edge_centric.run(unit, Problem.SSSP, root=roots[name],
+                                      device=dev)
+            line.update(root=roots[name],
+                        reached=int((values < INF32).sum()),
+                        single_process_iterations=single.iterations,
+                        single_process_s=time.perf_counter() - t0,
+                        equal_single_process=bool(np.array_equal(
+                            values, single.values)))
+        lines[name] = line
+    emit(phase="distributed", part="engine", backend=backend, world=world,
+         nccl=".".join(map(str, torch.cuda.nccl.version())),
+         vertices=wt.n, edges=wt.m, **lines,
+         launches={k: n for k, n in launches.items() if n}, card=card)
+    assert (backend, world) == ("nccl", 1), (backend, world)
+    assert lines["wcc"]["equal_main_path"], (
+        "distributed WCC differs from the main path's values")
+    for name in roots:
+        assert lines[name]["equal_single_process"], (
+            f"distributed {name} differs from the edge-centric run")
+    assert lines["sssp_hub"]["reached"] > 1
+    return launches
+
+
+def sharded_serve_runs(sweeper, wt, hitgraph_mems, launches, card, dev):
+    """Phase 14 (b): phase 10's full-size HitGraph program and its timing
+    variants through ``sharded_fused_scan_batch_shared`` over
+    ``[cuda:0] * 4`` and ``[cuda:0] * 3``, and the full-size stacked pair
+    through ``sharded_fused_scan_batch`` over ``[cuda:0] * 2``: finishes
+    and carries bit-equal to the unsharded ``fused_scan_batch``, one
+    ``dram_serve_batch`` launch a shard (counts zeroed around each call,
+    into ``launches``), CUDA-event ms beside the unsharded call's."""
+    from repro_torch.core import vectorized as vec
+    from repro_torch.distributed.sharding import (
+        sharded_fused_scan_batch, sharded_fused_scan_batch_shared)
+    from repro_torch.kernels import launch_counts, zero_launch_counts
+    sess = sweeper._session(wt)
+    shared = session_pack(sess, "hitgraph", None, dev)
+    timing_shared = np.stack([vec.timing_params(
+        (m or hitgraph_default_memory()).timing) for m in hitgraph_mems])
+    pair_mems = stacked_pair_memories()
+    pair = [session_pack(sess, "hitgraph", m, dev) for m in pair_mems]
+    assert pair[0].signature == pair[1].signature
+    stacked = [torch.stack([vec.as_int32(getattr(p, f), dev) for p in pair])
+               for f in ("issue", "meta", "boundary")]
+    timing_pair = np.stack([vec.timing_params(m.timing) for m in pair_mems])
+    geometry = (shared.n_banks, shared.banks_per_rank)
+    runs = [("shared", 4, sharded_fused_scan_batch_shared,
+             (shared.issue, shared.meta, shared.boundary), timing_shared),
+            ("shared", 3, sharded_fused_scan_batch_shared,
+             (shared.issue, shared.meta, shared.boundary), timing_shared),
+            ("stacked", 2, sharded_fused_scan_batch, tuple(stacked),
+             timing_pair)]
+    out, base = [], {}
+    for programs, entries, fn, streams, timing in runs:
+        if programs not in base:
+            zero_launch_counts()
+            base[programs] = timed_call(lambda: vec.fused_scan_batch(
+                *streams, timing, *geometry, dev))
+            base_launches = launch_counts()["dram_serve_batch"]
+            assert base_launches == 1, base_launches
+        (fin_u, carry_u), unsharded_ms = base[programs]
+        mesh = [torch.device(dev.type, 0)] * entries
+        zero_launch_counts()
+        (fin, carry), ms = timed_call(lambda: fn(*streams, timing, *geometry,
+                                                 mesh, dev))
+        counts = launch_counts()
+        launches[f"sharded_{programs}_{entries}"] = counts
+        M = len(timing)
+        per = -(-M // entries)
+        # one shard's cases alone, unsharded, for the time a launch takes
+        _, one_shard_ms = timed_call(lambda: vec.fused_scan_batch(
+            *(x[:per] if programs == "stacked" else x for x in streams),
+            timing[:per], *geometry, dev))
+        equal = (torch.equal(fin, fin_u)
+                 and all(torch.equal(a, b) for a, b in zip(carry, carry_u)))
+        line = {"programs": programs, "entries": entries, "M": M,
+                "pad": (-M) % entries, "shape": list(fin.shape),
+                "ms": ms, "unsharded_ms": unsharded_ms,
+                "one_shard_cases": per, "one_shard_ms": one_shard_ms,
+                "dram_serve_batch_launches": counts["dram_serve_batch"],
+                "serve_prepass_batch_launches": counts["serve_prepass_batch"],
+                "bit_equal_unsharded": equal}
+        emit(phase="distributed", part="sharded_serve", **line, card=card)
+        assert equal, f"the sharded {programs} serve over {entries} differs"
+        assert counts["dram_serve_batch"] == entries, counts
+        assert counts["serve_prepass_batch"] == entries, counts
+        out.append(line)
+        del fin, carry
+    del base, stacked
+    return out
+
+
+def sweep_surface_runs(swept, launches, card, dev) -> dict:
+    """Phase 14 (c): a fresh ``Sweeper(devices=1, batch_memories=True)``
+    over phase 10's HitGraph cases, rows equal to phase 10's field for
+    field, no sharded serve; ``Sweeper(devices=cards + 1)`` constructs and
+    raises at its first batched group (a timing pair on rmat(8, 5)),
+    naming the visible card count."""
+    from repro_torch.graphs.generators import rmat
+    from repro_torch.kernels import launch_counts, zero_launch_counts
+    from repro_torch.sim import SweepCase, Sweeper, timing_variants
+    n_hit = len(swept["memories"]["hitgraph"])
+    cases = [c for c in swept["cases"] if c.accelerator == "hitgraph"]
+    want = [r for r in swept["rows"] if r.report.system == "hitgraph"]
+    assert len(cases) == len(want) == n_hit
+    sw = Sweeper(devices=1, batch_memories=True)
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    rows = sw.run(cases)
+    seconds = time.perf_counter() - t0
+    counts = launches["surface_devices1"] = launch_counts()
+    equal = all(a.report == b.report and row_fields(a) == row_fields(b)
+                for a, b in zip(rows, want))
+    cards = torch.cuda.device_count()
+    over = Sweeper(devices=cards + 1, batch_memories=True)
+    small = rmat(8, 5, seed=7).undirected_view()
+    pair = [SweepCase(small, "wcc", accelerator="hitgraph", memory=m)
+            for m in timing_variants(hitgraph_default_memory(),
+                                     kinds=SWEEP_KINDS[:2])]
+    message = None
+    try:
+        over.run(pair)
+    except ValueError as exc:
+        message = str(exc)
+    line = {"rows": len(rows), "equal_phase10": equal,
+            "stats": dataclasses.asdict(sw.stats), "seconds": seconds,
+            "dram_serve_batch_launches": counts["dram_serve_batch"],
+            "cards": cards, "oversubscribed_devices": cards + 1,
+            "oversubscribed_error": message}
+    emit(phase="distributed", part="surface", **line, card=card)
+    assert equal, "Sweeper(devices=1) rows differ from phase 10's"
+    assert sw.stats.sharded_dispatches == 0 and sw.stats.devices == 1
+    assert counts["dram_serve_batch"] == 1, counts
+    assert message is not None and (
+        f"devices={cards + 1} exceeds the {cards} visible cuda" in message), (
+        message)
+    assert over.stats.sharded_dispatches == 0
+    return line
+
+
+def run_distributed_phase(wt, sessions, swept, card, dev) -> dict:
+    """Phase 14, the distributed engine and ``devices=N`` on one card:
+    :func:`nccl_engine_runs`, :func:`sharded_serve_runs` and
+    :func:`sweep_surface_runs`.  Returns the launches by part and the
+    seconds."""
+    from repro_torch.algorithms.common import Problem
+    from repro_torch.sim import get_accelerator
+    from repro_torch.sim.session import resolve_run_config
+    t_phase = time.perf_counter()
+    spec = get_accelerator("hitgraph")
+    main_wcc = sessions["hitgraph"].algorithm_run(
+        spec, Problem.WCC, resolve_run_config(spec), 0, None, dev).values
+    launches = {"engine": nccl_engine_runs(wt, main_wcc, card, dev)}
+    serves = sharded_serve_runs(swept["sweeper"], wt,
+                                swept["memories"]["hitgraph"], launches,
+                                card, dev)
+    surface = sweep_surface_runs(swept, launches, card, dev)
+    seconds = time.perf_counter() - t_phase
+    emit(phase="distributed", part="total", seconds=seconds,
+         sharded_serves=len(serves), surface_rows=surface["rows"],
+         card=card)
+    return {"launches": launches, "seconds": seconds}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -3892,11 +4156,17 @@ def main() -> int:
     witnessed = run_lock_witness_phase(card, dev, wt, reports)
     launches.update({f"lock_{part}": counts
                      for part, counts in witnessed["launches"].items()})
+
+    # ---- 14. the distributed engine and devices=N ------------------------
+    distributed = run_distributed_phase(wt, sessions, swept, card, dev)
+    launches.update({f"distributed_{part}": counts
+                     for part, counts in distributed["launches"].items()})
     emit(phase="wall", seconds=time.perf_counter() - t_start,
          event_phase_seconds=event_s, sweep_phase_seconds=swept["seconds"],
          corpus_phase_seconds=corp["seconds"],
          service_phase_seconds=served["seconds"],
-         lock_witness_phase_seconds=witnessed["seconds"], card=card)
+         lock_witness_phase_seconds=witnessed["seconds"],
+         distributed_phase_seconds=distributed["seconds"], card=card)
 
     ds = kernels["dram_serve"]
     hw = ds["windows"]["hitgraph"]

@@ -344,7 +344,8 @@ class SimService:
     (supervised, replaceable) worker thread so the sweeper — and the
     launches underneath it — is never entered concurrently.  Everything
     runs on ``device`` (default the card; raises when CUDA is absent).
-    ``devices`` must be 1, as on :class:`Sweeper`.
+    ``devices=N`` shards the sweeper's batched serves over N devices, as
+    on :class:`Sweeper`.
     """
 
     def __init__(self, backend: Optional[str] = None,

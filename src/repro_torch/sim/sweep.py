@@ -27,8 +27,9 @@ What is shared and what is not:
 
 Graphs are :class:`Graph` values or corpus preset names, resolved when a
 case is built; cases may be :class:`~repro_torch.sim.scenario.ScenarioSpec`
-values.  Not in this slice (it raises and names ROADMAP.md):
-``devices > 1``.
+values.  ``devices=N`` shards each batched serve's cases over a 1-D case
+mesh of N devices (:func:`repro_torch.launch.mesh.make_sweep_mesh`), with
+rows bit-identical for any (workers, devices).
 """
 
 from __future__ import annotations
@@ -228,17 +229,9 @@ class SweepStats:
     pack_cache_misses: int = 0
     batched_cases: int = 0
     batch_dispatches: int = 0
+    sharded_dispatches: int = 0
     workers: int = 1
     devices: int = 1
-
-
-def _check_devices(devices: int) -> None:
-    if devices < 1:
-        raise ValueError(f"devices must be >= 1, got {devices}")
-    if devices > 1:
-        raise ValueError(
-            f"devices={devices}: sharding a sweep over several cards comes "
-            "with the distributed engine in a later slice (see ROADMAP.md)")
 
 
 class Sweeper:
@@ -252,23 +245,51 @@ class Sweeper:
     a shape (same steps x channels x lanes x banks x ranks: e.g. one
     accelerator and graph across timing variants) are served by ONE
     batched serve; the remaining cases take the per-case path.
-    ``devices`` must be 1 (recorded in :attr:`stats`)."""
+    ``devices=N`` additionally shards each batched serve of more than one
+    case over a 1-D case mesh (:func:`repro_torch.launch.mesh.
+    make_sweep_mesh`, built at the first such serve): each device serves
+    its slice of the batch with the same per-case math, so rows stay
+    bit-identical for any (workers, devices).  A host with fewer devices
+    still runs per-case, dynamic and one-case groups; only a sharded serve
+    raises."""
 
     def __init__(self, backend: Optional[str] = None,
                  batch_memories: bool = False, workers: int = 1,
                  devices: int = 1, device=None):
         if workers < 1:
             raise ValueError(f"workers must be >= 1, got {workers}")
-        _check_devices(devices)
+        if devices < 1:
+            raise ValueError(f"devices must be >= 1, got {devices}")
         self.device = resolve_device(device)
         self.backend = backend
         self.batch_memories = batch_memories
         self.workers = workers
         self.devices = devices
+        self._mesh = None  # built at the first sharded serve
         self._sessions_lock = locks.make_lock("sweeper-sessions")
         self._sessions: Dict[str, SimSession] = \
             locks.make_dict("Sweeper._sessions", self._sessions_lock)
         self.stats = SweepStats(workers=workers, devices=devices)
+
+    def _sweep_mesh(self):
+        """The 1-D case mesh for ``devices > 1``, built once, at the first
+        sharded serve, so that a sweeper on a host with fewer devices runs
+        everything that is not sharded."""
+        if self._mesh is None:
+            from repro_torch.launch.mesh import make_sweep_mesh
+            self._mesh = make_sweep_mesh(self.devices, self.device)
+        return self._mesh
+
+    def _group_mesh(self, items):
+        """The case mesh a signature group is served over, counted in
+        ``stats.sharded_dispatches``, or None when the group is not sharded
+        (``devices == 1`` or one case).  Called on the serving thread
+        before any group of a batch is served."""
+        if self.devices == 1 or len(items) == 1:
+            return None
+        mesh = self._sweep_mesh()
+        self.stats.sharded_dispatches += 1
+        return mesh
 
     def _session(self, g: Graph) -> SimSession:
         # worker threads race here via _prepare_case; two sessions for one
@@ -492,24 +513,34 @@ class Sweeper:
                 raise
         return rows
 
-    def _serve_group(self, items, rows) -> None:
+    def _serve_group(self, items, rows, mesh=None) -> None:
         """One batched serve for a signature group: one shared pack (by
         identity) is served against the whole timing batch, never
         replicated; distinct packs are stacked (device or host packs, as
-        each memory's decode allows)."""
+        each memory's decode allows).  With a ``mesh`` the batch is
+        sharded over it, the shared pack copied once a device."""
         t0 = time.perf_counter()
         packs = [it[4] for it in items]
         timings = np.stack([vec.timing_params(it[6].timing) for it in items])
         first = packs[0]
-        if len({id(p) for p in packs}) == 1:
+        shared = len({id(p) for p in packs}) == 1
+        if shared:
             streams = (first.issue, first.meta, first.boundary)
         else:
             streams = tuple(
                 torch.stack([vec.as_int32(getattr(p, f), self.device)
                              for p in packs])
                 for f in ("issue", "meta", "boundary"))
-        fins, _ = vec.fused_scan_batch(*streams, timings, first.n_banks,
-                                       first.banks_per_rank, self.device)
+        geometry = (first.n_banks, first.banks_per_rank)
+        if mesh is None:
+            fins, _ = vec.fused_scan_batch(*streams, timings, *geometry,
+                                           self.device)
+        else:
+            from repro_torch.distributed.sharding import (
+                sharded_fused_scan_batch, sharded_fused_scan_batch_shared)
+            serve = (sharded_fused_scan_batch_shared if shared
+                     else sharded_fused_scan_batch)
+            fins, _ = serve(*streams, timings, *geometry, mesh, self.device)
         share = (time.perf_counter() - t0) / len(items)
         for m, (i, case, model, run_, packed, cstats, _dram,
                 wall) in enumerate(items):
@@ -558,13 +589,15 @@ class Sweeper:
         self.stats.batched_cases += sum(len(g) for g in group_items)
         if self.workers > 1 and len(group_items) > 1:
             self._check_control(control, rows)
+            meshes = [self._group_mesh(items) for items in group_items]
             with ThreadPoolExecutor(max_workers=self.workers) as pool:
-                list(pool.map(lambda items: self._serve_group(items, rows),
-                              group_items))
+                list(pool.map(
+                    lambda items, mesh: self._serve_group(items, rows, mesh),
+                    group_items, meshes))
         else:
             for items in group_items:
                 self._check_control(control, rows)
-                self._serve_group(items, rows)
+                self._serve_group(items, rows, self._group_mesh(items))
         return rows
 
 
@@ -609,7 +642,8 @@ def sweep(graphs: Iterable[GraphLike] = (), problems: Iterable = (),
     share a shape (typically the memory axis of one accelerator and graph)
     in one batched serve.  Pass a :class:`Sweeper` to share its caches
     and stats across calls or to read ``sweeper.stats`` afterwards (it
-    then decides the device)."""
+    then decides the device).  ``devices=N`` shards each batched serve's
+    cases over N devices (see :class:`Sweeper`)."""
     if cases is None and isinstance(graphs, ScenarioSpec):
         cases = [graphs]
     if cases is None:
@@ -631,7 +665,6 @@ def sweep(graphs: Iterable[GraphLike] = (), problems: Iterable = (),
         sweeper = Sweeper(backend=backend, batch_memories=batch_memories,
                           workers=workers, devices=devices, device=device)
     else:
-        _check_devices(devices)
         if batch_memories and not sweeper.batch_memories:
             raise ValueError(
                 "batch_memories=True conflicts with the provided sweeper "
@@ -640,4 +673,8 @@ def sweep(graphs: Iterable[GraphLike] = (), problems: Iterable = (),
             raise ValueError(
                 "workers= conflicts with the provided sweeper "
                 f"(it was constructed with workers={sweeper.workers})")
+        if devices != 1 and devices != sweeper.devices:
+            raise ValueError(
+                "devices= conflicts with the provided sweeper "
+                f"(it was constructed with devices={sweeper.devices})")
     return sweeper.run(cases)

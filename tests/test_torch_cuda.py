@@ -1037,3 +1037,70 @@ def test_threaded_session_under_the_witness_on_card(cuda, monkeypatch):
     assert out["algo_runs"] == 2 and locks.made() == {"session": 1}
     assert locks.findings() == []
     locks.reset()
+
+
+@pytest.mark.parametrize("entries", [1, 2, 3])
+@pytest.mark.parametrize("shared", [True, False])
+def test_sharded_serves_on_card_equal_unsharded(cuda, entries, shared):
+    """Both sharded serves over a mesh repeating the card (``[cuda:0] *
+    entries``, 4 cases, so padded for 3 entries): one ``dram_serve_batch``
+    launch a shard, finishes and carries equal to the unsharded serve's
+    on the card and to the plain version's."""
+    from repro_torch.distributed.sharding import (
+        sharded_fused_scan_batch, sharded_fused_scan_batch_shared)
+    from repro_torch.kernels.dram_timing.ops import dram_serve_batch
+    cfg = PRESETS["hitgraph"]()
+    M = 4
+    packs = [accel.pack_program(_program(11 + i, False, 3, 60), cfg)
+             for i in range(1 if shared else M)]
+    assert len({p.issue.shape for p in packs}) == 1
+    if shared:
+        streams = [torch.as_tensor(np.asarray(getattr(packs[0], f),
+                                              dtype=np.int32), device=cuda)
+                   for f in ("issue", "meta", "boundary")]
+        serve = sharded_fused_scan_batch_shared
+    else:
+        streams = [torch.as_tensor(np.stack([np.asarray(getattr(p, f),
+                                                        dtype=np.int32)
+                                             for p in packs]), device=cuda)
+                   for f in ("issue", "meta", "boundary")]
+        serve = sharded_fused_scan_batch
+    timing = _batch_timings(M, 7 + entries).numpy()
+    geometry = (packs[0].n_banks, packs[0].banks_per_rank)
+    mesh = [torch.device("cuda", 0)] * entries
+    before = dram_serve_batch.launches
+    fin, carry = serve(*streams, timing, *geometry, mesh, cuda)
+    torch.cuda.synchronize()
+    assert dram_serve_batch.launches == before + entries
+    fin_u, carry_u = vec.fused_scan_batch(*streams, timing, *geometry, cuda)
+    fin_p, carry_p = vec.fused_scan_batch(*(s.cpu() for s in streams),
+                                          timing, *geometry, "cpu")
+    assert fin.device.type == "cuda" and fin.shape[0] == M
+    assert torch.equal(fin, fin_u) and torch.equal(fin.cpu(), fin_p)
+    for a, b, c in zip(carry, carry_u, carry_p):
+        assert torch.equal(a, b) and torch.equal(a.cpu(), c)
+
+
+def test_run_wcc_over_one_rank_nccl_group(cuda, tmp_path):
+    """The distributed engine over a real one-rank NCCL group on the card:
+    the crossbar and the flag are NCCL collectives; labels equal the
+    reference's, and those of the engine with no group."""
+    import torch.distributed as dist
+    from repro_torch.algorithms import distributed as DG
+    from repro_torch.algorithms import reference
+    g = rmat(10, 4, seed=3)
+    dist.init_process_group("nccl", store=dist.FileStore(
+        str(tmp_path / "store"), 1), rank=0, world_size=1)
+    try:
+        stats = {}
+        labels = DG.run_wcc(g.undirected_view(), stats=stats)
+        dist_ = DG.run_sssp(g.undirected_view(), root=0)
+        with pytest.raises(ValueError, match="nccl group takes cuda"):
+            DG.run_wcc(g.undirected_view(), device="cpu")
+    finally:
+        dist.destroy_process_group()
+    assert stats["shards"] == 1 and stats["iterations"] > 1
+    np.testing.assert_array_equal(labels, reference.wcc(g))
+    np.testing.assert_array_equal(labels, DG.run_wcc(g.undirected_view()))
+    np.testing.assert_array_equal(
+        dist_, DG.run_sssp(g.undirected_view(), root=0, device="cpu"))

@@ -256,3 +256,28 @@ def test_rejected_inputs(graphs, monkeypatch):
     with pytest.raises(IndexError, match="delete_idx"):
         apply_batch(g, UpdateBatch(epoch=1, insert_src=[], insert_dst=[],
                                    delete_idx=[g.m + 5]))
+
+
+_JAX_PLACEMENT_ROWS = []
+
+
+@pytest.mark.parametrize("workers,devices", [(1, 1), (4, 1), (2, 2)])
+def test_sweep_bit_identical_across_placement(graphs, monkeypatch, workers,
+                                              devices):
+    """``test_dynamic.py``'s placement grid: dynamic cases are never
+    sharded, so ``devices=2`` runs on a one-device host, every row equal
+    to the JAX package's ``(1, 1)`` rows."""
+    from repro.sim import sweep as r_sweep
+    from repro_torch.sim import sweep
+    monkeypatch.delenv("REPRO_TORCH_HOST_DEVICES", raising=False)
+    r_g, g = graphs
+    kw = dict(problems=["wcc"], accelerators=["hitgraph", "accugraph"],
+              updates=["uniform-churn"])
+    if not _JAX_PLACEMENT_ROWS:
+        _JAX_PLACEMENT_ROWS.extend(r_sweep(graphs=[r_g], **kw))
+    rows = sweep(graphs=[g], workers=workers, devices=devices, device="cpu",
+                 **kw)
+    assert len(rows) == len(_JAX_PLACEMENT_ROWS)
+    for row, r_row in zip(rows, _JAX_PLACEMENT_ROWS):
+        assert row.report == interop.sim_report(r_row.report)
+        assert row.epochs == [interop.epoch_report(e) for e in r_row.epochs]

@@ -215,6 +215,16 @@ def test_later_slices_raise_not_implemented(monkeypatch):
     # no serve_backend knob: the device picks the serve (ROADMAP.md §3)
     with pytest.raises(TypeError, match="serve_backend"):
         simulate("karate", "wcc", serve_backend="scan", device="cpu")
-    # devices > 1 is the one input of the sweep still to come
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        sweep(graphs=["karate"], problems=["wcc"], devices=2, device="cpu")
+    # devices=N is ported: a one-device host runs what it does not shard,
+    # and its first sharded serve raises, naming the visible count
+    from repro_torch.launch.mesh import HOST_DEVICES_ENV
+    from repro_torch.sim import timing_variants
+    monkeypatch.delenv(HOST_DEVICES_ENV, raising=False)
+    base = sweep(graphs=["karate"], problems=["wcc"], device="cpu")
+    rows = sweep(graphs=["karate"], problems=["wcc"], devices=2,
+                 device="cpu")
+    assert [r.report for r in rows] == [r.report for r in base]
+    with pytest.raises(ValueError, match="exceeds the 1 visible"):
+        sweep(graphs=["karate"], problems=["wcc"], accelerators=["hitgraph"],
+              memories=timing_variants("ddr3", kinds=("ddr3", "ddr4")),
+              batch_memories=True, devices=2, device="cpu")

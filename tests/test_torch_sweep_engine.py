@@ -692,7 +692,7 @@ def test_out_of_slice_inputs_raise(small, monkeypatch):
     monkeypatch.setenv("REPRO_GRAPH_CACHE", "0")
     r_g, g = small
     # corpus names and ScenarioSpec cases are ported: they run, equal to
-    # the JAX package's rows; only devices > 1 still raises
+    # the JAX package's rows
     case = SweepCase("karate", "wcc")
     assert case.graph is SweepCase("karate", "bfs").graph
     assert case.graph.fingerprint == interop.graph(
@@ -700,13 +700,20 @@ def test_out_of_slice_inputs_raise(small, monkeypatch):
     spec = RScenarioSpec(r_g, "wcc", accelerator="accugraph")
     _assert_rows_equal(sweep(cases=[interop.scenario_spec(spec)],
                              device=CPU), r_sweep(cases=[spec]))
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        Sweeper(devices=2, device=CPU)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
-        sweep(graphs=[g], problems=["wcc"], devices=2, device=CPU)
-    with pytest.raises(ValueError, match="ROADMAP.md"):
+    # devices > 1 is ported too: on a one-device host the sweeper
+    # constructs and runs what it does not shard, equal to the JAX
+    # package's rows; the devices= checks are the JAX package's
+    monkeypatch.delenv("REPRO_TORCH_HOST_DEVICES", raising=False)
+    assert Sweeper(devices=2, device=CPU).stats.devices == 2
+    _assert_rows_equal(sweep(graphs=[g], problems=["wcc"], devices=2,
+                             device=CPU),
+                       r_sweep(graphs=[r_g], problems=["wcc"], devices=1))
+    with pytest.raises(ValueError, match="devices= conflicts"):
         sweep(cases=[], devices=2, sweeper=Sweeper(device=CPU))
+    with pytest.raises(ValueError, match="devices must be >= 1"):
+        Sweeper(devices=0, device=CPU)
     assert Sweeper(devices=1, device=CPU).stats.devices == 1
+    assert Sweeper(device=CPU).stats.sharded_dispatches == 0
 
 
 def test_default_device_is_the_card():
