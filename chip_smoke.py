@@ -210,8 +210,30 @@ Phases, one JSON line each:
               it; (c) ``Sweeper(devices=1)`` over HitGraph's timing grid
               equal to phase 10's rows with no sharded serve, and
               ``Sweeper(devices=cards + 1)`` raising at its first batched
-              group, naming the card count.  Then the script's wall
-              time.
+              group, naming the card count.
+15. lm       — the LM serve path (``repro_torch.models``), the port's
+              kernel launch counts zeroed before and all zero after (it
+              reaches no hand-written kernel): ``lm_device``, the matmul
+              precision flags (TF32 off for the float32 pins);
+              ``lm_pinned``, qwen3-0.6b at full width (d = 1,024, vocab
+              151,936; depth cut to 4 layers, since the pins come from
+              ``repro`` on a CPU) in float32 from NumPy weights
+              (``lm_numpy_params``) through ``generate`` on 2 requests
+              (17 and 32 tokens, 8 new), its prefill's top-8 logits held
+              to ``repro``'s pins at 1e-3 and its tokens up to the first
+              step whose pinned margin is under 1e-2; ``lm_families``,
+              the ten smoke configurations in float32 (forward, prefill +
+              3 decode steps, generate, a 256-token qwen3-smoke and a
+              512-token xlstm-smoke prompt) held to their pins at 1e-4,
+              tokens exactly; ``lm_serve``, qwen3-0.6b as published
+              (28 layers, bf16) from a seeded ``torch.Generator`` on the
+              card: 8 requests of 64..512 tokens, 64 new each, through
+              ``generate``, the prefill and each decode step timed,
+              decode held to ``forward`` at the same positions (2e-2),
+              one 4,096-token prefill through the chunked attention with
+              layer 0 held to ``_sdpa`` (2e-2), peak memory; every tensor
+              on the card.  The pins are ``tools/lm_pins.json``, made by
+              ``tools/lm_pins.py``.  Then the script's wall time.
 
 Then the kernel table, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -3856,6 +3878,544 @@ def run_distributed_phase(wt, sessions, swept, card, dev) -> dict:
     return {"launches": launches, "seconds": seconds}
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the LM serve path (repro_torch.models)
+# ---------------------------------------------------------------------------
+
+#: the full-width model: qwen3-0.6b's published configuration, computed
+#: in float32 for the pinned part, as published (bf16) for the serve
+LM_ARCH = "qwen3_0_6b"
+#: the pinned part's depth: full width, the 28 layers cut to 4, since
+#: ``tools/lm_pins.py`` makes its pins through ``repro`` on a CPU, which
+#: runs no full-size configuration; ``lm_serve`` runs all 28 layers
+LM_PINNED_LAYERS = 4
+LM_PINNED_PROMPTS = (17, 32)
+LM_PINNED_NEW = 8
+LM_PINNED_TOP = 8
+LM_PINNED_TOL = 1e-3           # rtol and atol against repro's pins
+#: tokens are held equal up to and including the first step whose pinned
+#: top-2 margin is below this (a closer step may flip on rounding)
+LM_MARGIN_FLOOR = 1e-2
+#: the ten smoke configurations at float32: forward on (2, 16), prefill
+#: of 8 tokens and 3 decode steps, generate (2 requests, 4 tokens), and a
+#: long prompt where it takes another route: qwen3-smoke's 256 tokens
+#: run the chunked attention (4 chunks of 64), xlstm-smoke's 512 tokens
+#: two scan chunks
+LM_FAMILY_SHAPE = (2, 16)
+LM_FAMILY_PREFILL = 8
+LM_FAMILY_DECODE = 3
+LM_FAMILY_PROMPTS = (5, 9)
+LM_FAMILY_NEW = 4
+LM_FAMILY_TOP = 4
+LM_FAMILY_TOL = 1e-4
+LM_FAMILY_MARGIN_FLOOR = 1e-4
+LM_LONG = {"qwen3_0_6b": 256, "xlstm_1_3b": 512}
+#: the served load: 8 requests of 64, 128, ..., 512 tokens, 64 new each
+LM_SERVE_PROMPTS = tuple(range(64, 513, 64))
+LM_SERVE_NEW = 64
+LM_SERVE_TOL = 2e-2            # bf16, as tests/test_arch_smoke.py uses
+LM_LONG_PREFILL = 4096
+LM_SEED = 0
+LM_PINS = ROOT / "tools" / "lm_pins.json"
+
+
+def lm_numpy_params(cfg, rng) -> dict:
+    """``repro``'s parameter tree for ``cfg`` made with NumPy from
+    ``rng``: ``repro.models.model.init_params``'s names, stacked shapes
+    and scales (``normal / sqrt(fan_in)``, the embedding ``normal *
+    0.02``, norms one), float32.  Both packages take it: ``repro`` as
+    arrays, the port through ``interop.lm_params``."""
+    d = cfg.d_model
+
+    def dense(shape, fan_in):
+        scale = np.float32(1.0 / np.sqrt(max(fan_in, 1)))
+        return rng.standard_normal(shape, dtype=np.float32) * scale
+
+    def ones(*shape):
+        return np.ones(shape, np.float32)
+
+    def attention(lead):
+        hd, H, K = cfg.hd, cfg.n_heads, cfg.n_kv_heads
+        p = {"wq": dense(lead + (d, H * hd), d),
+             "wk": dense(lead + (d, K * hd), d),
+             "wv": dense(lead + (d, K * hd), d),
+             "wo": dense(lead + (H * hd, d), H * hd)}
+        if cfg.qk_norm:
+            p["q_norm"] = ones(*lead, hd)
+            p["k_norm"] = ones(*lead, hd)
+        return p
+
+    def mlp(lead, f):
+        p = {"w1": dense(lead + (d, f), d), "w2": dense(lead + (f, d), f)}
+        if cfg.act in ("silu", "geglu"):
+            p["w3"] = dense(lead + (d, f), d)
+        return p
+
+    def block(kind, lead):
+        p = {"ln1": ones(*lead, d)}
+        if kind in ("dense", "moe", "hybrid", "enc", "dec"):
+            p["attn"] = attention(lead)
+        if kind == "hybrid":
+            di, n = cfg.d_inner, cfg.ssm_state
+            a_log = np.log(np.linspace(1.0, float(n), n, dtype=np.float32))
+            p["mamba"] = {
+                "in_proj": dense(lead + (d, 2 * di), d),
+                "conv": dense(lead + (cfg.ssm_conv, di), cfg.ssm_conv),
+                "x_bc": dense(lead + (di, 2 * n), di),
+                "x_dt": dense(lead + (di, 1), di),
+                "a_log": np.broadcast_to(a_log, lead + (di, n)).copy(),
+                "d_skip": ones(*lead, di),
+                "out_proj": dense(lead + (di, d), di)}
+        if kind == "dec":
+            p["ln_cross"] = ones(*lead, d)
+            p["cross"] = attention(lead)
+        if kind == "moe":
+            e, f = cfg.n_experts, cfg.d_ff
+            p["ln2"] = ones(*lead, d)
+            p["moe"] = {"router": dense(lead + (d, e), d),
+                        "w1": dense(lead + (e, d, f), d),
+                        "w3": dense(lead + (e, d, f), d),
+                        "w2": dense(lead + (e, f, d), f)}
+            if cfg.moe_dense_residual:
+                p["moe"]["dense"] = mlp(lead, cfg.moe_dense_ff or cfg.d_ff)
+        elif kind in ("dense", "hybrid", "enc", "dec"):
+            p["ln2"] = ones(*lead, d)
+            p["mlp"] = mlp(lead, cfg.d_ff)
+        if kind == "mlstm":
+            di = d * max(cfg.ssm_expand, 1)
+            p["mlstm"] = {"in_proj": dense(lead + (d, 2 * di), d),
+                          "wq": dense(lead + (di, di), di),
+                          "wk": dense(lead + (di, di), di),
+                          "wv": dense(lead + (di, di), di),
+                          "w_if": dense(lead + (di, 2 * cfg.n_heads), di),
+                          "out_proj": dense(lead + (di, d), di)}
+        if kind == "slstm":
+            p["slstm"] = {"w_in": dense(lead + (d, 4 * d), d),
+                          "r_rec": dense(lead + (d, 4 * d), d),
+                          "out_proj": dense(lead + (d, d), d)}
+        return p
+
+    p = {"embed": rng.standard_normal((cfg.vocab, d), dtype=np.float32)
+         * np.float32(0.02),
+         "final_norm": ones(d)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense((d, cfg.vocab), d)
+    L = (max(cfg.n_layers, 1),)
+    fam = cfg.family
+    if fam in ("dense", "vlm", "moe", "hybrid"):
+        p["blocks"] = block({"vlm": "dense"}.get(fam, fam), L)
+    elif fam == "audio":
+        p["blocks"] = block("dec", L)
+        p["enc_blocks"] = block("enc", (max(cfg.enc_layers, 1),))
+        p["enc_norm"] = ones(d)
+    elif fam == "ssm":
+        n_groups = cfg.n_layers // cfg.xlstm_group
+        p["m_blocks"] = block("mlstm", (n_groups,
+                                        max(cfg.xlstm_group - 1, 1)))
+        p["s_blocks"] = block("slstm", (n_groups,))
+    if fam == "vlm":
+        p["img_adapter"] = dense((d, d), d)
+    return p
+
+
+def lm_extra(cfg, batch: int, rng) -> dict:
+    """The modality stubs: patch embeddings (vlm), frame embeddings
+    (audio)."""
+    if cfg.family == "vlm":
+        return {"patches": rng.standard_normal(
+            (batch, cfg.img_tokens, cfg.d_model), dtype=np.float32)}
+    if cfg.family == "audio":
+        return {"frames": rng.standard_normal(
+            (batch, cfg.enc_frames, cfg.d_model), dtype=np.float32)}
+    return {}
+
+
+def lm_np(x) -> np.ndarray:
+    """A result of either package as float32 NumPy."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().cpu().numpy()
+    return np.asarray(x, dtype=np.float32)
+
+
+def lm_top(logits: np.ndarray, k: int) -> dict:
+    """The ``k`` largest logits of each position: ids (the lower first
+    among equals) and values."""
+    ids = np.argsort(-logits, axis=-1, kind="stable")[..., :k]
+    return {"ids": ids.tolist(),
+            "values": np.take_along_axis(logits, ids, -1).tolist()}
+
+
+def lm_greedy(M, E, params, cfg, prompts, new: int, extra=None, **kw):
+    """``generate``'s loop by hand: the tokens, each step's top-2 margin
+    and the prefill's last-position logits."""
+    padded = E._pad_prompts(prompts)
+    logits, cache = M.prefill(params, padded, cfg, extra=extra, **kw)
+    first = lm_np(logits[:, -1])
+    toks, margins = [], []
+    for step in range(new):
+        last = lm_np(logits[:, -1])
+        top2 = np.sort(last, axis=-1)[:, -2:]
+        margins.append(top2[:, 1] - top2[:, 0])
+        toks.append(np.argmax(last, axis=-1).astype(np.int32))
+        if step + 1 < new:
+            logits, cache = M.decode_step(params, cache, toks[-1][:, None],
+                                          cfg, **kw)
+    return (np.stack(toks, axis=1), np.stack(margins, axis=1), first)
+
+
+def lm_pinned_config(get_config):
+    """qwen3-0.6b as published, in float32, cut to LM_PINNED_LAYERS."""
+    return dataclasses.replace(get_config(LM_ARCH), dtype="float32",
+                               n_layers=LM_PINNED_LAYERS)
+
+
+def lm_pinned_runs(M, E, cfg, to_params, **kw) -> dict:
+    """The pinned part's calls through one package (``M`` its ``model``,
+    ``E`` its ``lm_engine``, ``to_params`` its way to take the NumPy
+    tree, ``kw`` the port's ``device=``): ``generate`` on the pinned
+    prompts, and its loop by hand for the margins and the prefill."""
+    rng = np.random.default_rng(LM_SEED)
+    params = to_params(lm_numpy_params(cfg, rng), cfg)
+    prompts = [rng.integers(0, cfg.vocab, n, dtype=np.int32)
+               for n in LM_PINNED_PROMPTS]
+    reqs = [E.Request(p, max_new_tokens=LM_PINNED_NEW) for p in prompts]
+    tokens = np.asarray(E.generate(params, cfg, reqs, **kw))
+    loop, margins, first = lm_greedy(M, E, params, cfg, prompts,
+                                     LM_PINNED_NEW, **kw)
+    assert np.array_equal(tokens, loop), (tokens, loop)
+    return {"tokens": tokens, "margins": margins, "prefill_last": first}
+
+
+def lm_family_runs(M, E, get_config, to_params, arch, **kw) -> dict:
+    """One smoke architecture at float32 through one package: forward,
+    prefill + LM_FAMILY_DECODE decode steps (fed seeded ids), generate
+    and its loop by hand, and the long prompt where LM_LONG names one
+    (its prefill and one decode step)."""
+    cfg = dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+    rng = np.random.default_rng(LM_SEED)
+    params = to_params(lm_numpy_params(cfg, rng), cfg)
+    B, S = LM_FAMILY_SHAPE
+    tokens = rng.integers(0, cfg.vocab, (B, S), dtype=np.int32)
+    extra = lm_extra(cfg, B, rng)
+    out = {"forward": lm_np(M.forward(params, tokens, cfg, extra=extra,
+                                      **kw)[0])}
+    logits, cache = M.prefill(params, tokens[:, :LM_FAMILY_PREFILL], cfg,
+                              extra=extra, **kw)
+    steps = [lm_np(logits)]
+    feed = rng.integers(0, cfg.vocab, (LM_FAMILY_DECODE, B, 1),
+                        dtype=np.int32)
+    for t in feed:
+        logits, cache = M.decode_step(params, cache, t, cfg, **kw)
+        steps.append(lm_np(logits))
+    out["decode"] = np.stack(steps)
+    prompts = [rng.integers(0, cfg.vocab, n, dtype=np.int32)
+               for n in LM_FAMILY_PROMPTS]
+    reqs = [E.Request(p, max_new_tokens=LM_FAMILY_NEW) for p in prompts]
+    out["tokens"] = np.asarray(E.generate(params, cfg, reqs, extra=extra,
+                                          **kw))
+    loop, out["margins"], _ = lm_greedy(M, E, params, cfg, prompts,
+                                        LM_FAMILY_NEW, extra=extra, **kw)
+    assert np.array_equal(out["tokens"], loop), (arch, out["tokens"], loop)
+    if arch in LM_LONG:
+        long = rng.integers(0, cfg.vocab, (1, LM_LONG[arch]), dtype=np.int32)
+        logits, cache = M.prefill(params, long, cfg, **kw)
+        nxt, _ = M.decode_step(params, cache, long[:, :1], cfg, **kw)
+        out["long"] = np.stack([lm_np(logits), lm_np(nxt)])
+    return out
+
+
+def lm_pinned_pin(runs: dict) -> dict:
+    """The pinned part's pins from one package's :func:`lm_pinned_runs`."""
+    return {"prefill_top": lm_top(runs["prefill_last"], LM_PINNED_TOP),
+            "tokens": runs["tokens"].tolist(),
+            "margins": runs["margins"].tolist()}
+
+
+def lm_family_pin(runs: dict) -> dict:
+    """One architecture's pins from one package's
+    :func:`lm_family_runs`."""
+    return {**{k: lm_top(runs[k], LM_FAMILY_TOP)
+               for k in ("forward", "decode", "long") if k in runs},
+            "tokens": runs["tokens"].tolist(),
+            "margins": runs["margins"].tolist()}
+
+
+def lm_value_err(logits: np.ndarray, pin: dict, tol: float) -> float:
+    """Hold ``logits`` at the pinned ids to the pinned values (rtol and
+    atol ``tol``); the largest absolute difference."""
+    got = np.take_along_axis(logits, np.asarray(pin["ids"]), -1)
+    want = np.asarray(pin["values"], dtype=np.float32)
+    assert got.shape == want.shape, (got.shape, want.shape)
+    np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+    return float(np.abs(got - want).max())
+
+
+def lm_tokens_held(tokens: np.ndarray, pinned: list, margins: list,
+                   floor: float) -> int:
+    """Hold ``tokens`` to the pinned ones, each row up to and including
+    its first step whose pinned margin is below ``floor``; the count of
+    tokens held."""
+    want, marg = np.asarray(pinned), np.asarray(margins)
+    assert tokens.shape == want.shape, (tokens.shape, want.shape)
+    held = 0
+    for row, (got, exp, m) in enumerate(zip(tokens, want, marg)):
+        close = np.flatnonzero(m < floor)
+        n = int(close[0]) + 1 if close.size else len(exp)
+        assert np.array_equal(got[:n], exp[:n]), (row, got, exp, m)
+        held += n
+    return held
+
+
+def lm_check_family(arch: str, runs: dict, pin: dict) -> dict:
+    """One smoke architecture's runs against its pins."""
+    errs = {k: lm_value_err(runs[k], pin[k], LM_FAMILY_TOL)
+            for k in ("forward", "decode", "long") if k in pin}
+    held = lm_tokens_held(runs["tokens"], pin["tokens"], pin["margins"],
+                          LM_FAMILY_MARGIN_FLOOR)
+    return {"max_abs_err": max(errs.values()), "tokens_held": held}
+
+
+def lm_load_pins() -> dict:
+    return json.loads(LM_PINS.read_text())
+
+
+def lm_tensors(obj):
+    """Every tensor of a parameter tree, cache or result."""
+    if isinstance(obj, torch.Tensor):
+        yield obj
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            yield from lm_tensors(v)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            yield from lm_tensors(v)
+
+
+def lm_on_card(*objs) -> int:
+    """Assert every tensor of ``objs`` lies on the card; their count."""
+    n = 0
+    for obj in objs:
+        for t in lm_tensors(obj):
+            assert t.device.type == "cuda", (t.device, tuple(t.shape))
+            n += 1
+    return n
+
+
+def device_busy(fn):
+    """``fn()`` under ``torch.profiler``: (its result, the device's busy
+    ms summed over its kernels, the kernel count); busy ``None`` where
+    the profiler records no device time."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    busy, kernels = 0.0, 0
+    for ev in prof.events():
+        if ev.device_type == torch.autograd.DeviceType.CUDA:
+            busy += ev.device_time_total / 1e3
+            kernels += 1
+    return out, (busy or None), kernels
+
+
+def lm_serve(card, dev) -> dict:
+    """qwen3-0.6b as published (bf16 compute, 28 layers), weights from a
+    seeded ``torch.Generator`` on the card: ``generate`` on the served
+    load, its prefill and decode steps timed apart, decode held to
+    ``forward`` at the same positions, and one LM_LONG_PREFILL-token
+    prefill through the chunked attention, its layer 0 held to
+    ``_sdpa``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm_engine as E
+    from repro_torch.models import model as M
+    cfg = get_config(LM_ARCH)
+    t0 = time.perf_counter()
+    gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+    lm = M.init_params(cfg, gen, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    n_params = sum(p.numel() for p in lm.parameters())
+    rng = np.random.default_rng(LM_SEED)
+    prompts = [rng.integers(0, cfg.vocab, n, dtype=np.int32)
+               for n in LM_SERVE_PROMPTS]
+    reqs = [E.Request(p, max_new_tokens=LM_SERVE_NEW) for p in prompts]
+    E.generate(lm, cfg, [E.Request(p, max_new_tokens=2) for p in prompts],
+               device=dev)                       # warm-up (cuBLAS handles)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = E.generate(lm, cfg, reqs, device=dev)
+    torch.cuda.synchronize()
+    generate_s = time.perf_counter() - t0
+    generate_peak = torch.cuda.max_memory_allocated()
+    assert out.shape == (len(reqs), LM_SERVE_NEW), out.shape
+    assert out.min() >= 0 and out.max() < cfg.vocab, (out.min(), out.max())
+    # the same loop by hand: the prefill and each decode step timed apart
+    params = M.compute_params(lm, cfg)
+    padded = E._pad_prompts(prompts)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, cache = M.prefill(params, padded, cfg, device=dev)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    held = lm_on_card(params, cache, logits)
+    assert bool(torch.isfinite(logits.float()).all())
+    tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+    toks, step_ms = [tok], []
+    for _ in range(LM_SERVE_NEW - 1):
+        t0 = time.perf_counter()
+        logits, cache = M.decode_step(params, cache, tok[:, None], cfg,
+                                      device=dev)
+        tok = torch.argmax(logits[:, -1], dim=-1).to(torch.int32)
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        assert bool(torch.isfinite(logits.float()).all())
+        toks.append(tok)
+    held += lm_on_card(cache, logits)
+    loop = torch.stack(toks, dim=1).cpu().numpy()
+    assert np.array_equal(loop, out), "generate differs from its loop"
+    # the device's busy time in one more decode step, by the profiler
+    (_, _), step_busy, step_kernels = device_busy(
+        lambda: M.decode_step(params, cache, tok[:, None], cfg, device=dev))
+    # decode logits equal forward's at the same positions (full width)
+    S = LM_SERVE_PROMPTS[0]
+    seq = torch.from_numpy(prompts[0][None]).to(dev)
+    full, _ = M.forward(params, seq, cfg, device=dev)
+    pre, cache1 = M.prefill(params, seq[:, :S - 1], cfg, device=dev)
+    step, _ = M.decode_step(params, cache1, seq[:, S - 1:], cfg, device=dev)
+    held += lm_on_card(full, pre, cache1, step)
+    tol = LM_SERVE_TOL
+    np.testing.assert_allclose(lm_np(pre[:, -1]), lm_np(full[:, S - 2]),
+                               rtol=tol, atol=tol)
+    np.testing.assert_allclose(lm_np(step[:, 0]), lm_np(full[:, S - 1]),
+                               rtol=tol, atol=tol)
+    decode_vs_forward = float(np.abs(lm_np(step[:, 0])
+                                     - lm_np(full[:, S - 1])).max())
+    del full, pre, cache1, step
+    # one long prompt through the chunked attention
+    n = LM_LONG_PREFILL
+    assert L.takes_chunked_route(cfg, n), (n, cfg.attn_chunk)
+    long = torch.from_numpy(
+        rng.integers(0, cfg.vocab, (1, n), dtype=np.int32)).to(dev)
+    chunked = L._sdpa_chunked
+    calls = []
+
+    def counted(*a, **k):
+        calls.append(a[0].shape[1])
+        return chunked(*a, **k)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    L._sdpa_chunked = counted
+    try:
+        t0 = time.perf_counter()
+        long_logits, long_cache = M.prefill(params, long, cfg, device=dev)
+        torch.cuda.synchronize()
+        long_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        L._sdpa_chunked = chunked
+    long_peak = torch.cuda.max_memory_allocated()
+    assert calls == [n] * cfg.n_layers, calls
+    held += lm_on_card(long_logits, long_cache)
+    assert bool(torch.isfinite(long_logits.float()).all())
+    del long_cache
+    _, long_busy, long_kernels = device_busy(
+        lambda: M.prefill(params, long, cfg, device=dev))
+    with torch.inference_mode():
+        bp = M._cast_tree(params["blocks"][0], M._cdt(cfg))
+        x = M._embed(params, long, cfg)
+        h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
+        pos = torch.arange(n, dtype=torch.int32, device=dev)
+        q, k, v = L._qkv(h, bp["attn"], cfg, pos)
+        a = L._sdpa_chunked(q, k, v, cfg, window=cfg.sliding_window)
+        b = L._sdpa(q, k, v, cfg, causal=True, window=cfg.sliding_window)
+    np.testing.assert_allclose(lm_np(a), lm_np(b), rtol=tol, atol=tol)
+    chunked_err = float(np.abs(lm_np(a) - lm_np(b)).max())
+    decode_ms = float(np.median(step_ms[3:]))
+    line = {"model": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+            "params": n_params, "init_s": init_s,
+            "requests": len(reqs), "prompt_tokens": list(LM_SERVE_PROMPTS),
+            "padded_to": int(padded.shape[1]), "new_tokens": LM_SERVE_NEW,
+            "generate_s": generate_s,
+            "tokens_per_s": len(reqs) * LM_SERVE_NEW / generate_s,
+            "prefill_ms": prefill_ms, "decode_ms_per_step": decode_ms,
+            "decode_ms_min": min(step_ms), "decode_ms_max": max(step_ms),
+            "decode_step_device_busy_ms": step_busy,
+            "decode_step_kernels": step_kernels,
+            "decode_idle_share": (None if step_busy is None
+                                  else 1.0 - step_busy / decode_ms),
+            "peak_bytes_generate": generate_peak,
+            "long_prefill_tokens": n, "long_prefill_ms": long_ms,
+            "peak_bytes_long_prefill": long_peak,
+            "long_prefill_device_busy_ms": long_busy,
+            "long_prefill_kernels": long_kernels,
+            "chunked_route_calls": len(calls),
+            "chunked_vs_sdpa_max_abs": chunked_err,
+            "decode_vs_forward_max_abs": decode_vs_forward,
+            "tolerance": tol, "tensors_on_card": held, "card": card}
+    emit(phase="lm_serve", **line)
+    return line
+
+
+def run_lm_phase(card, dev) -> dict:
+    """Phase 15, the LM serve path: ``lm_pinned`` (qwen3-0.6b at full
+    width, float32, held to ``repro``'s pins), ``lm_families`` (the ten
+    smoke configurations held to theirs), ``lm_serve``; with the port's
+    kernel launch counts zeroed before and all zero after (the path
+    reaches no hand-written kernel).  Returns the seconds."""
+    from repro_torch import interop
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.kernels import launch_counts, zero_launch_counts
+    from repro_torch.models import lm_engine as E
+    from repro_torch.models import model as M
+    t_phase = time.perf_counter()
+    matmul = torch.backends.cuda.matmul
+    flags = {"allow_tf32": matmul.allow_tf32,
+             "allow_bf16_reduced_precision_reduction":
+                 matmul.allow_bf16_reduced_precision_reduction}
+    # the float32 pins need full float32 products (TF32 stays off)
+    assert not flags["allow_tf32"], flags
+    emit(phase="lm_device", torch=torch.__version__, cuda=torch.version.cuda,
+         **flags, card=card)
+    pins = lm_load_pins()
+    zero_launch_counts()
+
+    def to_params(tree, cfg):
+        params = interop.lm_params(tree, cfg, dev)
+        lm_on_card(params)
+        return params
+
+    t0 = time.perf_counter()
+    cfg = lm_pinned_config(get_config)
+    pinned = lm_pinned_runs(M, E, cfg, to_params, device=dev)
+    pin = pins["pinned"]
+    err = lm_value_err(pinned["prefill_last"], pin["prefill_top"],
+                       LM_PINNED_TOL)
+    held = lm_tokens_held(pinned["tokens"], pin["tokens"], pin["margins"],
+                          LM_MARGIN_FLOOR)
+    emit(phase="lm_pinned", model=cfg.name, layers=cfg.n_layers,
+         d_model=cfg.d_model, vocab=cfg.vocab, dtype=cfg.dtype,
+         prompts=list(LM_PINNED_PROMPTS), new_tokens=LM_PINNED_NEW,
+         top=LM_PINNED_TOP, max_abs_err=err, tolerance=LM_PINNED_TOL,
+         tokens_held=held, tokens=int(pinned["tokens"].size),
+         tokens_got=pinned["tokens"].tolist(),
+         seconds=time.perf_counter() - t0, card=card)
+    t0 = time.perf_counter()
+    families = {}
+    for arch in ARCHS:
+        runs = lm_family_runs(M, E, get_config, to_params, arch, device=dev)
+        families[arch] = lm_check_family(arch, runs, pins["families"][arch])
+    emit(phase="lm_families", archs=families, tolerance=LM_FAMILY_TOL,
+         seconds=time.perf_counter() - t0, card=card)
+    serve = lm_serve(card, dev)
+    counts = launch_counts()
+    assert not any(counts.values()), counts
+    seconds = time.perf_counter() - t_phase
+    emit(phase="lm_total", seconds=seconds, launches=counts, card=card)
+    return {"seconds": seconds, "serve": serve}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -4161,12 +4721,16 @@ def main() -> int:
     distributed = run_distributed_phase(wt, sessions, swept, card, dev)
     launches.update({f"distributed_{part}": counts
                      for part, counts in distributed["launches"].items()})
+
+    # ---- 15. the LM serve path -------------------------------------------
+    lm = run_lm_phase(card, dev)
     emit(phase="wall", seconds=time.perf_counter() - t_start,
          event_phase_seconds=event_s, sweep_phase_seconds=swept["seconds"],
          corpus_phase_seconds=corp["seconds"],
          service_phase_seconds=served["seconds"],
          lock_witness_phase_seconds=witnessed["seconds"],
-         distributed_phase_seconds=distributed["seconds"], card=card)
+         distributed_phase_seconds=distributed["seconds"],
+         lm_phase_seconds=lm["seconds"], card=card)
 
     ds = kernels["dram_serve"]
     hw = ds["windows"]["hitgraph"]

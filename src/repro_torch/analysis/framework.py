@@ -136,7 +136,9 @@ class AnalysisConfig:
     """
 
     exclude: Sequence[str] = ()
-    quarantine: Sequence[str] = ("repro", "jax", "jaxlib")
+    quarantine: Sequence[str] = ("repro", "jax", "jaxlib",
+                                 "repro_torch.models",
+                                 "repro_torch.configs.legacy")
     kernels_root: str = "src/repro_torch/kernels"
     kernel_tests: Sequence[str] = ("tests/test_torch_cuda.py",
                                    "chip_smoke.py")

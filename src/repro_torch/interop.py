@@ -5,7 +5,7 @@ port's equivalent by reading its fields by name.  Nothing here imports
 ``repro``: any object with the right fields converts, so the tests can
 feed both packages identical graphs, configs, programs, runs and update
 batches, scenarios and corpus presets, and compare their reports and
-dynamic results.
+dynamic results; :func:`lm_params` carries an LM's weights across.
 """
 
 from __future__ import annotations
@@ -179,3 +179,52 @@ def scenario_spec(s) -> ScenarioSpec:
                    **{f: axis(getattr(s, f)) for f in (
                        "graph", "updates", "memory", "cache", "config",
                        "policy")})
+
+
+#: ``repro``'s stacked parameter keys and how many leading axes each
+#: stacks: ``[n_layers, ...]``, or ``[n_groups, group - 1, ...]``
+_STACKED = {"blocks": 1, "enc_blocks": 1, "s_blocks": 1, "m_blocks": 2}
+
+
+def _map_tree(tree, fn):
+    return {k: _map_tree(v, fn) if isinstance(v, dict) else fn(v)
+            for k, v in tree.items()}
+
+
+def _unstack(tree, axes: int):
+    """A dict of arrays stacked on ``axes`` leading axes as nested lists
+    of dicts (``[a[i] for i]``, or ``[[a[i, j] for j] for i]``)."""
+    if axes == 0:
+        return tree
+    first = tree
+    while isinstance(first, dict):
+        first = next(iter(first.values()))
+    return [_unstack(_map_tree(tree, lambda a, i=i: a[i]), axes - 1)
+            for i in range(first.shape[0])]
+
+
+def lm_params(params, cfg, device) -> dict:
+    """``repro``'s LM parameter tree (nested dicts of NumPy arrays:
+    ``jax.tree.map(np.asarray, params)``) as the port's: the per-layer
+    stacks unstacked into lists, every array a tensor of
+    ``cfg.param_dtype`` on ``device``.  Every entry point of
+    ``repro_torch.models`` takes the result (or ``LM(cfg, result)``)."""
+    dtype = getattr(torch, cfg.param_dtype)
+
+    def tensor(a):
+        return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
+
+    out = {k: _unstack(v, _STACKED[k]) if k in _STACKED else v
+           for k, v in params.items()}
+    if "blocks" in out and len(out["blocks"]) != cfg.n_layers:
+        raise ValueError(f"{len(out['blocks'])} stacked layers, "
+                         f"{cfg.name} has {cfg.n_layers}")
+
+    def convert(v):
+        if isinstance(v, dict):
+            return _map_tree(v, tensor)
+        if isinstance(v, list):
+            return [convert(x) for x in v]
+        return tensor(v)
+
+    return {k: convert(v) for k, v in out.items()}

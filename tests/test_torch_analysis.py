@@ -837,7 +837,8 @@ def test_cli_csrc_parity_synthetic_bug(tmp_path):
 def test_port_config_and_jax_config_load():
     cfg = load_config(REPO_ROOT)
     assert cfg == AnalysisConfig()
-    assert cfg.quarantine == ("repro", "jax", "jaxlib")
+    assert cfg.quarantine == ("repro", "jax", "jaxlib", "repro_torch.models",
+                              "repro_torch.configs.legacy")
     assert cfg.csrc_root == "src/repro_torch/csrc"
     assert cfg.kernel_tests == ("tests/test_torch_cuda.py", "chip_smoke.py")
     jax_cfg = load_config(REPO_ROOT, "analysis.cfg")
@@ -865,6 +866,41 @@ def test_quarantine_catches_an_import_of_the_jax_package(tmp_path):
         """, cfg=cfg)
     assert rules_of(out) == ["quarantine-import"]
     assert [f.symbol for f in out] == ["jax.numpy", "repro.sim.simulate"]
+
+
+LM_QUARANTINE = dataclasses.replace(
+    CFG, quarantine=("repro", "jax", "jaxlib", "repro_torch.models",
+                     "repro_torch.configs.legacy"))
+
+
+def test_quarantine_keeps_the_lm_stack_out_of_the_live_tree(tmp_path):
+    """A live module importing the port's LM stack is a finding; the LM
+    stack's own modules import each other freely (a departure from
+    ``repro``, whose quarantined tree is excluded, not analysed)."""
+    out = lint(tmp_path, """\
+        from repro_torch.models import model as M
+        import repro_torch.configs.legacy.qwen3_0_6b
+        from repro_torch.sim import simulate
+        """, rel="repro_torch/sim/mod.py", cfg=LM_QUARANTINE,
+        extra={"repro_torch/models/model.py": """\
+            from repro_torch.models import layers as L
+            from repro_torch.models.config import ModelConfig
+            """,
+               "repro_torch/configs/legacy/qwen3_0_6b.py":
+               "from repro_torch.models.config import ModelConfig\n"})
+    assert rules_of(out) == ["quarantine-import"]
+    assert [(f.path, f.symbol) for f in out] == [
+        ("repro_torch/sim/mod.py", "repro_torch.models.model"),
+        ("repro_torch/sim/mod.py", "repro_torch.configs.legacy.qwen3_0_6b")]
+
+
+def test_quarantine_inside_the_lm_stack_still_refuses_jax(tmp_path):
+    out = lint(tmp_path, """\
+        import jax.numpy as jnp
+        from repro.models import layers
+        from repro_torch.models import ssm
+        """, rel="repro_torch/models/model.py", cfg=LM_QUARANTINE)
+    assert [f.symbol for f in out] == ["jax.numpy", "repro.models.layers"]
 
 
 # ---------------------------------------------------------------------------

@@ -84,6 +84,16 @@ _ANALYSIS_MODULES = {"repro_torch.analysis", "repro_torch.analysis.locks",
                      "repro_torch.analysis.rules.scenario",
                      "repro_torch.kernels.sweep_min.ref"}
 
+#: the modules of the LM serve slice (models, configs, the sharding
+#: context)
+_LM_MODULES = {"repro_torch.models", "repro_torch.models.config",
+               "repro_torch.models.layers", "repro_torch.models.ssm",
+               "repro_torch.models.model", "repro_torch.models.lm_engine",
+               "repro_torch.configs", "repro_torch.configs.legacy",
+               "repro_torch.configs.legacy.qwen3_0_6b",
+               "repro_torch.configs.legacy.xlstm_1_3b",
+               "repro_torch.distributed.context"}
+
 #: an import statement naming jax or the JAX package (not repro_torch)
 _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
                      re.M)
@@ -101,7 +111,7 @@ def test_import_leaves_jax_and_repro_out():
     assert bad == "[]", bad
     assert (_DYNAMIC_MODULES | _STATIONARY_MODULES | _CACHE_MODULES
             | _EVENT_MODULES | _SWEEP_MODULES | _CORPUS_MODULES
-            | _SERVICE_MODULES | _ANALYSIS_MODULES
+            | _SERVICE_MODULES | _ANALYSIS_MODULES | _LM_MODULES
             <= set(names.split())), names
 
 
