@@ -233,7 +233,31 @@ Phases, one JSON line each:
               one 4,096-token prefill through the chunked attention with
               layer 0 held to ``_sdpa`` (2e-2), peak memory; every tensor
               on the card.  The pins are ``tools/lm_pins.json``, made by
-              ``tools/lm_pins.py``.  Then the script's wall time.
+              ``tools/lm_pins.py``.
+16. lm_train — LM training (``repro_torch.train``, ``distributed.
+              checkpoint``, ``fault_tolerance``, ``launch.train``), the
+              port's kernel launch counts zeroed before and all zero after:
+              ``lm_train_device``, the matmul precision flags (TF32 off);
+              ``train_pinned``, qwen3-0.6b at full width cut to 4 layers
+              in float32 from NumPy weights, 3 AdamW steps and 3 with
+              ``grad_accum=2`` on 2 x 64 tokens: each loss held to
+              ``repro``'s pins (step 1 at rtol 1e-5, later 1e-4), step 1's
+              global and per-leaf grad norms (1e-4), the lr, and after
+              step 3 a sample of every leaf (99.9 % within 1e-5, all
+              within 3 * lr * steps); ``train_families``, one step of each
+              smoke configuration (and one with ``grad_accum=2`` for
+              gemma and the two MoE ones) held the same way, every
+              gradient finite; ``train_full``, qwen3-0.6b as published
+              (28 layers, bf16 compute, float32 state) through
+              ``launch.train.main``: 20 steps of 8 x 512 tokens (the loss
+              falls by at least 1 nat), 4 with ``--grad-accum 2``, one
+              step with ``remat`` off, step ms, tokens/s, the profiler's
+              busy ms and kernel count of a step, peak memory;
+              ``train_resume``, 2 layers at full width: ``ElasticTrainer``
+              saves at step 2 of 4 and a fresh trainer resumes, equal to
+              the uninterrupted run within 1e-6; ``train_total``.  The
+              pins are ``tools/lm_train_pins.json``, made by
+              ``tools/lm_train_pins.py``.  Then the script's wall time.
 
 Then the kernel table, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -246,8 +270,10 @@ from __future__ import annotations
 import dataclasses
 import hashlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import warnings
@@ -4218,6 +4244,25 @@ def device_busy(fn):
     return out, (busy or None), kernels
 
 
+def device_top(fn, top: int = 8):
+    """``fn()`` under ``torch.profiler``: the ``top`` device operators by
+    their summed device time (name, ms, calls)."""
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = []
+    for ev in prof.key_averages():
+        ms = getattr(ev, "self_device_time_total",
+                     getattr(ev, "self_cuda_time_total", 0)) / 1e3
+        if ms > 0:
+            rows.append((ms, ev.key, ev.count))
+    rows.sort(reverse=True)
+    return [{"op": k[:120], "ms": ms, "calls": n}
+            for ms, k, n in rows[:top]]
+
+
 def lm_serve(card, dev) -> dict:
     """qwen3-0.6b as published (bf16 compute, 28 layers), weights from a
     seeded ``torch.Generator`` on the card: ``generate`` on the served
@@ -4414,6 +4459,464 @@ def run_lm_phase(card, dev) -> dict:
     seconds = time.perf_counter() - t_phase
     emit(phase="lm_total", seconds=seconds, launches=counts, card=card)
     return {"seconds": seconds, "serve": serve}
+
+
+# ---------------------------------------------------------------------------
+# phase 16: LM training (repro_torch.train, checkpoint, fault_tolerance,
+# launch.train)
+# ---------------------------------------------------------------------------
+
+#: AdamW and data of the pinned and family parts: qwen3-0.6b at full
+#: width (LM_PINNED_LAYERS layers, float32) on 2 x 64 tokens, the smoke
+#: configurations on 2 x 16
+LM_TRAIN_HP = {"lr": 1e-3, "warmup_steps": 1, "total_steps": 10}
+LM_TRAIN_PINNED_DATA = {"seq_len": 64, "global_batch": 2, "seed": 0}
+LM_TRAIN_FAMILY_DATA = {"seq_len": 16, "global_batch": 2, "seed": 0}
+LM_TRAIN_PINNED_STEPS = 3
+LM_TRAIN_FAMILY_STEPS = 1
+#: the smoke configurations that also take a ``grad_accum=2`` step
+LM_TRAIN_ACCUM = ("gemma_2b", "arctic_480b", "llama4_scout_17b_a16e")
+#: elements of each leaf pinned after the last step: the first and
+#: evenly spaced ones (all layers of a stacked leaf)
+LM_TRAIN_SAMPLE = 32
+LM_TRAIN_LOSS_TOL = (1e-5, 1e-4)        # rtol: step 1, later steps
+LM_TRAIN_NORM_TOL = 1e-4                # rtol; atol 1e-6 of the global
+LM_TRAIN_PARAM_TOL = 1e-5
+#: the share of sampled elements that may lie past LM_TRAIN_PARAM_TOL: a
+#: parameter whose gradient is near 0 moves by +-lr at step 1 and may
+#: take the other sign in either package (all stay within 3 * lr * steps)
+LM_TRAIN_PARAM_SHARE = 1e-3
+#: a leaf whose pinned step-1 gradient norm is below this share of the
+#: global norm has a gradient of 0 in exact arithmetic (a top-1 MoE
+#: router: its gate is p / p): Adam moves each of its elements by lr times
+#: the sign of rounding noise, so it is held to 3 * lr * steps only
+LM_TRAIN_NOISE_LEAF = 1e-6
+#: train_full: qwen3-0.6b as published through ``launch.train.main``
+LM_TRAIN_FULL_DATA = {"seq_len": 512, "global_batch": 8}
+LM_TRAIN_FULL_STEPS = 20
+LM_TRAIN_ACCUM_STEPS = 4
+LM_TRAIN_MIN_DROP = 1.0                 # nats, step 1 to step 20
+#: train_resume: 2 layers at full width, 4 steps of 4 x 128 tokens
+LM_TRAIN_RESUME_LAYERS = 2
+LM_TRAIN_RESUME_DATA = {"seq_len": 128, "global_batch": 4, "seed": 0}
+LM_TRAIN_RESUME_TOL = 1e-6
+LM_TRAIN_PINS = ROOT / "tools" / "lm_train_pins.json"
+
+
+def lm_flat(tree) -> dict:
+    """A tree of either package as ``repro``'s checkpoint keys (the
+    port's per-layer lists stacked as ``repro`` stacks them) -> float32
+    NumPy."""
+    from repro_torch.distributed.checkpoint import _flatten
+    return {k: np.asarray(v, dtype=np.float32)
+            for k, v in _flatten(tree).items()}
+
+
+def lm_train_sample(flat: dict) -> dict:
+    """LM_TRAIN_SAMPLE leading and LM_TRAIN_SAMPLE evenly spaced elements
+    of every leaf."""
+    out = {}
+    for k, a in flat.items():
+        a = a.ravel()
+        n = LM_TRAIN_SAMPLE
+        idx = np.unique(np.concatenate([
+            np.arange(min(n, a.size)),
+            np.linspace(0, a.size - 1, n).astype(np.int64)]))
+        out[k] = a[idx].tolist()
+    return out
+
+
+def lm_train_runs(api, cfg, data: dict, steps: int, accums,
+                  pinned=None) -> dict:
+    """One configuration's training through one package (``api``, see
+    :func:`lm_train_port_api`; ``tools/lm_train_pins.py`` has
+    ``repro``'s): step 1's loss and gradients (every leaf's norm, the
+    global norm, all finite), the lr of each step, and for each
+    ``grad_accum`` in ``accums`` ``steps`` AdamW steps from the NumPy
+    weights: the losses and a sample of every parameter after them.
+
+    ``pinned`` (the pins' ``batches``) replaces the tokens and labels
+    that ``make_batch`` drew: NumPy's ``Generator.zipf`` draws other tail
+    values in other NumPy versions (2.0 and 2.3 differ), so the card's
+    host may draw other tokens than the pins' from the same seed; the
+    count of tokens replaced is returned."""
+    tree = lm_numpy_params(cfg, np.random.default_rng(LM_SEED))
+    batches = [api.make_batch(cfg, data, i) for i in range(steps)]
+    replaced = 0
+    for b, want in zip(batches, pinned or ()):
+        for k in ("tokens", "labels"):
+            w = np.asarray(want[k], dtype=np.int32)
+            replaced += int((b[k] != w).sum())
+            b[k] = w
+    loss, grads = api.loss_and_grads(api.to_params(tree, cfg), batches[0],
+                                     cfg)
+    g = lm_flat(grads)
+    out = {"loss": float(loss), "grad_norm": float(api.global_norm(grads)),
+           "leaf_norms": {k: float(np.linalg.norm(v.astype(np.float64)))
+                          for k, v in g.items()},
+           "grads_finite": all(bool(np.isfinite(v).all())
+                               for v in g.values()),
+           "lr": [api.schedule(i + 1) for i in range(steps)],
+           "batches": [{k: b[k].tolist() for k in ("tokens", "labels")}
+                       for b in batches],
+           "tokens_replaced": replaced}
+    del grads, g
+    for ga in accums:
+        params = api.to_params(tree, cfg)
+        state = api.init_opt(params)
+        step = api.make_step(cfg, ga)
+        losses = []
+        for b in batches:
+            loss, params, state = step(params, state, b)
+            losses.append(float(loss))
+        out[f"accum_{ga}"] = {"losses": losses,
+                              "sample": lm_train_sample(lm_flat(params))}
+        del params, state
+    return out
+
+
+def lm_train_pin(runs: dict) -> dict:
+    """The pins of one :func:`lm_train_runs`: all of it but the
+    finiteness flag and the count of tokens replaced."""
+    return {k: v for k, v in runs.items()
+            if k not in ("grads_finite", "tokens_replaced")}
+
+
+def lm_train_check(runs: dict, pin: dict) -> dict:
+    """Hold one configuration's runs to its pins; the largest errors."""
+    assert runs["grads_finite"], "a gradient leaf is not finite"
+    assert runs["batches"] == pin.get("batches", runs["batches"]), (
+        "trained on other batches than the pins'")
+    first, later = LM_TRAIN_LOSS_TOL
+    np.testing.assert_allclose(runs["loss"], pin["loss"], rtol=first)
+    atol = 1e-6 * pin["grad_norm"]
+    np.testing.assert_allclose(runs["grad_norm"], pin["grad_norm"],
+                               rtol=LM_TRAIN_NORM_TOL)
+    assert runs["leaf_norms"].keys() == pin["leaf_norms"].keys()
+    norm_err = 0.0
+    for k, v in pin["leaf_norms"].items():
+        np.testing.assert_allclose(runs["leaf_norms"][k], v,
+                                   rtol=LM_TRAIN_NORM_TOL, atol=atol,
+                                   err_msg=k)
+        norm_err = max(norm_err, abs(runs["leaf_norms"][k] - v)
+                       / max(abs(v), atol))
+    np.testing.assert_allclose(runs["lr"], pin["lr"], rtol=1e-6)
+    loss_err, worst, over, n = 0.0, 0.0, 0, 0
+    noise = {k for k, v in pin["leaf_norms"].items()
+             if v < LM_TRAIN_NOISE_LEAF * pin["grad_norm"]}
+    accums = [k for k in pin if k.startswith("accum_")]
+    for key in accums:
+        got, want = runs[key], pin[key]
+        np.testing.assert_allclose(got["losses"][0], want["losses"][0],
+                                   rtol=first)
+        np.testing.assert_allclose(got["losses"], want["losses"],
+                                   rtol=later)
+        loss_err = max(loss_err, max(abs(a - b) / abs(b) for a, b in zip(
+            got["losses"], want["losses"])))
+        assert got["sample"].keys() == want["sample"].keys()
+        errs = {k: np.abs(np.asarray(got["sample"][k])
+                          - np.asarray(want["sample"][k]))
+                for k in want["sample"]}
+        steps = len(want["losses"])
+        top = max(float(e.max()) for e in errs.values())
+        assert top <= 3 * LM_TRAIN_HP["lr"] * steps, (key, top)
+        worst = max(worst, top)
+        held = [e for k, e in errs.items() if k not in noise]
+        over += sum(int((e > LM_TRAIN_PARAM_TOL).sum()) for e in held)
+        n += sum(e.size for e in held)
+    assert over <= LM_TRAIN_PARAM_SHARE * n, (over, n)
+    return {"loss_max_rel": loss_err,
+            "grad_norm_rel": abs(runs["grad_norm"] - pin["grad_norm"])
+            / pin["grad_norm"],
+            "leaf_norm_max_rel": norm_err, "sample_max_abs": worst,
+            "sample_over_tol": over, "sample_elements": n,
+            "noise_leaves": sorted(noise),
+            "accums": [int(k.split("_")[1]) for k in accums]}
+
+
+def lm_train_family_config(get_config, arch):
+    return dataclasses.replace(get_config(arch, smoke=True), dtype="float32")
+
+
+def lm_train_family_accums(arch) -> tuple:
+    return (1, 2) if arch in LM_TRAIN_ACCUM else (1,)
+
+
+def lm_train_port_api(dev):
+    """The port's side of :func:`lm_train_runs` on ``dev`` (every
+    parameter tree asserted on the card when ``dev`` is one)."""
+    import types
+
+    from repro_torch import interop
+    from repro_torch.train import data as D
+    from repro_torch.train import optimizer as O
+    from repro_torch.train import step as S
+    hp = O.AdamWConfig(**LM_TRAIN_HP)
+
+    def to_params(tree, cfg):
+        params = interop.lm_params(tree, cfg, dev)
+        if dev.type == "cuda":
+            lm_on_card(params)
+        return params
+
+    return types.SimpleNamespace(
+        to_params=to_params, init_opt=O.init,
+        make_batch=lambda cfg, data, i: D.make_batch(
+            cfg, D.DataConfig(**data), i),
+        loss_and_grads=lambda p, b, cfg: S.loss_and_grads(p, b, cfg,
+                                                          device=dev),
+        global_norm=O.global_norm,
+        schedule=lambda i: float(O._schedule(
+            torch.tensor(i, dtype=torch.int32, device=dev), hp)),
+        make_step=lambda cfg, ga: S.make_train_step(cfg, hp, ga,
+                                                    device=dev))
+
+
+def lm_train_load_pins() -> dict:
+    return json.loads(LM_TRAIN_PINS.read_text())
+
+
+def lm_train_full(card, dev) -> dict:
+    """qwen3-0.6b as published through ``launch.train.main`` on the card:
+    LM_TRAIN_FULL_STEPS steps, then LM_TRAIN_ACCUM_STEPS with
+    ``--grad-accum 2`` (each from the seeded init, no checkpoint written:
+    a full-width one is 7.2 GB), each step timed with the card
+    synchronised, one more step under the profiler; then one step with
+    ``remat`` off, its peak memory beside remat's."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import train as LT
+    from repro_torch.models import model as M
+    from repro_torch.train import data as D
+    from repro_torch.train import optimizer as O
+    cfg = get_config(LM_ARCH)
+    tokens = LM_TRAIN_FULL_DATA["seq_len"] * LM_TRAIN_FULL_DATA["global_batch"]
+    made = LT.make_train_step
+    step_ms, last = [], {}
+
+    def timed(*a, **k):
+        step = made(*a, **k)
+
+        def run(params, state, batch):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(params, state, batch)
+            float(out[0])
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            last.update(step=step, params=out[1], state=out[2], batch=batch)
+            return out
+        return run
+
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        data = LM_TRAIN_FULL_DATA
+        argv = ["--arch", cfg.name, "--seq-len", str(data["seq_len"]),
+                "--global-batch", str(data["global_batch"]), "--device",
+                dev.type, "--ckpt-dir", tmp, "--save-every", "1000000"]
+        LT.make_train_step = timed
+        try:
+            for name, extra_args in (
+                    ("full", ["--steps", str(LM_TRAIN_FULL_STEPS)]),
+                    ("accum", ["--steps", str(LM_TRAIN_ACCUM_STEPS),
+                               "--grad-accum", "2"])):
+                step_ms.clear()
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                losses = LT.main(argv + extra_args)
+                seconds = time.perf_counter() - t0
+                peak = torch.cuda.max_memory_allocated()
+                assert len(losses) == len(step_ms), (losses, step_ms)
+                assert all(np.isfinite(losses)), losses
+                times = step_ms[:]
+                ms = float(np.median(times[2:]))      # warm: past step 2
+                again = lambda: last["step"](last["params"], last["state"],
+                                             last["batch"])
+                _, busy, kernels = device_busy(again)
+                ops = device_top(again) if name == "full" else None
+                out[name] = {"losses": losses, "seconds": seconds,
+                             "step_ms": ms, "step_ms_all": times,
+                             "tokens_per_s": tokens / ms * 1e3,
+                             "step_device_busy_ms": busy,
+                             "step_kernels": kernels,
+                             "step_top_device_ops": ops,
+                             "step_idle_share": (None if busy is None
+                                                 else 1.0 - busy / ms),
+                             "peak_bytes": peak}
+                last.clear()
+        finally:
+            LT.make_train_step = made
+        assert not os.listdir(tmp), os.listdir(tmp)
+    full = out["full"]["losses"]
+    drop = full[0] - full[-1]
+    assert drop >= LM_TRAIN_MIN_DROP, full
+    # one step with remat off, from a fresh init, its peak memory
+    off = dataclasses.replace(cfg, remat=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    params = M.init_params(off, torch.Generator(device=dev).manual_seed(0),
+                           device=dev).tree()
+    state = O.init(params)
+    hp = O.AdamWConfig(lr=1e-3, warmup_steps=2, total_steps=20)
+    b = D.make_batch(off, D.DataConfig(**LM_TRAIN_FULL_DATA), 0)
+    step = made(off, hp, device=dev)
+    loss, params, state = step(params, state, b)
+    no_remat_loss = float(loss)
+    no_remat_peak = torch.cuda.max_memory_allocated()
+    held = lm_on_card(params, state)
+    del params, state, step
+    assert abs(no_remat_loss - full[0]) <= 1e-2 * abs(full[0]), (
+        no_remat_loss, full[0])
+    n_params = cfg.param_count()
+    line = {"model": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+            "param_dtype": cfg.param_dtype, "param_count": n_params,
+            "tokens_per_step": tokens, "loss_first": full[0],
+            "loss_last": full[-1], "loss_drop": drop,
+            "min_drop": LM_TRAIN_MIN_DROP, **{
+                f"{name}_{k}": v for name, r in out.items()
+                for k, v in r.items()},
+            "no_remat_loss": no_remat_loss,
+            "peak_bytes_remat": out["full"]["peak_bytes"],
+            "peak_bytes_no_remat": no_remat_peak,
+            "tensors_on_card": held, "card": card}
+    emit(phase="lm_train", part="train_full", **line)
+    return line
+
+
+def lm_train_resume(card, dev) -> dict:
+    """qwen3-0.6b's widths, LM_TRAIN_RESUME_LAYERS layers, as published
+    (bf16 compute): an ``ElasticTrainer`` saves at step 2 of 4
+    (``save_every=2``, ``keep=1``), a fresh one resumes from it and runs
+    steps 2-3; losses and parameters equal the uninterrupted 4-step
+    run's within LM_TRAIN_RESUME_TOL."""
+    from repro_torch.configs import get_config
+    from repro_torch.distributed.fault_tolerance import ElasticTrainer
+    from repro_torch.models import model as M
+    from repro_torch.train import data as D
+    from repro_torch.train import optimizer as O
+    from repro_torch.train.step import make_train_step
+    cfg = dataclasses.replace(get_config(LM_ARCH),
+                              n_layers=LM_TRAIN_RESUME_LAYERS)
+    hp = O.AdamWConfig(**LM_TRAIN_HP)
+    dc = D.DataConfig(**LM_TRAIN_RESUME_DATA)
+
+    def build_state(_mesh):
+        gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+        params = M.init_params(cfg, gen, device=dev).tree()
+        return params, O.init(params)
+
+    def trainer(directory, save_every, keep=1):
+        return ElasticTrainer(directory, build_state,
+                              lambda: make_train_step(cfg, hp, device=dev),
+                              mesh_builder=lambda: None,
+                              save_every=save_every, keep=keep)
+
+    quiet = lambda _msg: None
+    timing = {}
+
+    def timed(name, fn):
+        def run(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            timing[name] = time.perf_counter() - t0
+            return out
+        return run
+
+    with tempfile.TemporaryDirectory() as tmp:
+        whole = trainer(os.path.join(tmp, "whole"), 1 << 30)
+        _, pa, oa, start = whole.resume_or_init()
+        assert start == 0
+        pa, oa, la = whole.run(pa, oa, D.batches(cfg, dc), 4, log=quiet)
+        first = trainer(os.path.join(tmp, "cut"), 2)
+        first.manager.save = timed("save_s", first.manager.save)
+        _, pb, ob, _ = first.resume_or_init()
+        first.run(pb, ob, D.batches(cfg, dc), 2, log=quiet)
+        del pb, ob
+        assert first.manager.all_steps() == [2], first.manager.all_steps()
+        size = os.path.getsize(first.manager._path(2))
+        fresh = trainer(os.path.join(tmp, "cut"), 2)
+        fresh.manager.restore_latest = timed("restore_s",
+                                             fresh.manager.restore_latest)
+        _, pc, oc, start = fresh.resume_or_init()
+        assert start == 2 and int(oc["step"]) == 2, start
+        held = lm_on_card(pc, oc)
+        pc, oc, lc = fresh.run(pc, oc, D.batches(cfg, dc, start_step=2), 2,
+                               start_step=2, log=quiet)
+        assert fresh.manager.all_steps() == [4], fresh.manager.all_steps()
+    loss_diff = max(abs(a - b) for a, b in zip(la[2:], lc))
+    with torch.no_grad():
+        param_diff = max(float((a - c).abs().max()) for a, c in zip(
+            lm_tensors((pa, oa["m"], oa["v"])),
+            lm_tensors((pc, oc["m"], oc["v"]))))
+    line = {"model": cfg.name, "layers": cfg.n_layers, "dtype": cfg.dtype,
+            "data": LM_TRAIN_RESUME_DATA, "losses_whole": la,
+            "losses_resumed": lc, "loss_max_abs": loss_diff,
+            "state_max_abs": param_diff, "tolerance": LM_TRAIN_RESUME_TOL,
+            "checkpoint_bytes": size, "save_s": timing["save_s"],
+            "restore_s": timing["restore_s"], "tensors_on_card": held,
+            "card": card}
+    emit(phase="lm_train", part="train_resume", **line)
+    assert loss_diff <= LM_TRAIN_RESUME_TOL, (la, lc)
+    assert param_diff <= LM_TRAIN_RESUME_TOL, param_diff
+    return line
+
+
+def run_lm_train_phase(card, dev) -> dict:
+    """Phase 16, LM training: ``train_pinned`` (qwen3-0.6b at full width,
+    4 layers, float32, held to ``repro``'s pins), ``train_families`` (the
+    ten smoke configurations held to theirs), ``train_full``,
+    ``train_resume``; the port's kernel launch counts zeroed before and
+    all zero after (training reaches no hand-written kernel).  Returns
+    the seconds."""
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.kernels import launch_counts, zero_launch_counts
+    t_phase = time.perf_counter()
+    matmul = torch.backends.cuda.matmul
+    flags = {"allow_tf32": matmul.allow_tf32,
+             "allow_bf16_reduced_precision_reduction":
+                 matmul.allow_bf16_reduced_precision_reduction}
+    assert not flags["allow_tf32"], flags
+    emit(phase="lm_train", part="device", torch=torch.__version__,
+         cuda=torch.version.cuda, **flags, card=card)
+    pins = lm_train_load_pins()
+    zero_launch_counts()
+    api = lm_train_port_api(dev)
+    t0 = time.perf_counter()
+    cfg = lm_pinned_config(get_config)
+    runs = lm_train_runs(api, cfg, LM_TRAIN_PINNED_DATA,
+                         LM_TRAIN_PINNED_STEPS, (1, 2),
+                         pins["pinned"]["batches"])
+    got = lm_train_check(runs, pins["pinned"])
+    emit(phase="lm_train", part="train_pinned", model=cfg.name,
+         layers=cfg.n_layers, d_model=cfg.d_model, vocab=cfg.vocab,
+         dtype=cfg.dtype, data=LM_TRAIN_PINNED_DATA, hp=LM_TRAIN_HP,
+         losses={k: runs[k]["losses"] for k in runs if k.startswith("accum")},
+         grad_norm=runs["grad_norm"], lr=runs["lr"],
+         tokens_replaced=runs["tokens_replaced"], **got,
+         tolerance={"loss": LM_TRAIN_LOSS_TOL, "norm": LM_TRAIN_NORM_TOL,
+                    "param": LM_TRAIN_PARAM_TOL,
+                    "param_share": LM_TRAIN_PARAM_SHARE},
+         seconds=time.perf_counter() - t0, card=card)
+    t0 = time.perf_counter()
+    families = {}
+    for arch in ARCHS:
+        pin = pins["families"][arch]
+        runs = lm_train_runs(api, lm_train_family_config(get_config, arch),
+                             LM_TRAIN_FAMILY_DATA, LM_TRAIN_FAMILY_STEPS,
+                             lm_train_family_accums(arch), pin["batches"])
+        families[arch] = {**lm_train_check(runs, pin),
+                          "tokens_replaced": runs["tokens_replaced"]}
+    emit(phase="lm_train", part="train_families", archs=families,
+         seconds=time.perf_counter() - t0, card=card)
+    full = lm_train_full(card, dev)
+    resume = lm_train_resume(card, dev)
+    counts = launch_counts()
+    assert not any(counts.values()), counts
+    seconds = time.perf_counter() - t_phase
+    emit(phase="lm_train", part="train_total", seconds=seconds,
+         launches=counts, card=card)
+    return {"seconds": seconds, "full": full, "resume": resume}
 
 
 def main() -> int:
@@ -4724,13 +5227,17 @@ def main() -> int:
 
     # ---- 15. the LM serve path -------------------------------------------
     lm = run_lm_phase(card, dev)
+
+    # ---- 16. LM training -------------------------------------------------
+    lm_train = run_lm_train_phase(card, dev)
     emit(phase="wall", seconds=time.perf_counter() - t_start,
          event_phase_seconds=event_s, sweep_phase_seconds=swept["seconds"],
          corpus_phase_seconds=corp["seconds"],
          service_phase_seconds=served["seconds"],
          lock_witness_phase_seconds=witnessed["seconds"],
          distributed_phase_seconds=distributed["seconds"],
-         lm_phase_seconds=lm["seconds"], card=card)
+         lm_phase_seconds=lm["seconds"],
+         lm_train_phase_seconds=lm_train["seconds"], card=card)
 
     ds = kernels["dram_serve"]
     hw = ds["windows"]["hitgraph"]

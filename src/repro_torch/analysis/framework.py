@@ -138,7 +138,9 @@ class AnalysisConfig:
     exclude: Sequence[str] = ()
     quarantine: Sequence[str] = ("repro", "jax", "jaxlib",
                                  "repro_torch.models",
-                                 "repro_torch.configs.legacy")
+                                 "repro_torch.configs.legacy",
+                                 "repro_torch.train",
+                                 "repro_torch.launch.train")
     kernels_root: str = "src/repro_torch/kernels"
     kernel_tests: Sequence[str] = ("tests/test_torch_cuda.py",
                                    "chip_smoke.py")

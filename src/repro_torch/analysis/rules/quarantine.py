@@ -9,11 +9,12 @@ the rest of the suite cannot see into.
 
 The port analyses its quarantined packages too (``repro_torch.models``,
 ``repro_torch.configs.legacy``; nothing is excluded), so a module that
-lies inside a quarantined package the tree holds may import any such
-package (``models/model.py`` its sibling ``models/layers.py``, a
-``configs/legacy`` module ``models/config.py``).  An import of a
-quarantined name the tree does not hold (``repro``, ``jax``) is a finding
-from every module.
+lies inside a quarantined package the tree holds, or is itself a
+quarantined module, may import any such package (``models/model.py`` its
+sibling ``models/layers.py``, a ``configs/legacy`` module
+``models/config.py``, ``launch/train.py`` the ``train`` package).  An
+import of a quarantined name the tree does not hold (``repro``, ``jax``)
+is a finding from every module.
 """
 
 from __future__ import annotations
@@ -70,8 +71,10 @@ class QuarantineImportRule(Rule):
 
 def _inside(rel: str, package: str) -> bool:
     """Whether the module at path ``rel`` lies inside the dotted
-    ``package`` (its parts appear in the path's directories, in order)."""
+    ``package`` (its parts appear in the path's directories, in order) or
+    is that module (its path ends with the parts of a dotted name; a bare
+    name such as ``jax`` never names a module of the tree)."""
     parts = rel[:-3].split("/") if rel.endswith(".py") else rel.split("/")
     dirs, pkg = parts[:-1], package.split(".")
-    return any(dirs[i:i + len(pkg)] == pkg
-               for i in range(len(dirs) - len(pkg) + 1))
+    return (len(pkg) > 1 and parts[-len(pkg):] == pkg) or any(
+        dirs[i:i + len(pkg)] == pkg for i in range(len(dirs) - len(pkg) + 1))

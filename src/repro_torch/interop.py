@@ -32,6 +32,7 @@ from repro_torch.sim.dynamic import DynamicResult, EpochReport
 from repro_torch.sim.policy import PartitionPolicy
 from repro_torch.sim.reference_model import ReferenceConfig
 from repro_torch.sim.scenario import ScenarioSpec
+from repro_torch.tree import STACKED, map_tree, unstack
 
 
 def _fields(obj, cls, **converted):
@@ -181,28 +182,6 @@ def scenario_spec(s) -> ScenarioSpec:
                        "policy")})
 
 
-#: ``repro``'s stacked parameter keys and how many leading axes each
-#: stacks: ``[n_layers, ...]``, or ``[n_groups, group - 1, ...]``
-_STACKED = {"blocks": 1, "enc_blocks": 1, "s_blocks": 1, "m_blocks": 2}
-
-
-def _map_tree(tree, fn):
-    return {k: _map_tree(v, fn) if isinstance(v, dict) else fn(v)
-            for k, v in tree.items()}
-
-
-def _unstack(tree, axes: int):
-    """A dict of arrays stacked on ``axes`` leading axes as nested lists
-    of dicts (``[a[i] for i]``, or ``[[a[i, j] for j] for i]``)."""
-    if axes == 0:
-        return tree
-    first = tree
-    while isinstance(first, dict):
-        first = next(iter(first.values()))
-    return [_unstack(_map_tree(tree, lambda a, i=i: a[i]), axes - 1)
-            for i in range(first.shape[0])]
-
-
 def lm_params(params, cfg, device) -> dict:
     """``repro``'s LM parameter tree (nested dicts of NumPy arrays:
     ``jax.tree.map(np.asarray, params)``) as the port's: the per-layer
@@ -214,17 +193,20 @@ def lm_params(params, cfg, device) -> dict:
     def tensor(a):
         return torch.from_numpy(np.array(a)).to(device=device, dtype=dtype)
 
-    out = {k: _unstack(v, _STACKED[k]) if k in _STACKED else v
+    out = {k: unstack(v, STACKED[k]) if k in STACKED else v
            for k, v in params.items()}
     if "blocks" in out and len(out["blocks"]) != cfg.n_layers:
         raise ValueError(f"{len(out['blocks'])} stacked layers, "
                          f"{cfg.name} has {cfg.n_layers}")
+    return map_tree(tensor, out)
 
-    def convert(v):
-        if isinstance(v, dict):
-            return _map_tree(v, tensor)
-        if isinstance(v, list):
-            return [convert(x) for x in v]
-        return tensor(v)
 
-    return {k: convert(v) for k, v in out.items()}
+def lm_opt_state(state, cfg, device) -> dict:
+    """``repro``'s AdamW state ``{"m", "v", "step"}`` (NumPy, as
+    :func:`lm_params` takes the parameters) as the port's: the moments
+    unstacked as the parameters are, ``step`` a 0-d int32 tensor, all on
+    ``device``."""
+    return {"m": lm_params(state["m"], cfg, device),
+            "v": lm_params(state["v"], cfg, device),
+            "step": torch.tensor(int(np.asarray(state["step"])),
+                                 dtype=torch.int32, device=device)}

@@ -108,8 +108,11 @@ def rope_freqs(dh: int, theta: float) -> np.ndarray:
 
 @functools.lru_cache(maxsize=None)
 def _freqs_on(dh: int, theta: float, device: torch.device) -> torch.Tensor:
-    """:func:`rope_freqs` on ``device``, copied there once."""
-    return torch.from_numpy(rope_freqs(dh, theta)).to(device)
+    """:func:`rope_freqs` on ``device``, copied there once.  Made outside
+    inference mode, so a train step may save it for its backward pass
+    after a serve call first cached it."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(rope_freqs(dh, theta)).to(device)
 
 
 def rope(x, positions, theta):
@@ -429,7 +432,8 @@ def moe_ffn(x, p, cfg: ModelConfig):
 class ParamTree(nn.Module):
     """A node of the parameter tree: tensors as (frozen) parameters,
     sub-dicts as child nodes, lists as ``ModuleList``s.  ``tree()`` gives
-    the nested dict the functions above take."""
+    the nested dict the functions above take.  ``model.trainable`` sets the
+    parameters to require grad for training."""
 
     #: child class by name (the rest are plain nodes)
     CHILDREN: Dict[str, type] = {}

@@ -14,10 +14,14 @@ nested dict with each stacked per-layer axis a list (``blocks[i]``,
 ``m_blocks[g][j]``).  Every entry point takes either.  Parameters stay in
 ``cfg.param_dtype``; each layer computes in ``cfg.dtype`` (``repro``'s
 ``_cast_tree``).  Caches are dicts of tensors with ``repro``'s keys, one
-dict a layer.  ``remat`` and ``scan_layers`` are JAX compile knobs: they
-stay in the config and change nothing here.  The entry points run on the
-card unless the caller passes ``device="cpu"``; they serve under
-``torch.inference_mode()``.
+dict a layer.  ``remat`` recomputes each block in the backward pass of a
+train-mode :func:`forward` under autograd (``torch.utils.checkpoint``, as
+``repro`` applies ``jax.checkpoint`` a layer); it changes memory only.
+``scan_layers`` is a JAX compile knob that changes nothing here: the
+layers run one after another either way.  The entry points run on the
+card unless the caller passes ``device="cpu"``; ``prefill`` and
+``decode_step`` serve under ``torch.inference_mode()``, ``forward`` runs
+under autograd when the caller enables it (:func:`trainable`).
 """
 
 from __future__ import annotations
@@ -26,12 +30,14 @@ from typing import Any, Dict, List, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.distributed import context as dctx
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
+from repro_torch.tree import leaves
 
 Params = Dict[str, Any]
 
@@ -196,6 +202,16 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 
 def _tree(params) -> Params:
     return params.tree() if isinstance(params, L.ParamTree) else params
+
+
+def trainable(params):
+    """Set every floating tensor of ``params`` (an :class:`LM` or its tree)
+    to require grad, in place; returns ``params``.  :func:`init_params`
+    and ``interop.lm_params`` return frozen trees for serving."""
+    for t in leaves(_tree(params)):
+        if t.is_floating_point() and not t.requires_grad:
+            t.requires_grad_(True)
+    return params
 
 
 def _cast_tree(p, dtype):
@@ -363,14 +379,20 @@ def _head(params, x, cfg: ModelConfig):
     return dctx.constrain(logits, "logits")
 
 
-@torch.inference_mode()
+def _remat(cfg: ModelConfig, mode: str) -> bool:
+    """Whether a block recomputes in the backward pass: ``cfg.remat`` on a
+    train-mode forward that autograd records."""
+    return cfg.remat and mode == "train" and torch.is_grad_enabled()
+
+
 def forward(params, tokens, cfg: ModelConfig,
             extra: Optional[Dict] = None, mode: str = "train", device=None):
     """tokens (B, S) -> logits (B, S_out, V).  extra carries the modality
     stubs: {"frames": (B,F,D)} for audio, {"patches": (B,P,D)} for vlm.
 
     Returns (logits, caches) — caches is None in train mode, else one
-    dict a layer (the xLSTM states for ssm).
+    dict a layer (the xLSTM states for ssm).  Differentiable: gradients
+    reach every parameter that requires grad (:func:`trainable`).
     """
     params, tokens, dev = _place(params, tokens, device)
     extra = {k: torch.as_tensor(v, device=dev)
@@ -385,11 +407,16 @@ def forward(params, tokens, cfg: ModelConfig,
         prefix = patches.shape[1]
     enc_out = None
     if cfg.family == "audio":
-        enc_out = _encoder(params, extra["frames"], cfg)
+        enc_out = _encoder(params, extra["frames"], cfg, _remat(cfg, mode))
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=dev)
 
     if cfg.family == "ssm":
         x, caches = _ssm_forward(params, x, cfg, caches=None, mode=mode)
+    elif _remat(cfg, mode):
+        caches = None
+        for bp in params["blocks"]:
+            x = checkpoint(_train_block, x, bp, cfg, positions, enc_out,
+                           use_reentrant=False)
     else:
         caches = [] if mode == "prefill" else None
         for bp in params["blocks"]:
@@ -404,11 +431,20 @@ def forward(params, tokens, cfg: ModelConfig,
     return logits, caches
 
 
-def _encoder(params, frames, cfg: ModelConfig):
+def _train_block(x, bp, cfg, positions, enc_out):
+    return _block_apply(x, bp, cfg, mode="train", positions=positions,
+                        enc_out=enc_out)[0]
+
+
+def _encoder(params, frames, cfg: ModelConfig, remat: bool = False):
     x = frames.to(_cdt(cfg))
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     for bp in params["enc_blocks"]:
-        x = _enc_block(x, bp, cfg, positions)
+        if remat:
+            x = checkpoint(_enc_block, x, bp, cfg, positions,
+                           use_reentrant=False)
+        else:
+            x = _enc_block(x, bp, cfg, positions)
     return L.rms_norm(x, params["enc_norm"].to(x.dtype), cfg.norm_eps)
 
 

@@ -838,7 +838,8 @@ def test_port_config_and_jax_config_load():
     cfg = load_config(REPO_ROOT)
     assert cfg == AnalysisConfig()
     assert cfg.quarantine == ("repro", "jax", "jaxlib", "repro_torch.models",
-                              "repro_torch.configs.legacy")
+                              "repro_torch.configs.legacy",
+                              "repro_torch.train", "repro_torch.launch.train")
     assert cfg.csrc_root == "src/repro_torch/csrc"
     assert cfg.kernel_tests == ("tests/test_torch_cuda.py", "chip_smoke.py")
     jax_cfg = load_config(REPO_ROOT, "analysis.cfg")
@@ -892,6 +893,46 @@ def test_quarantine_keeps_the_lm_stack_out_of_the_live_tree(tmp_path):
     assert [(f.path, f.symbol) for f in out] == [
         ("repro_torch/sim/mod.py", "repro_torch.models.model"),
         ("repro_torch/sim/mod.py", "repro_torch.configs.legacy.qwen3_0_6b")]
+
+
+TRAIN_QUARANTINE = dataclasses.replace(
+    CFG, quarantine=LM_QUARANTINE.quarantine + ("repro_torch.train",
+                                                "repro_torch.launch.train"))
+
+
+def test_quarantine_keeps_lm_training_out_of_the_live_tree(tmp_path):
+    """A live module importing ``repro_torch.train`` (or the training
+    launcher) is a finding; ``launch/train.py``, quarantined by its own
+    name, imports the training and the models freely, as
+    ``train/step.py`` does."""
+    out = lint(tmp_path, """\
+        from repro_torch.train import optimizer as opt
+        from repro_torch.launch.train import main
+        from repro_torch.launch.mesh import make_sweep_mesh
+        """, rel="repro_torch/sim/mod.py", cfg=TRAIN_QUARANTINE,
+        extra={"repro_torch/launch/train.py": """\
+            from repro_torch.models import model as M
+            from repro_torch.train import data as D
+            from repro_torch.train.step import make_train_step
+            """,
+               "repro_torch/train/step.py": """\
+            from repro_torch.models import model as M
+            from repro_torch.train import optimizer as opt
+            """,
+               "repro_torch/models/model.py": "import torch\n",
+               "repro_torch/launch/mesh.py": "import os\n"})
+    assert rules_of(out) == ["quarantine-import"]
+    assert [(f.path, f.symbol) for f in out] == [
+        ("repro_torch/sim/mod.py", "repro_torch.train.optimizer"),
+        ("repro_torch/sim/mod.py", "repro_torch.launch.train.main")]
+
+
+def test_quarantine_by_name_needs_a_dotted_name(tmp_path):
+    """A module named as a bare quarantined name (``jax.py``) is not
+    quarantined by its name, so it may not import JAX."""
+    out = lint(tmp_path, "import jax.numpy as jnp\n",
+               rel="repro_torch/sim/jax.py", cfg=TRAIN_QUARANTINE)
+    assert [f.symbol for f in out] == ["jax.numpy"]
 
 
 def test_quarantine_inside_the_lm_stack_still_refuses_jax(tmp_path):
