@@ -257,7 +257,33 @@ Phases, one JSON line each:
               saves at step 2 of 4 and a fresh trainer resumes, equal to
               the uninterrupted run within 1e-6; ``train_total``.  The
               pins are ``tools/lm_train_pins.json``, made by
-              ``tools/lm_train_pins.py``.  Then the script's wall time.
+              ``tools/lm_train_pins.py``.
+17. lm_mesh  — the LM cost tooling and the LM on a mesh: ``lm_cost``,
+              ``pattern_fractions()`` on the card (the four access
+              patterns' line traces through ``simulate_trace_device``,
+              4 ``dram_timing`` launches, counts zeroed just before),
+              equal to the host route and ``repro``'s pins exactly, every
+              family's effective fraction and the roofline row of each
+              architecture at each supported shape on "16x16" (256 chips,
+              5e9 collective bytes a chip) equal to the pins; the four
+              traces at 2^18 lines against ``simulate_trace`` (every
+              ``TraceResult`` field), the host's ms, the device call's and
+              the ``dram_timing`` launch alone (CUDA events);
+              ``lm_sharded``, on a one-rank NCCL group's ``(1, 1)``
+              ``make_host_mesh``: qwen3-0.6b as published (28 layers,
+              bf16) with ``DTensor`` parameters placed by
+              ``tree_shardings`` under ``make_ctx``, its loss and
+              gradients on 2 x 256 tokens against the unsharded port
+              (each step's ms); the same cut to 4 layers in float32 on
+              phase 16's pinned batch against its pinned loss and grad
+              norm; a prefill and 8 greedy decode steps under
+              ``serve_param_spec`` / ``cache_shardings``, tokens equal to
+              the unsharded run's; llama4-scout's smoke MoE in float32
+              through the ``a2a`` and ``psum`` paths against
+              ``_moe_reference``.  One card: no number here comes from
+              more than one.  The pins are ``tools/lm_cost_pins.json``,
+              made by ``tools/lm_cost_pins.py``.  Then the script's wall
+              time.
 
 Then the kernel table, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -4919,6 +4945,453 @@ def run_lm_train_phase(card, dev) -> dict:
     return {"seconds": seconds, "full": full, "resume": resume}
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the LM cost tooling (core.hbm_adapter, launch.specs,
+# costmodel, roofline) and the LM on a mesh (distributed.sharding's LM
+# half, distributed.context, the expert-parallel MoE paths, launch.mesh)
+# ---------------------------------------------------------------------------
+
+#: the roofline's mesh and collective bytes a chip (a fixed count: the
+#: port has no compiled program to count them in)
+LM_COST_MESH = ("16x16", 256)
+LM_COST_COLLECTIVE_BYTES = 5e9
+LM_COST_FAMILIES = ("dense", "moe", "hybrid", "vlm", "audio", "ssm")
+#: the length of the four patterns' traces held to the host route
+LM_COST_LINES = 1 << 18
+LM_COST_PINS = ROOT / "tools" / "lm_cost_pins.json"
+#: the sharded step on the published qwen3-0.6b (bf16) and its serve
+LM_SHARDED_DATA = {"seq_len": 256, "global_batch": 2, "seed": 0}
+LM_SHARDED_PROMPT = 64
+LM_SHARDED_NEW = 8
+#: sharded against unsharded on the card: the loss (relative), each
+#: gradient leaf (its error's norm over its norm) at bf16; float32 for
+#: the pinned part and the EP paths
+LM_SHARDED_LOSS_TOL = 1e-3
+LM_SHARDED_GRAD_TOL = 2e-2
+LM_SHARDED_F32 = {"rtol": 1e-5, "atol": 1e-6}
+LM_SHARDED_EP_ARCH = "llama4_scout_17b_a16e"
+
+
+def lm_cost_runs(api) -> dict:
+    """The cost tooling through one package (``api``: its
+    ``pattern_fractions``, ``effective_bandwidth_fraction``,
+    ``analyze_cell``, ``render_table``, ``shape_supported``, ``SHAPES``,
+    ``ARCHS`` and ``get_config``; ``tools/lm_cost_pins.py`` passes
+    ``repro``'s): the four patterns' fractions, each family's and
+    decode's, and the roofline row of every architecture at every shape
+    it supports."""
+    fractions = api.pattern_fractions()
+    families = {f: api.effective_bandwidth_fraction(f)
+                for f in LM_COST_FAMILIES}
+    families["decode"] = api.effective_bandwidth_fraction("dense",
+                                                          decode=True)
+    rows = []
+    for arch in api.ARCHS:
+        cfg = api.get_config(arch)
+        for shape in api.SHAPES:
+            if api.shape_supported(cfg, shape)[0]:
+                rows.append(api.analyze_cell(cfg, shape, *LM_COST_MESH,
+                                             LM_COST_COLLECTIVE_BYTES))
+    return {"fractions": dict(fractions), "families": families,
+            "rows": [r.to_json() for r in rows],
+            "table": api.render_table(rows)}
+
+
+def lm_cost_port_api(dev):
+    import types
+
+    from repro_torch.configs import ARCHS, get_config
+    from repro_torch.core import hbm_adapter as H
+    from repro_torch.launch import roofline as R
+    from repro_torch.launch import specs
+    return types.SimpleNamespace(
+        pattern_fractions=lambda: H.pattern_fractions(device=dev),
+        effective_bandwidth_fraction=lambda f, decode=False:
+            H.effective_bandwidth_fraction(f, decode=decode, device=dev),
+        analyze_cell=lambda *a: R.analyze_cell(*a, device=dev),
+        render_table=R.render_table, shape_supported=specs.shape_supported,
+        SHAPES=specs.SHAPES, ARCHS=ARCHS, get_config=get_config)
+
+
+def lm_cost_load_pins() -> dict:
+    return json.loads(LM_COST_PINS.read_text())
+
+
+def lm_cost_traces(dev, n_lines: int = LM_COST_LINES) -> dict:
+    """The four patterns' traces at ``n_lines`` served on ``dev`` against
+    the host's element oracle: every ``TraceResult`` field equal, the
+    host's ms, the device call's ms (pack and copies included), and on
+    the card the ``dram_timing`` launch alone (CUDA events) beside its
+    bound.  Returns them by pattern."""
+    from repro_torch.core import hbm_adapter as H
+    from repro_torch.core import vectorized as V
+    from repro_torch.core.trace import Trace, bulk_issue
+    cfg = H.tpu_hbm_config()
+    cpu = torch.device("cpu")
+    out = {}
+    for name, lines in H.pattern_traces(n_lines).items():
+        t0 = time.perf_counter()
+        want = H.serve_trace(lines, cfg, cpu)
+        host_ms_ = (time.perf_counter() - t0) * 1e3
+        if dev.type == "cuda":
+            got, device_ms = timed_call(lambda: H.serve_trace(lines, cfg,
+                                                              dev))
+        else:
+            t0 = time.perf_counter()
+            got = H.serve_trace(lines, cfg, dev)
+            device_ms = (time.perf_counter() - t0) * 1e3
+        a, b = dataclasses.asdict(got), dataclasses.asdict(want)
+        diff = sorted(k for k in b if a[k] != b[k])
+        assert not diff, (name, {k: (a[k], b[k]) for k in diff})
+        out[name] = {"requests": len(lines), "cycles": got.cycles,
+                     "row_hits": got.row_hits,
+                     "bandwidth_fraction": got.bandwidth_fraction,
+                     "equal": "every TraceResult field",
+                     "host_ms": host_ms_, "device_call_ms": device_ms}
+        packed = V.pack_channels(Trace(lines, np.zeros(len(lines), bool),
+                                       bulk_issue(len(lines), 0)), cfg)
+        C, L = packed.issue.shape
+        out[name]["shape"] = [C, L]
+        out[name]["bound_ms"] = timing_bytes(
+            C, L, cfg.banks_per_channel, cfg.org.ranks) / HBM_BYTES_PER_S * 1e3
+    return out
+
+
+def lm_cost_kernel_ms(dev, n_lines: int = LM_COST_LINES) -> dict:
+    """The ``dram_timing`` launch alone on each pattern's packed trace
+    (CUDA events, 5 runs after a warm-up), by pattern; launches made to
+    time, not counted on a path."""
+    from repro_torch.core import hbm_adapter as H
+    from repro_torch.core import vectorized as V
+    from repro_torch.core.trace import Trace, bulk_issue
+    cfg = H.tpu_hbm_config()
+    out = {}
+    for name, lines in H.pattern_traces(n_lines).items():
+        packed = V.pack_channels(Trace(lines, np.zeros(len(lines), bool),
+                                       bulk_issue(len(lines), 0)), cfg)
+        args = [torch.as_tensor(x, device=dev) for x in
+                (packed.issue, packed.bank, packed.row, packed.valid)]
+        timing = V.timing_params(cfg.timing)
+        carry = V.init_channel_carry(cfg.channels, cfg.banks_per_channel,
+                                     cfg.org.banks, dev)
+        out[name] = cuda_ms(lambda: V.simulate_packed(*args, timing, carry),
+                            reps=5)
+    return out
+
+
+def lm_cost_check(runs: dict, pins: dict) -> dict:
+    """Hold :func:`lm_cost_runs` to the pins exactly."""
+    assert runs["fractions"] == pins["fractions"], (runs["fractions"],
+                                                    pins["fractions"])
+    assert runs["families"] == pins["families"], (runs["families"],
+                                                  pins["families"])
+    assert len(runs["rows"]) == len(pins["rows"])
+    for got, want in zip(runs["rows"], pins["rows"]):
+        assert got == want, (got, want)
+    assert runs["table"] == pins["table"]
+    return {"rows": len(runs["rows"]), "equal": "exact"}
+
+
+def lm_full_norm_err(got, want) -> float:
+    """The largest leaf's ``|got - want| / |want|`` (norms, float64)."""
+    worst = 0.0
+    for a, b in zip(got, want):
+        a = lm_dense(a).double()
+        b = b.double()
+        worst = max(worst, float((a - b).norm() / b.norm().clamp(min=1e-30)))
+    return worst
+
+
+def lm_dense(x):
+    """A ``DTensor``'s whole value (a plain tensor as it is)."""
+    return x.full_tensor() if hasattr(x, "full_tensor") else x
+
+
+def lm_timed(fn, dev):
+    """``fn()`` with the card synchronised around it: (result, ms)."""
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+    return out, (time.perf_counter() - t0) * 1e3
+
+
+def lm_sharded_step(cfg, tree, batch, mesh, dev) -> dict:
+    """``loss_and_grads`` unsharded and on ``mesh`` (parameters placed by
+    ``tree_shardings``, the batch by ``batch_shardings``, the forward
+    under ``make_ctx``), each twice (the second timed): both losses, the
+    largest leaf error, the ms of each, the collectives counted."""
+    from torch.distributed.tensor import DTensor
+    from torch.distributed.tensor.debug import CommDebugMode
+    from repro_torch.distributed import context as dctx
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.train import step as S
+    from repro_torch.tree import leaves, map_tree
+
+    def copy(t):
+        return map_tree(lambda x: x.detach().clone(), t)
+
+    batch = {k: torch.as_tensor(np.asarray(v), device=dev)
+             for k, v in batch.items()}
+    plain = copy(tree)
+    S.loss_and_grads(plain, batch, cfg, device=dev)
+    (loss, grads), plain_ms = lm_timed(
+        lambda: S.loss_and_grads(plain, batch, cfg, device=dev), dev)
+    del plain
+    shard = SH.tree_shardings(tree, mesh, False)
+    params = SH.distribute_tree(copy(tree), shard)
+    dbatch = SH.distribute_tree(batch, SH.batch_shardings(batch, mesh,
+                                                          False))
+    ctx = SH.make_ctx(cfg, mesh, False)
+
+    def sharded():
+        with dctx.use(ctx):
+            return S.loss_and_grads(params, dbatch, cfg, device=dev)
+
+    sharded()
+    with CommDebugMode() as comm:
+        (dloss, dgrads), sharded_ms = lm_timed(sharded, dev)
+    placed = all(isinstance(p, DTensor) and tuple(p.placements)
+                 == s.placements(p.ndim)
+                 for p, s in zip(leaves(params), leaves(shard)))
+    assert placed, "a parameter is not placed by tree_shardings"
+    g, dg = leaves(grads), leaves(dgrads)
+    finite = all(bool(torch.isfinite(lm_dense(x)).all()) for x in dg)
+    assert finite, "a sharded gradient is not finite"
+    return {"loss": float(loss), "sharded_loss": float(lm_dense(dloss)),
+            "loss_rel": abs(float(lm_dense(dloss)) - float(loss))
+            / abs(float(loss)),
+            "grad_leaf_rel": lm_full_norm_err(dg, g),
+            "grad_max_abs": max(float((lm_dense(a).float() - b.float())
+                                      .abs().max()) for a, b in zip(dg, g)),
+            "ms": plain_ms, "sharded_ms": sharded_ms,
+            "collectives": int(comm.get_total_counts()),
+            "leaves": len(g), "grads": g, "sharded_grads": dg}
+
+
+def lm_sharded_serve(cfg, tree, prompts, new: int, mesh, dev) -> dict:
+    """A prefill and ``new`` greedy decode steps unsharded and with the
+    weights under ``serve_param_spec``, the cache resharded by
+    ``cache_shardings`` before each step: both token streams, the largest
+    logit difference, each run's ms."""
+    from repro_torch.distributed import context as dctx
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import model as M
+
+    def run(params, place=None):
+        toks = torch.as_tensor(prompts, device=dev)
+        if place:
+            toks = place({"tokens": toks}, SH.batch_shardings(
+                {"tokens": toks}, mesh, False))["tokens"]
+        logits, cache = M.prefill(params, toks, cfg,
+                                  max_len=prompts.shape[1] + new, device=dev)
+        out, seen = [], [lm_dense(logits).float()]
+        for _ in range(new):
+            if place:
+                cache = place(cache, SH.cache_shardings(cache, mesh, False,
+                                                        cfg))
+            nxt = lm_dense(logits).argmax(-1).to(torch.int32)
+            out.append(nxt)
+            if place:
+                nxt = place({"t": nxt}, SH.batch_shardings(
+                    {"t": nxt}, mesh, False))["t"]
+            logits, cache = M.decode_step(params, cache, nxt, cfg,
+                                          device=dev)
+            seen.append(lm_dense(logits).float())
+        return torch.cat(out, dim=1).cpu().numpy(), seen
+
+    (want, want_logits), plain_ms = lm_timed(lambda: run(tree), dev)
+    dparams = SH.distribute_tree(tree, SH.tree_shardings(tree, mesh, False,
+                                                         serve=True))
+    with dctx.use(SH.make_ctx(cfg, mesh, False)):
+        (got, got_logits), sharded_ms = lm_timed(
+            lambda: run(dparams, SH.distribute_tree), dev)
+    return {"tokens_equal": bool(np.array_equal(got, want)),
+            "tokens": got.tolist(),
+            "logits_max_abs": max(float((a - b).abs().max()) for a, b in
+                                  zip(got_logits, want_logits)),
+            "ms": plain_ms, "sharded_ms": sharded_ms}
+
+
+def lm_sharded_ep(get_config, mesh, dev) -> dict:
+    """``moe_ffn`` of LM_SHARDED_EP_ARCH's smoke config (float32) under the
+    mesh through the ``a2a`` path, and ``_moe_ep_psum`` called directly
+    (a one-rank mesh always takes ``a2a``), against ``_moe_reference`` on
+    the same weights and tokens: the largest differences."""
+    from repro_torch.distributed import context as dctx
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.models import layers as L
+    from repro_torch.models import model as M
+    cfg = dataclasses.replace(get_config(LM_SHARDED_EP_ARCH, smoke=True),
+                              dtype="float32")
+    p = M.init_params(cfg, torch.Generator(device=dev).manual_seed(LM_SEED),
+                      device=dev).tree()["blocks"][0]["moe"]
+    x = torch.randn((2, 8, cfg.d_model), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(1))
+    x2 = x.reshape(-1, cfg.d_model)
+    # moe_ffn without a context: the reference dispatch (+ the dense
+    # branch where the config has one)
+    want = {"a2a": L.moe_ffn(x, p, cfg).reshape(x2.shape),
+            "psum": L._moe_reference(x2, p, cfg)}
+    shard = SH.tree_shardings({"blocks": [{"moe": p}]}, mesh, False)
+    dp = SH.distribute_tree(p, shard["blocks"][0]["moe"])
+    ctx = SH.make_ctx(cfg, mesh, False)
+    out = {}
+    with dctx.use(ctx):
+        dx = dctx.constrain(x, "act_btd")
+        mode = L.moe_mode(x2.shape[0], cfg, ctx)
+        assert mode == "a2a", mode
+        got = {"a2a": lm_dense(L.moe_ffn(dx, dp, cfg)).reshape(x2.shape),
+               "psum": lm_dense(L._moe_ep_psum(
+                   dctx.constrain(x2, "tokens"), dp, cfg, ctx))}
+    for name, y in got.items():
+        torch.testing.assert_close(y, want[name], **LM_SHARDED_F32)
+        out[name] = float((y - want[name]).abs().max())
+    return {"arch": cfg.name, "tokens": x2.shape[0], "max_abs": out}
+
+
+def lm_sharded_parts(dev, full_cfg, pinned_cfg, pinned_batch, get_config,
+                     emit_part) -> dict:
+    """Phase 17's ``lm_sharded`` parts on a one-rank group of ``dev``'s
+    backend (NCCL on the card, gloo on the CPU; a ``FileStore``, no
+    network) and its ``(1, 1)`` host mesh, torn down in a ``finally``:
+    ``step`` (``full_cfg`` at bf16), ``pinned`` (``pinned_cfg`` in float32
+    on ``pinned_batch``, the pins' batch), ``serve`` (``full_cfg``) and
+    ``ep``.  ``emit_part(part, **fields)`` reports each; returns them."""
+    import torch.distributed as dist
+    from repro_torch import interop
+    from repro_torch.launch.mesh import DEVICE_BACKEND, make_host_mesh
+    from repro_torch.models import model as M
+    from repro_torch.train import data as D
+    from repro_torch.train import optimizer as O
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        dist.init_process_group(
+            DEVICE_BACKEND[dev.type], rank=0, world_size=1,
+            store=dist.FileStore(os.path.join(tmp, "store"), 1))
+        try:
+            mesh = make_host_mesh(2, device=dev)
+            shape = dict(zip(mesh.mesh_dim_names, mesh.mesh.shape))
+            gen = torch.Generator(device=dev).manual_seed(LM_SEED)
+            tree = M.init_params(full_cfg, gen, device=dev).tree()
+            batch = D.make_batch(full_cfg, D.DataConfig(**LM_SHARDED_DATA),
+                                 0)
+            r = lm_sharded_step(full_cfg, tree, batch, mesh, dev)
+            assert r["loss_rel"] <= LM_SHARDED_LOSS_TOL, r["loss_rel"]
+            assert r["grad_leaf_rel"] <= LM_SHARDED_GRAD_TOL, r
+            out["step"] = {k: v for k, v in r.items()
+                           if k not in ("grads", "sharded_grads")}
+            emit_part("step", model=full_cfg.name,
+                      layers=full_cfg.n_layers, dtype=full_cfg.dtype,
+                      data=LM_SHARDED_DATA, mesh=shape, **out["step"],
+                      tolerance={"loss": LM_SHARDED_LOSS_TOL,
+                                 "grad_leaf": LM_SHARDED_GRAD_TOL})
+            del r
+            ptree = interop.lm_params(lm_numpy_params(
+                pinned_cfg, np.random.default_rng(LM_SEED)), pinned_cfg, dev)
+            r = lm_sharded_step(pinned_cfg, ptree, pinned_batch["batch"],
+                                mesh, dev)
+            norm = float(O.global_norm(r["sharded_grads"]))
+            np.testing.assert_allclose(r["sharded_loss"],
+                                       pinned_batch["loss"],
+                                       rtol=LM_TRAIN_LOSS_TOL[0])
+            np.testing.assert_allclose(norm, pinned_batch["grad_norm"],
+                                       rtol=LM_TRAIN_NORM_TOL)
+            for a, b in zip(r["sharded_grads"], r["grads"]):
+                torch.testing.assert_close(lm_dense(a), b, **LM_SHARDED_F32)
+            out["pinned"] = {
+                "loss": r["sharded_loss"], "pin_loss": pinned_batch["loss"],
+                "loss_rel_to_pin": abs(r["sharded_loss"]
+                                       - pinned_batch["loss"])
+                / pinned_batch["loss"],
+                "grad_norm": norm, "pin_grad_norm": pinned_batch["grad_norm"],
+                "grad_max_abs_to_unsharded": r["grad_max_abs"],
+                "ms": r["ms"], "sharded_ms": r["sharded_ms"]}
+            emit_part("pinned", model=pinned_cfg.name,
+                      layers=pinned_cfg.n_layers, dtype=pinned_cfg.dtype,
+                      **out["pinned"],
+                      tolerance={"loss": LM_TRAIN_LOSS_TOL[0],
+                                 "grad_norm": LM_TRAIN_NORM_TOL,
+                                 "grads": LM_SHARDED_F32})
+            del r, ptree
+            prompts = np.random.default_rng(LM_SEED).integers(
+                0, full_cfg.vocab, (2, LM_SHARDED_PROMPT), dtype=np.int32)
+            out["serve"] = lm_sharded_serve(full_cfg, tree, prompts,
+                                            LM_SHARDED_NEW, mesh, dev)
+            assert out["serve"]["tokens_equal"], out["serve"]
+            emit_part("serve", model=full_cfg.name, prompts=[2,
+                      LM_SHARDED_PROMPT], new_tokens=LM_SHARDED_NEW,
+                      **out["serve"])
+            del tree
+            out["ep"] = lm_sharded_ep(get_config, mesh, dev)
+            emit_part("ep", **out["ep"], tolerance=LM_SHARDED_F32)
+        finally:
+            dist.destroy_process_group()
+    return out
+
+
+def run_lm_mesh_phase(card, dev) -> dict:
+    """Phase 17: ``lm_cost`` (``pattern_fractions`` on the card, 4
+    ``dram_timing`` launches, held to the host route and ``repro``'s pins
+    exactly; the traces at LM_COST_LINES against ``simulate_trace``;
+    every family's fraction and the roofline rows against the pins) and
+    ``lm_sharded`` (:func:`lm_sharded_parts` on a one-rank NCCL group;
+    one card, so no number here comes from more than one).  Returns the
+    launches by part and the seconds."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import hbm_adapter as H
+    from repro_torch.kernels import launch_counts, zero_launch_counts
+    t_phase = time.perf_counter()
+    pins = lm_cost_load_pins()
+    launches = {}
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    fr = H.pattern_fractions(device=dev)
+    launches["lm_cost"] = launch_counts()
+    fractions_s = time.perf_counter() - t0
+    assert launches["lm_cost"]["dram_timing"] == 4, launches["lm_cost"]
+    host = H.pattern_fractions(device="cpu")
+    assert fr == host == pins["fractions"], (fr, host, pins["fractions"])
+    runs = lm_cost_runs(lm_cost_port_api(dev))
+    got = lm_cost_check(runs, pins)
+    emit(phase="lm_cost", part="fractions", fractions=fr,
+         families=runs["families"], equal="pins and host route, exact",
+         dram_timing_launches=launches["lm_cost"]["dram_timing"],
+         seconds=fractions_s, card=card)
+    emit(phase="lm_cost", part="roofline", mesh=LM_COST_MESH[0],
+         chips=LM_COST_MESH[1],
+         collective_bytes_per_chip=LM_COST_COLLECTIVE_BYTES, **got,
+         dominant={r["arch"] + "/" + r["shape"]: r["dominant"]
+                   for r in runs["rows"]}, card=card)
+    zero_launch_counts()
+    traces = lm_cost_traces(dev)
+    launches["lm_cost_traces"] = launch_counts()
+    assert launches["lm_cost_traces"]["dram_timing"] == 4, launches
+    for name, ms in lm_cost_kernel_ms(dev).items():
+        traces[name]["kernel_ms"] = ms
+    emit(phase="lm_cost", part="traces", lines=LM_COST_LINES,
+         patterns=traces, card=card)
+    pins16 = lm_train_load_pins()["pinned"]
+    pinned = {"batch": {k: np.asarray(pins16["batches"][0][k], np.int32)
+                        for k in ("tokens", "labels")},
+              "loss": pins16["loss"], "grad_norm": pins16["grad_norm"]}
+    zero_launch_counts()
+    sharded = lm_sharded_parts(
+        dev, get_config(LM_ARCH), lm_pinned_config(get_config), pinned,
+        get_config, lambda part, **kw: emit(phase="lm_sharded", part=part,
+                                            cards=1, card=card, **kw))
+    launches["lm_sharded"] = launch_counts()
+    assert not any(launches["lm_sharded"].values()), launches["lm_sharded"]
+    seconds = time.perf_counter() - t_phase
+    emit(phase="lm_mesh", part="total", seconds=seconds, launches=launches,
+         card=card)
+    return {"launches": launches, "seconds": seconds, "traces": traces,
+            "sharded": sharded}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5230,6 +5703,10 @@ def main() -> int:
 
     # ---- 16. LM training -------------------------------------------------
     lm_train = run_lm_train_phase(card, dev)
+
+    # ---- 17. the LM cost tooling and the LM on a mesh --------------------
+    lm_mesh = run_lm_mesh_phase(card, dev)
+    launches.update(lm_mesh["launches"])
     emit(phase="wall", seconds=time.perf_counter() - t_start,
          event_phase_seconds=event_s, sweep_phase_seconds=swept["seconds"],
          corpus_phase_seconds=corp["seconds"],
@@ -5237,7 +5714,8 @@ def main() -> int:
          lock_witness_phase_seconds=witnessed["seconds"],
          distributed_phase_seconds=distributed["seconds"],
          lm_phase_seconds=lm["seconds"],
-         lm_train_phase_seconds=lm_train["seconds"], card=card)
+         lm_train_phase_seconds=lm_train["seconds"],
+         lm_mesh_phase_seconds=lm_mesh["seconds"], card=card)
 
     ds = kernels["dram_serve"]
     hw = ds["windows"]["hitgraph"]
@@ -5268,7 +5746,10 @@ def main() -> int:
          "bound_by": "bytes", "library_ms": None,
          "inputs": "hitgraph ep1_apply window",
          "full_phases": {acc: d["full_phase"] for acc, d in dt.items()},
-         "windows": {acc: d["window"] for acc, d in dt.items()}},
+         "windows": {acc: d["window"] for acc, d in dt.items()},
+         "lm_cost_traces": {name: {k: t[k] for k in (
+             "shape", "kernel_ms", "device_call_ms", "host_ms", "bound_ms")}
+             for name, t in lm_mesh["traces"].items()}},
         {"name": "dram_timing_serial", "route": "cuda",
          "source": "src/repro_torch/csrc/dram_timing_serial.cu",
          "replaces": "src/repro/kernels/dram_timing/kernel.py:117",

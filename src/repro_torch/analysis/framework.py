@@ -140,7 +140,10 @@ class AnalysisConfig:
                                  "repro_torch.models",
                                  "repro_torch.configs.legacy",
                                  "repro_torch.train",
-                                 "repro_torch.launch.train")
+                                 "repro_torch.launch.train",
+                                 "repro_torch.launch.specs",
+                                 "repro_torch.launch.costmodel",
+                                 "repro_torch.launch.roofline")
     kernels_root: str = "src/repro_torch/kernels"
     kernel_tests: Sequence[str] = ("tests/test_torch_cuda.py",
                                    "chip_smoke.py")

@@ -1,18 +1,32 @@
-"""The sweep's case mesh.
+"""Mesh construction: the LM meshes and the sweep's case mesh.
 
-A mesh here is a plain list of ``torch.device`` values, one per shard of a
-case batch: the shards share nothing while they serve (each is an
+The LM meshes are ``DeviceMesh``es over the default process group, with
+``repro``'s axis names: the production mesh, single-pod ``(data=16,
+model=16)`` = 256 ranks, multi-pod ``(pod=2, data=16, model=16)`` = 512
+(the ``pod`` axis composes with ``data`` for hierarchical gradient
+reduction), and the host mesh ``(n // model, model)`` over whatever ranks
+exist.  One rank a device: NCCL on the card, gloo on the CPU.
+
+The case mesh is a plain list of ``torch.device`` values, one per shard of
+a case batch: the shards share nothing while they serve (each is an
 independent batched serve), so no process group or collective is needed.
-A function, not a module-level constant, so that importing this module
-never touches device state.
+
+Functions, not module-level constants, so that importing this module
+never touches device or process-group state.
 """
 
 from __future__ import annotations
 
 import os
-from typing import List
+from typing import List, Tuple
 
 import torch
+import torch.distributed as dist
+
+from repro_torch.device import resolve_device
+
+#: the process-group backend of each device type
+DEVICE_BACKEND = {"cuda": "nccl", "cpu": "gloo"}
 
 #: the host's device count on the CPU, where a test mocks a larger host
 #: (the counterpart of JAX's ``--xla_force_host_platform_device_count``);
@@ -57,3 +71,56 @@ def make_sweep_mesh(devices: int, device) -> List[torch.device]:
     if dev.type == "cuda":
         return [torch.device("cuda", i) for i in range(devices)]
     return [dev] * devices
+
+
+def _world(device) -> Tuple[str, int]:
+    """The device type and the default group's size, checked against each
+    other; with no group, a one-rank group of ``device``'s backend is
+    initialized (over an in-process store: one rank needs no
+    rendezvous).  The caller owns it (``dist.destroy_process_group``)."""
+    dev = resolve_device(device)
+    want = DEVICE_BACKEND[dev.type]
+    if not dist.is_initialized():
+        dist.init_process_group(want, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    backend = str(dist.get_backend())
+    if backend != want:
+        raise ValueError(f"a {dev.type} mesh runs over {want}, the default "
+                         f"group is {backend}")
+    return dev.type, dist.get_world_size()
+
+
+def _device_mesh(device_type: str, shape, names):
+    from torch.distributed.device_mesh import init_device_mesh
+    return init_device_mesh(device_type, tuple(shape),
+                            mesh_dim_names=tuple(names))
+
+
+def make_production_mesh(*, multi_pod: bool = False, device=None):
+    """The production mesh over the default group: ``(data=16,
+    model=16)``, or ``(pod=2, data=16, model=16)`` with ``multi_pod``.
+    Raises ``ValueError`` naming the world size when the group has not
+    exactly 256 (512) ranks, as ``jax.make_mesh`` refuses a device count
+    that does not match."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    need = 1
+    for n in shape:
+        need *= n
+    have = (dist.get_world_size() if dist.is_initialized() else 1)
+    if have != need:
+        raise ValueError(f"the production mesh {dict(zip(axes, shape))} "
+                         f"needs {need} ranks, the world has {have}")
+    kind, _ = _world(device)
+    return _device_mesh(kind, shape, axes)
+
+
+def make_host_mesh(model: int = 2, device=None):
+    """A small ``(data, model)`` mesh over every rank of the default group
+    (one rank a device; tests and examples): ``model`` clipped to the
+    world size, ``data`` the rest."""
+    kind, n = _world(device)
+    model = min(model, n)
+    if n % model:
+        raise ValueError(f"model={model} does not divide the world of {n}")
+    return _device_mesh(kind, (n // model, model), ("data", "model"))

@@ -154,15 +154,24 @@ def _stack_init(gen, cfg, kind, n, device) -> List[Params]:
     return [_init_block(gen, cfg, kind, device) for _ in range(max(n, 1))]
 
 
+def _device(device) -> torch.device:
+    """``resolve_device``, and the ``meta`` device as it is (shapes and
+    dtypes only: ``launch.specs``)."""
+    if device is not None and torch.device(device).type == "meta":
+        return torch.device("meta")
+    return resolve_device(device)
+
+
 def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
                 device=None) -> LM:
     """Random parameters of ``repro``'s names, shapes and dtypes, drawn
     from ``repro``'s distributions (``normal / sqrt(fan_in)``, the
     embedding ``normal * 0.02``, norms one) with ``generator`` (a
-    ``torch.Generator`` on ``device``; seeded 0 when omitted)."""
-    dev = resolve_device(device)
+    ``torch.Generator`` on ``device``; seeded 0 when omitted).  On the
+    ``meta`` device nothing is drawn or allocated."""
+    dev = _device(device)
     gen = generator
-    if gen is None:
+    if gen is None and dev.type != "meta":
         gen = torch.Generator(device=dev).manual_seed(0)
     dt = _dt(cfg)
     p: Params = {
@@ -332,7 +341,11 @@ def _s_block(x, bp, cfg: ModelConfig, st):
 # ---------------------------------------------------------------------------
 
 def _embed(params, tokens, cfg):
-    x = params["embed"][tokens.long()].to(_cdt(cfg))
+    if dctx.current() is None:
+        x = params["embed"][tokens.long()]
+    else:
+        x = L.embed_lookup(params["embed"], tokens)
+    x = x.to(_cdt(cfg))
     if cfg.family == "dense" and "gemma" in cfg.name:
         x = x * L.weak(cfg.d_model ** 0.5, x)
     return x
@@ -415,7 +428,8 @@ def forward(params, tokens, cfg: ModelConfig,
     elif _remat(cfg, mode):
         caches = None
         for bp in params["blocks"]:
-            x = checkpoint(_train_block, x, bp, cfg, positions, enc_out,
+            x = checkpoint(_under, dctx.current(), _train_block, x, bp,
+                           cfg, positions, enc_out,
                            use_reentrant=False)
     else:
         caches = [] if mode == "prefill" else None
@@ -431,6 +445,14 @@ def forward(params, tokens, cfg: ModelConfig,
     return logits, caches
 
 
+def _under(ctx, fn, *args):
+    """``fn(*args)`` under the sharding context ``ctx``: a block that
+    ``remat`` recomputes in the backward pass (which autograd may run on
+    another thread) sees the context its forward saw."""
+    with dctx.use(ctx):
+        return fn(*args)
+
+
 def _train_block(x, bp, cfg, positions, enc_out):
     return _block_apply(x, bp, cfg, mode="train", positions=positions,
                         enc_out=enc_out)[0]
@@ -441,7 +463,8 @@ def _encoder(params, frames, cfg: ModelConfig, remat: bool = False):
     positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
     for bp in params["enc_blocks"]:
         if remat:
-            x = checkpoint(_enc_block, x, bp, cfg, positions,
+            x = checkpoint(_under, dctx.current(), _enc_block, x, bp, cfg,
+                           positions,
                            use_reentrant=False)
         else:
             x = _enc_block(x, bp, cfg, positions)
@@ -454,8 +477,9 @@ def _encoder(params, frames, cfg: ModelConfig, remat: bool = False):
 
 def init_decode_cache(cfg: ModelConfig, batch: int, smax: int, device=None):
     """Pre-allocated decode state for a context of ``smax`` tokens.
-    Sliding-window archs allocate only the window (ring buffer)."""
-    dev = resolve_device(device)
+    Sliding-window archs allocate only the window (ring buffer); on the
+    ``meta`` device nothing is allocated."""
+    dev = _device(device)
     cdt = _cdt(cfg)
     win = cfg.sliding_window
     attn_len = min(smax, win) if win else smax

@@ -191,9 +191,14 @@ def mlstm(x, p, cfg: ModelConfig, state: Optional[Dict] = None):
     q = q / weak(math.sqrt(dh), q)
     k = (u @ p["wk"]).reshape(B, S, H, dh)
     v = (u @ p["wv"]).reshape(B, S, H, dh)
+    # qkv heads are few: under a mesh ``repro`` shards head_dim over the
+    # model axis instead (``act_ssm_heads``)
+    q = dctx.constrain(q, "act_ssm_heads")
+    k = dctx.constrain(k, "act_ssm_heads")
+    v = dctx.constrain(v, "act_ssm_heads")
     gates = u @ p["w_if"]                                  # (B,S,2H)
     i_gate = gates[..., :H]
-    f_gate = F.logsigmoid(gates[..., H:].float())
+    f_gate = dctx.elementwise(F.logsigmoid, gates[..., H:].float())
 
     c = min(CHUNK, S)
     assert S % c == 0
@@ -274,14 +279,15 @@ def slstm(x, p, cfg: ModelConfig, state: Optional[Dict] = None):
         m = torch.zeros_like(h)
     else:
         h, c, n, m = (state["h"], state["c"], state["n"], state["m"])
-    r_rec = p["r_rec"].float()
+    # used at every time step: replicated once here under a mesh
+    r_rec = dctx.constrain(p["r_rec"].float(), "replicated2d")
     hs = []
     for t in range(S):
         g = pre[:, t].float() + h @ r_rec
         zi, ii, fi, oi = torch.split(g, D, dim=-1)
         z = torch.tanh(zi)
         o = torch.sigmoid(oi)
-        log_f = F.logsigmoid(fi)
+        log_f = dctx.elementwise(F.logsigmoid, fi)
         m_new = torch.maximum(log_f + m, ii)
         i_e = torch.exp(ii - m_new)
         f_e = torch.exp(log_f + m - m_new)

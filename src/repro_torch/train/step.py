@@ -4,7 +4,8 @@
 ``repro`` takes the gold logit as ``sum(one_hot(labels) * logits)`` so
 that a vocab-sharded logits array never gathers; the port gathers it,
 which gives the same value exactly (the other terms are zeros) without
-the (B, S, V) float32 one-hot.  A label outside ``[0, vocab)`` gives a
+the (B, S, V) float32 one-hot.  Under a mesh (``DTensor`` logits) it takes
+``repro``'s one-hot sum.  A label outside ``[0, vocab)`` gives a
 gold logit of 0, as ``one_hot`` does; a negative one is masked out of the
 mean.
 """
@@ -14,6 +15,7 @@ from __future__ import annotations
 from typing import Dict, List, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.device import resolve_device
 from repro_torch.models import model as M
@@ -41,7 +43,14 @@ def lm_loss(params, batch: Dict, cfg: ModelConfig,
     lse = torch.logsumexp(logits, dim=-1)
     inside = (labels >= 0) & (labels < cfg.vocab)
     idx = torch.where(inside, labels, 0).long()
-    picked = torch.gather(logits, -1, idx[..., None])[..., 0]
+    if isinstance(logits, DTensor):
+        # vocab-sharded under a mesh: ``repro``'s one-hot sum, a partial
+        # sum over the model axis, so the logits are never gathered
+        vocab = torch.arange(cfg.vocab, device=idx.device)
+        picked = ((idx[..., None] == vocab).to(logits.dtype)
+                  * logits).sum(-1)
+    else:
+        picked = torch.gather(logits, -1, idx[..., None])[..., 0]
     gold = torch.where(inside, picked, 0.0)
     mask = (labels >= 0).float()
     return (torch.sum((lse - gold) * mask)

@@ -839,7 +839,10 @@ def test_port_config_and_jax_config_load():
     assert cfg == AnalysisConfig()
     assert cfg.quarantine == ("repro", "jax", "jaxlib", "repro_torch.models",
                               "repro_torch.configs.legacy",
-                              "repro_torch.train", "repro_torch.launch.train")
+                              "repro_torch.train", "repro_torch.launch.train",
+                              "repro_torch.launch.specs",
+                              "repro_torch.launch.costmodel",
+                              "repro_torch.launch.roofline")
     assert cfg.csrc_root == "src/repro_torch/csrc"
     assert cfg.kernel_tests == ("tests/test_torch_cuda.py", "chip_smoke.py")
     jax_cfg = load_config(REPO_ROOT, "analysis.cfg")
@@ -925,6 +928,41 @@ def test_quarantine_keeps_lm_training_out_of_the_live_tree(tmp_path):
     assert [(f.path, f.symbol) for f in out] == [
         ("repro_torch/sim/mod.py", "repro_torch.train.optimizer"),
         ("repro_torch/sim/mod.py", "repro_torch.launch.train.main")]
+
+
+COST_QUARANTINE = dataclasses.replace(
+    CFG, quarantine=TRAIN_QUARANTINE.quarantine + (
+        "repro_torch.launch.specs", "repro_torch.launch.costmodel",
+        "repro_torch.launch.roofline"))
+
+
+def test_quarantine_admits_the_cost_tooling_as_repro_lays_it_out(tmp_path):
+    """``launch/{specs,costmodel,roofline}`` import the models and each
+    other (quarantined by their own names, as ``repro``'s import its LM
+    stack); the live tree may import ``core/hbm_adapter`` but not them,
+    and the adapter, live, may not import the models."""
+    out = lint(tmp_path, """\
+        from repro_torch.launch.roofline import analyze_cell
+        from repro_torch.core.hbm_adapter import pattern_fractions
+        """, rel="repro_torch/sim/mod.py", cfg=COST_QUARANTINE,
+        extra={"repro_torch/launch/roofline.py": """\
+            from repro_torch.core.hbm_adapter import pattern_fractions
+            from repro_torch.launch.costmodel import cell_cost
+            from repro_torch.launch.specs import SHAPE_SPECS
+            from repro_torch.models.config import ModelConfig
+            """,
+               "repro_torch/launch/specs.py":
+               "from repro_torch.models import model as M\n",
+               "repro_torch/launch/costmodel.py":
+               "from repro_torch.launch.specs import SHAPE_SPECS\n",
+               "repro_torch/core/hbm_adapter.py":
+               "from repro_torch.models.config import ModelConfig\n",
+               "repro_torch/models/config.py": "import torch\n"})
+    assert rules_of(out) == ["quarantine-import"]
+    assert [(f.path, f.symbol) for f in out] == [
+        ("repro_torch/core/hbm_adapter.py",
+         "repro_torch.models.config.ModelConfig"),
+        ("repro_torch/sim/mod.py", "repro_torch.launch.roofline.analyze_cell")]
 
 
 def test_quarantine_by_name_needs_a_dotted_name(tmp_path):

@@ -102,6 +102,15 @@ _TRAIN_MODULES = {"repro_torch.train", "repro_torch.train.data",
                   "repro_torch.distributed.fault_tolerance",
                   "repro_torch.launch.train", "repro_torch.tree"}
 
+#: the modules of the LM cost tooling and the LM sharding (the HBM
+#: adapter, specs, cost model, roofline, the meshes, the spec rules)
+_LM_MESH_MODULES = {"repro_torch.core.hbm_adapter",
+                    "repro_torch.launch.specs",
+                    "repro_torch.launch.costmodel",
+                    "repro_torch.launch.roofline",
+                    "repro_torch.launch.mesh",
+                    "repro_torch.distributed.sharding"}
+
 #: an import statement naming jax or the JAX package (not repro_torch)
 _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
                      re.M)
@@ -120,7 +129,7 @@ def test_import_leaves_jax_and_repro_out():
     assert (_DYNAMIC_MODULES | _STATIONARY_MODULES | _CACHE_MODULES
             | _EVENT_MODULES | _SWEEP_MODULES | _CORPUS_MODULES
             | _SERVICE_MODULES | _ANALYSIS_MODULES | _LM_MODULES
-            | _TRAIN_MODULES <= set(names.split())), names
+            | _TRAIN_MODULES | _LM_MESH_MODULES <= set(names.split())), names
 
 
 def test_no_jax_or_repro_import_in_sources():

@@ -257,11 +257,30 @@ def test_entry_points_run_on_the_card_or_raise(monkeypatch):
 
 
 def test_a_mesh_context_is_refused_not_ignored():
+    """Without a context ``constrain`` is the identity; with a mesh
+    context installed the forward is not silently run unsharded: it runs
+    on ``DTensor``s (here a one-rank gloo mesh) and gives the unsharded
+    logits."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor
+    from repro_torch.distributed import sharding as SH
+    from repro_torch.launch.mesh import make_host_mesh
     cfg = get_config("qwen3_0_6b", smoke=True)
     lm = TM.init_params(cfg, device="cpu")
     x = torch.ones(2)
     assert dctx.constrain(x, "act_btd") is x
-    with dctx.use(dctx.ShardCtx(mesh=None, rules={})):
-        with pytest.raises(NotImplementedError, match="queue 1, item 11"):
-            TM.forward(lm, np.zeros((1, 4), np.int32), cfg, device="cpu")
+    tokens = np.arange(8, dtype=np.int32).reshape(2, 4)
+    want, _ = TM.forward(lm, tokens, cfg, device="cpu")
+    try:
+        mesh = make_host_mesh(2, device="cpu")
+        tree = SH.distribute_tree(lm.tree(), SH.tree_shardings(
+            lm.tree(), mesh, False))
+        with dctx.use(SH.make_ctx(cfg, mesh, False)):
+            got, _ = TM.forward(tree, torch.as_tensor(tokens), cfg,
+                                device="cpu")
+    finally:
+        dist.destroy_process_group()
     assert dctx.current() is None
+    assert isinstance(got, DTensor)
+    torch.testing.assert_close(got.full_tensor(), want, rtol=1e-5,
+                               atol=1e-5)
