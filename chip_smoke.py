@@ -282,8 +282,26 @@ Phases, one JSON line each:
               through the ``a2a`` and ``psum`` paths against
               ``_moe_reference``.  One card: no number here comes from
               more than one.  The pins are ``tools/lm_cost_pins.json``,
-              made by ``tools/lm_cost_pins.py``.  Then the script's wall
-              time.
+              made by ``tools/lm_cost_pins.py``.
+18. lm_dryrun, lm_train_mesh — the dry run and training on a mesh, the
+              port's kernel launch counts zeroed before and all zero
+              after: ``lm_dryrun``, ``python -m repro_torch.launch.dryrun
+              --arch qwen3-0.6b`` over both production meshes, one process
+              a cell (``long_500k``'s two in one), all started at once at
+              the phase's start and read at its end: every cell on fake
+              tensors on the card and a ``cuda`` mesh over a fake world of
+              256 (512) ranks, every admitted cell ``ok``, its argument
+              and output bytes equal to the CPU pins exactly, its
+              collectives by kind beside the pins', its seconds;
+              ``lm_train_mesh``, meanwhile, qwen3-0.6b as published (28
+              layers, bf16 compute) through ``launch.train.main``, 4 steps
+              of 2 x 256 tokens saving every 2, on a one-rank NCCL group
+              (the mesh path, ``(1, 1)``) and with no group (unsharded):
+              every loss within 1e-6 relative of the other's; then each
+              resumed from its step-2 checkpoint, steps 3-4 equal to the
+              uninterrupted run's exactly; each step's ms both ways.  The
+              pins are ``tools/lm_dryrun_pins.json``, made by
+              ``tools/lm_dryrun_pins.py``.  Then the script's wall time.
 
 Then the kernel table, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -297,6 +315,7 @@ import dataclasses
 import hashlib
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -5392,6 +5411,210 @@ def run_lm_mesh_phase(card, dev) -> dict:
             "sharded": sharded}
 
 
+LM_DRYRUN_ARCH = "qwen3_0_6b"
+LM_DRYRUN_PINS = ROOT / "tools" / "lm_dryrun_pins.json"
+LM_DRYRUN_TIMEOUT_S = 600
+LM_TRAIN_MESH_ARGV = ["--arch", LM_ARCH, "--steps", "4", "--seq-len", "256",
+                      "--global-batch", "2", "--save-every", "2"]
+LM_TRAIN_MESH_TOL = 1e-6
+
+
+def lm_dryrun_start(out_dir: str) -> list:
+    """Start ``launch.dryrun`` on every cell of LM_DRYRUN_ARCH over both
+    production meshes on the card, one process a cell (``long_500k``'s
+    two, which the shape rules skip, in one).  Returns ``(name, process,
+    report path, log, end)`` for each; a thread fills ``end`` with the
+    process's exit code and seconds when it exits."""
+    from repro_torch.launch.specs import SHAPES
+    jobs = []
+    for shape in SHAPES:
+        meshes = ([["--both-meshes"]] if shape == "long_500k"
+                  else [[], ["--multi-pod"]])
+        for extra in meshes:
+            name = shape + "".join(extra).replace("--", "@")
+            out = os.path.join(out_dir, name + ".json")
+            log = open(os.path.join(out_dir, name + ".log"), "w")
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "repro_torch.launch.dryrun",
+                 "--arch", LM_DRYRUN_ARCH, "--shape", shape, *extra,
+                 "--out", out], cwd=ROOT, stdout=log,
+                stderr=subprocess.STDOUT,
+                env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+            t0 = time.perf_counter()
+            ended = {}
+            waiter = threading.Thread(
+                target=lambda p=proc, e=ended, t=t0: e.update(
+                    rc=p.wait(), seconds=time.perf_counter() - t),
+                daemon=True)
+            waiter.start()
+            jobs.append((name, proc, out, log, ended))
+    return jobs
+
+
+def lm_dryrun_finish(jobs, card) -> dict:
+    """Wait for :func:`lm_dryrun_start`'s processes and hold every cell to
+    the pins: admitted cells ``ok``, argument and output bytes exact."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.specs import shape_supported
+    pins = json.loads(LM_DRYRUN_PINS.read_text())
+    pinned = {(c["shape"], c["mesh"]): c for c in pins["port"]
+              if c["arch"] == LM_DRYRUN_ARCH}
+    cfg = get_config(LM_DRYRUN_ARCH)
+    cells = {}
+    try:
+        for name, proc, out, log, ended in jobs:
+            proc.wait(timeout=LM_DRYRUN_TIMEOUT_S)
+            log.close()
+            time.sleep(0.1)                 # the waiter records the end
+            with open(out) as f:
+                for c in json.load(f):
+                    c["process_seconds"] = ended.get("seconds")
+                    cells[(c["shape"], c["mesh"])] = c
+    finally:
+        for _, proc, _, log, _ in jobs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+    assert set(cells) == set(pinned), (sorted(cells), sorted(pinned))
+    logs = {}
+    for name, _, _, log, _ in jobs:
+        with open(log.name) as f:
+            logs[name] = f.read()
+    bad = []
+    for key, c in sorted(cells.items()):
+        pin = pinned[key]
+        admitted, _ = shape_supported(cfg, c["shape"])
+        if (c["status"] != ("ok" if admitted else "skipped")
+                or pin["status"] != c["status"]):
+            bad.append((key, c["status"], c["reason"], [
+                text[-3000:] for name, text in logs.items()
+                if name.startswith(c["shape"]) and "FAIL" in text]))
+        for field in ("arg_bytes_per_device", "output_bytes_per_device"):
+            if c[field] != pin[field]:
+                bad.append((key, field, c[field], pin[field]))
+        emit(phase="lm_dryrun", arch=LM_DRYRUN_ARCH, shape=c["shape"],
+             mesh=c["mesh"], status=c["status"],
+             arg_bytes=c["arg_bytes_per_device"],
+             output_bytes=c["output_bytes_per_device"],
+             equal_to_pins="argument and output bytes, exact",
+             temp_bytes=c["temp_bytes_per_device"],
+             cpu_pin_temp_bytes=pin["temp_bytes_per_device"],
+             collective_bytes=c["collective_bytes"],
+             cpu_pin_collective_bytes=pin["collective_bytes"],
+             collective_counts=c["collective_counts"],
+             cpu_pin_collective_counts=pin["collective_counts"],
+             flops=c["flops"], hlo_bytes=c["hlo_bytes"],
+             seconds=c["compile_seconds"],
+             cpu_pin_seconds=pin["compile_seconds"],
+             process_seconds=c["process_seconds"], card=card)
+    return cells, bad
+
+
+def lm_train_mesh_runs(dev, tmp: str) -> dict:
+    """qwen3-0.6b as published through ``launch.train.main``: 4 steps
+    saving every 2 on a one-rank NCCL group (the mesh path) and with no
+    group; then each resumed from its step-2 checkpoint (4 more steps,
+    none saved).  Each step timed with the card synchronised."""
+    import torch.distributed as dist
+    from repro_torch.launch import train as LT
+    from repro_torch.launch.mesh import DEVICE_BACKEND
+    made = LT.make_train_step
+    step_ms = []
+
+    def timed_steps(*a, **kw):
+        step = made(*a, **kw)
+
+        def run(*args):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = step(*args)
+            torch.cuda.synchronize()
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    def train(where, resume=False):
+        d = os.path.join(tmp, where)
+        if resume:
+            for f in os.listdir(d):
+                if f != "ckpt_00000002.npz":
+                    os.unlink(os.path.join(d, f))
+        argv = LM_TRAIN_MESH_ARGV + ["--ckpt-dir", d]
+        if resume:
+            argv[argv.index("--save-every") + 1] = "1000"
+        del step_ms[:]
+        t0 = time.perf_counter()
+        losses = LT.main(argv)
+        got = {"losses": losses, "step_ms": list(step_ms),
+               "seconds": time.perf_counter() - t0,
+               "files": sorted(os.listdir(d))}
+        if resume:              # a full-width checkpoint is 7.2 GB
+            shutil.rmtree(d)
+        return got
+
+    LT.make_train_step = timed_steps
+    try:
+        out = {}
+        dist.init_process_group(
+            DEVICE_BACKEND[dev.type], rank=0, world_size=1,
+            store=dist.FileStore(os.path.join(tmp, "store"), 1))
+        try:
+            out["mesh"] = train("mesh")
+            out["mesh_resumed"] = train("mesh", resume=True)
+        finally:
+            dist.destroy_process_group()
+        out["single"] = train("single")
+        out["single_resumed"] = train("single", resume=True)
+        return out
+    finally:
+        LT.make_train_step = made
+
+
+def run_lm_dryrun_phase(card, dev) -> dict:
+    """Phase 18: ``lm_dryrun`` (:func:`lm_dryrun_start`'s processes, on
+    the card's host while the training runs) and ``lm_train_mesh``
+    (:func:`lm_train_mesh_runs`); the port launches no kernel here.
+    Returns the launches, the cells and the seconds."""
+    from repro_torch.kernels import launch_counts, zero_launch_counts
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    with tempfile.TemporaryDirectory() as tmp:
+        jobs = lm_dryrun_start(tmp)
+        try:
+            runs = lm_train_mesh_runs(dev, tmp)
+        finally:
+            cells, bad = lm_dryrun_finish(jobs, card)
+    launches = {"lm_dryrun": launch_counts()}
+    mesh, single = runs["mesh"], runs["single"]
+    rel = [abs(a - b) / abs(b) for a, b in zip(mesh["losses"],
+                                               single["losses"])]
+    emit(phase="lm_train_mesh", model=LM_ARCH, argv=LM_TRAIN_MESH_ARGV,
+         mesh={"data": 1, "model": 1}, group="nccl, one rank",
+         losses=mesh["losses"], unsharded_losses=single["losses"],
+         loss_rel=rel, tolerance=LM_TRAIN_MESH_TOL,
+         step_ms=mesh["step_ms"], unsharded_step_ms=single["step_ms"],
+         run_seconds=mesh["seconds"], unsharded_run_seconds=single["seconds"],
+         resumed_losses=runs["mesh_resumed"]["losses"],
+         unsharded_resumed_losses=runs["single_resumed"]["losses"],
+         resume_equal="steps 3-4, exact", card=card)
+    assert not bad, bad
+    assert not any(launches["lm_dryrun"].values()), launches
+    assert len(rel) == 4 and max(rel) <= LM_TRAIN_MESH_TOL, (mesh, single)
+    assert mesh["files"] == single["files"] == [
+        "ckpt_00000002.npz", "ckpt_00000004.npz"], (mesh, single)
+    for name in ("mesh", "single"):
+        resumed = runs[name + "_resumed"]["losses"]
+        assert resumed[:2] == runs[name]["losses"][2:4], (name, runs)
+    seconds = time.perf_counter() - t_phase
+    emit(phase="lm_dryrun", part="total", seconds=seconds,
+         cells={"/".join(k): c["status"] for k, c in sorted(cells.items())},
+         launches=launches, card=card)
+    return {"launches": launches, "seconds": seconds, "cells": cells,
+            "train": runs}
+
+
 def main() -> int:
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -5707,6 +5930,10 @@ def main() -> int:
     # ---- 17. the LM cost tooling and the LM on a mesh --------------------
     lm_mesh = run_lm_mesh_phase(card, dev)
     launches.update(lm_mesh["launches"])
+
+    # ---- 18. the dry run and training on a mesh ------------------------
+    lm_dry = run_lm_dryrun_phase(card, dev)
+    launches.update(lm_dry["launches"])
     emit(phase="wall", seconds=time.perf_counter() - t_start,
          event_phase_seconds=event_s, sweep_phase_seconds=swept["seconds"],
          corpus_phase_seconds=corp["seconds"],
@@ -5715,7 +5942,8 @@ def main() -> int:
          distributed_phase_seconds=distributed["seconds"],
          lm_phase_seconds=lm["seconds"],
          lm_train_phase_seconds=lm_train["seconds"],
-         lm_mesh_phase_seconds=lm_mesh["seconds"], card=card)
+         lm_mesh_phase_seconds=lm_mesh["seconds"],
+         lm_dryrun_phase_seconds=lm_dry["seconds"], card=card)
 
     ds = kernels["dram_serve"]
     hw = ds["windows"]["hitgraph"]

@@ -143,7 +143,8 @@ class AnalysisConfig:
                                  "repro_torch.launch.train",
                                  "repro_torch.launch.specs",
                                  "repro_torch.launch.costmodel",
-                                 "repro_torch.launch.roofline")
+                                 "repro_torch.launch.roofline",
+                                 "repro_torch.launch.dryrun")
     kernels_root: str = "src/repro_torch/kernels"
     kernel_tests: Sequence[str] = ("tests/test_torch_cuda.py",
                                    "chip_smoke.py")

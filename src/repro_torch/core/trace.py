@@ -34,6 +34,22 @@ class Trace:
     def __len__(self) -> int:
         return len(self.line_addr)
 
+    @staticmethod
+    def empty() -> "Trace":
+        z = np.empty(0, dtype=np.int64)
+        return Trace(z, z.astype(bool), z)
+
+    @staticmethod
+    def concat(traces: Sequence["Trace"]) -> "Trace":
+        traces = [t for t in traces if len(t)]
+        if not traces:
+            return Trace.empty()
+        return Trace(
+            np.concatenate([t.line_addr for t in traces]),
+            np.concatenate([t.is_write for t in traces]),
+            np.concatenate([t.issue for t in traces]),
+        )
+
 
 @dataclasses.dataclass
 class SegmentedTrace:
@@ -163,3 +179,103 @@ def bulk_issue(n: int, start: int) -> np.ndarray:
     """Unlimited producer: all requests available at ``start`` (paper: "the
     requests are just created in bulk")."""
     return np.full(n, start, dtype=np.int64)
+
+
+def dedup_lines(lines: np.ndarray) -> np.ndarray:
+    """Cache-line buffer (Fig. 6e): merge *subsequent* requests to the same
+    line into one (consecutive dedup, NOT global unique)."""
+    lines = np.asarray(lines, dtype=np.int64)
+    if len(lines) == 0:
+        return lines
+    keep = np.empty(len(lines), dtype=bool)
+    keep[0] = True
+    np.not_equal(lines[1:], lines[:-1], out=keep[1:])
+    return lines[keep]
+
+
+def rate_limited_issue(
+    n: int, start: int, elems_per_cycle: float, elems_per_line: float,
+    clock_ratio: float = 1.0,
+) -> np.ndarray:
+    """Issue-cycle lower bounds for a rate-limited producer (Fig. 6a).
+
+    ``elems_per_cycle`` is the producer rate in elements per *accelerator*
+    cycle; ``clock_ratio`` = f_mem / f_acc converts to memory cycles.
+    """
+    if n == 0:
+        return np.empty(0, dtype=np.int64)
+    lines_per_acc_cycle = elems_per_cycle / max(elems_per_line, 1e-9)
+    mem_cycles_per_line = clock_ratio / max(lines_per_acc_cycle, 1e-9)
+    return start + (np.arange(n, dtype=np.float64)
+                    * mem_cycles_per_line).astype(np.int64)
+
+
+def _round_robin_positions(lens: Sequence[int]) -> List[np.ndarray]:
+    """Output position of each element under round-robin interleaving.
+
+    Element ``i`` of stream ``s`` lands at ``sum_j min(len_j, i)`` plus the
+    rank of ``s`` among streams (in registration order) still alive at
+    round ``i``.  Fully vectorized: O(total) with tiny per-stream setup.
+    """
+    lens = np.asarray(lens, dtype=np.int64)
+    order = np.argsort(lens, kind="stable")
+    sorted_lens = lens[order]
+    prefix = np.concatenate([[0], np.cumsum(sorted_lens)])
+    n_streams = len(lens)
+    positions: List[np.ndarray] = []
+    for s in range(n_streams):
+        i = np.arange(lens[s], dtype=np.int64)
+        cnt_le = np.searchsorted(sorted_lens, i, side="right")
+        base = prefix[cnt_le] + i * (n_streams - cnt_le)
+        rank = np.zeros(len(i), dtype=np.int64)
+        for t in range(s):
+            rank += (lens[t] > i).astype(np.int64)
+        positions.append(base + rank)
+    return positions
+
+
+def round_robin_merge(streams: List[np.ndarray]) -> np.ndarray:
+    """Round-robin merger (Fig. 6c) over same-dtype 1-D arrays."""
+    streams = [np.asarray(s) for s in streams]
+    nonempty = [s for s in streams if len(s)]
+    if not nonempty:
+        return np.empty(0, dtype=np.int64)
+    if len(nonempty) == 1:
+        return nonempty[0]
+    positions = _round_robin_positions([len(s) for s in streams])
+    total = sum(len(s) for s in streams)
+    out = np.empty(total, dtype=nonempty[0].dtype)
+    for s, pos in zip(streams, positions):
+        out[pos] = s
+    return out
+
+
+def round_robin_merge_traces(traces: Sequence[Trace]) -> Trace:
+    """Round-robin merger over traces (e.g. HitGraph's PE merge)."""
+    traces = list(traces)
+    if not traces:
+        return Trace.empty()
+    positions = _round_robin_positions([len(t) for t in traces])
+    total = sum(len(t) for t in traces)
+    line = np.empty(total, dtype=np.int64)
+    wr = np.empty(total, dtype=bool)
+    iss = np.empty(total, dtype=np.int64)
+    for t, pos in zip(traces, positions):
+        line[pos] = t.line_addr
+        wr[pos] = t.is_write
+        iss[pos] = t.issue
+    return Trace(line, wr, iss)
+
+
+def interleave_issue_ordered(traces: Sequence[Trace]) -> Trace:
+    """Priority/issue-order merge: stable sort by issue cycle.
+
+    Used where multiple concurrently-active streams contend (the paper's
+    priority merger resolves per-cycle ties; sorting by issue lower bound
+    with stable tie-break by stream registration order is the vectorized
+    equivalent)."""
+    t = Trace.concat(traces)
+    if len(t) == 0:
+        return t
+    order = np.argsort(t.issue, kind="stable")
+    return Trace(t.line_addr[order], t.is_write[order], t.issue[order])

@@ -1,20 +1,25 @@
-"""Checkpointing with atomic commit, retention, and restore onto a device
-(a port of ``repro.distributed.checkpoint``).
+"""Checkpointing with atomic commit, retention, and elastic restore (a
+port of ``repro.distributed.checkpoint``).
 
 * ``save``: flattens the (params, opt_state) tree to an .npz, written to a
   temp file and atomically renamed — a preempted save never corrupts the
-  latest checkpoint.
+  latest checkpoint.  ``DTensor`` leaves are gathered in full on every
+  rank (``full_tensor``, a collective); rank 0 alone writes, and the
+  other ranks wait at a barrier until the file is in place.
 * ``CheckpointManager``: step-tagged files, retention of the last k.
-* ``restore``: rebuilds the tree; with ``shardings`` (a ``torch.device``
-  or a tree of them) it places every leaf on its device.
+* ``restore``: rebuilds the tree; with ``shardings`` it places every leaf
+  on a ``torch.device`` or, for a :class:`~repro_torch.distributed.
+  context.NamedSharding`, as a ``DTensor`` on its mesh: every rank loads
+  the file and keeps its own shard.  Restoring an N-rank checkpoint onto
+  an N'-rank mesh (elastic rescale) is just that placement, because the
+  on-disk format is mesh-agnostic (full arrays).
 
 The file format is ``repro``'s, so a checkpoint written by either package
 restores into the other: the keys are the tree's paths joined by ``/``
 (dict keys sorted, list and tuple indices), and an LM's per-layer lists
 (``blocks``, ``enc_blocks``, ``s_blocks``, ``m_blocks``; see
 :mod:`repro_torch.tree`) are written stacked on ``repro``'s leading axes
-and unstacked on restore.  A mesh sharding waits for the LM sharding
-(``ROADMAP.md`` queue 1, item 11) and raises ``NotImplementedError``.
+and unstacked on restore.
 """
 
 from __future__ import annotations
@@ -27,13 +32,29 @@ from typing import Any, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.tree import STACKED, map_tree, stack
+from repro_torch.distributed.context import NamedSharding
+from repro_torch.tree import STACKED, leaves, map_tree, stack
 
 
 def _numpy(x) -> np.ndarray:
+    from torch.distributed.tensor import DTensor
+    if isinstance(x, DTensor):
+        x = x.full_tensor()
     if isinstance(x, torch.Tensor):
         return x.detach().cpu().numpy()
     return np.asarray(x)
+
+
+def _sharded(tree) -> bool:
+    """Whether ``tree`` holds a ``DTensor`` (its save is a collective)."""
+    from torch.distributed.tensor import DTensor
+    return any(isinstance(x, DTensor) for x in leaves(tree))
+
+
+def _writes(sharded: bool) -> bool:
+    """Whether this process writes a checkpoint: always, unless the tree is
+    sharded over a group and this is not its rank 0."""
+    return not sharded or torch.distributed.get_rank() == 0
 
 
 def _flatten(tree, prefix=""):
@@ -78,38 +99,52 @@ def _unstack_into(items, flat, prefix, index, axes):
 
 
 def save(path: str, tree: Any, step: int) -> str:
-    """Atomic save; returns the final path."""
+    """Atomic save; returns the final path.  A tree of ``DTensor``s is
+    saved by every rank of its group together."""
+    sharded = _sharded(tree)
     flat = _flatten(tree)
-    flat["__step__"] = np.asarray(step)
-    d = os.path.dirname(os.path.abspath(path)) or "."
-    os.makedirs(d, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
-    try:
-        with os.fdopen(fd, "wb") as f:
-            np.savez(f, **flat)
-        os.replace(tmp, path)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+    if _writes(sharded):
+        flat["__step__"] = np.asarray(step)
+        d = os.path.dirname(os.path.abspath(path)) or "."
+        os.makedirs(d, exist_ok=True)
+        fd, tmp = tempfile.mkstemp(dir=d, suffix=".tmp")
+        try:
+            with os.fdopen(fd, "wb") as f:
+                np.savez(f, **flat)
+            os.replace(tmp, path)
+        finally:
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    if sharded:
+        torch.distributed.barrier()
     return path
 
 
 def _place(a: np.ndarray, where):
     if where is None:
         return a
+    a = a if a.flags.c_contiguous else np.array(a)
     if isinstance(where, (str, torch.device)):
-        a = a if a.flags.c_contiguous else np.array(a)
         return torch.from_numpy(a).to(torch.device(where))
-    raise NotImplementedError(
-        f"restore places leaves on a torch.device; a {type(where).__name__} "
-        "sharding waits for the LM sharding (ROADMAP.md queue 1, item 11)")
+    if isinstance(where, NamedSharding):
+        from torch.distributed.tensor import distribute_tensor
+        full = torch.from_numpy(a).to(where.mesh.device_type)
+        # every rank holds the whole array: each keeps its shard, nothing
+        # is sent
+        return distribute_tensor(full, where.mesh,
+                                 where.placements(full.ndim),
+                                 src_data_rank=None)
+    raise TypeError(f"restore places leaves on a torch.device or a "
+                    f"NamedSharding, not a {type(where).__name__}")
 
 
 def restore(path: str, like: Any,
             shardings: Optional[Any] = None) -> Tuple[Any, int]:
     """Load a checkpoint into ``like``'s structure: NumPy leaves, or with
-    ``shardings`` (a ``torch.device``, or a tree of them shaped as
-    ``like``) tensors on those devices."""
+    ``shardings`` (a ``torch.device``, or a tree shaped as ``like`` of
+    ``torch.device``s and ``NamedSharding``s) tensors on those devices and
+    ``DTensor``s laid out by those shardings (elastic restore onto a
+    different mesh)."""
     with np.load(path) as z:
         flat = {k: z[k] for k in z.files}
     step = int(flat.pop("__step__"))
@@ -135,7 +170,8 @@ class CheckpointManager:
 
     def save(self, tree: Any, step: int) -> str:
         p = save(self._path(step), tree, step)
-        self._gc()
+        if _writes(_sharded(tree)):
+            self._gc()
         return p
 
     def latest_step(self) -> Optional[int]:

@@ -132,6 +132,20 @@ def placements(spec: PartitionSpec, mesh, ndim: Optional[int] = None):
     return tuple(out)
 
 
+def spec_of(pl: Sequence, mesh, ndim: int) -> PartitionSpec:
+    """The spec whose :func:`placements` on ``mesh`` are ``pl``
+    (``Shard`` and ``Replicate`` only): a ``DTensor``'s layout as a
+    spec."""
+    names = axis_names(mesh)
+    dims = [[] for _ in range(ndim)]
+    for name, p in zip(names, pl):
+        if p.is_shard():
+            dims[p.dim].append(name)
+        elif not p.is_replicate():
+            raise ValueError(f"no spec for placement {p}")
+    return PartitionSpec(*(tuple(d) if d else None for d in dims))
+
+
 @dataclasses.dataclass
 class ShardCtx:
     mesh: Any
@@ -208,6 +222,24 @@ def elementwise(fn, x):
     y = fn(x.to_local())
     return DTensor.from_local(y, x.device_mesh, pl, run_check=False,
                               shape=x.shape, stride=x.stride())
+
+
+def on_local(fn, x):
+    """``fn`` applied to each rank's local shard of ``x``, the placements
+    kept (a ``Partial`` one reduced first); for an ``fn`` that changes
+    only dims no mesh axis cuts, such as a pad at the end of an unsharded
+    dim (torch 2.11's DTensor fails to plan ``F.pad``'s redistribution on
+    a mesh of two dims or more).  ``x`` need not be a ``DTensor``."""
+    from torch.distributed.tensor import DTensor, Partial, Replicate
+    if not isinstance(x, DTensor):
+        return fn(x)
+    pl = tuple(Replicate() if isinstance(p, Partial) else p
+               for p in x.placements)
+    x = x.redistribute(x.device_mesh, pl)
+    y = fn(x.to_local())
+    shape, stride = _global_shape(y, pl, x.device_mesh)
+    return DTensor.from_local(y, x.device_mesh, pl, run_check=False,
+                              shape=shape, stride=stride)
 
 
 def replicated(x):

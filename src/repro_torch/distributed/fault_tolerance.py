@@ -1,16 +1,16 @@
 """Fault-tolerance runbook utilities: checkpoint/restart + straggler
 policy (a port of ``repro.distributed.fault_tolerance``).
 
-The failure model: (a) node loss -> restart from the latest checkpoint,
+The failure model: (a) node loss -> restart from the latest checkpoint on
+a smaller or different mesh,
 (b) stragglers -> deterministic data sharding lets any worker be replaced
 without data skew, (c) preemption mid-save -> atomic checkpoint commit
 (see ``checkpoint.py``).
 
-``ElasticTrainer`` packages the loop: it owns the CheckpointManager and
-resumes the data pipeline purely from the step counter
-(``train/data.py`` is a pure function of (seed, step, shard)).  Restoring
-onto a different mesh waits for the LM sharding (``ROADMAP.md`` queue 1,
-item 11): the port restores onto the devices the fresh state lives on.
+``ElasticTrainer`` packages the loop: it owns the CheckpointManager,
+restores onto the layout of the fresh state built for the currently
+available ranks, and resumes the data pipeline purely from the step
+counter (``train/data.py`` is a pure function of (seed, step, shard)).
 
 :class:`StragglerMonitor` / :class:`StragglerEvent` live in
 :mod:`repro_torch.serve.chaos` and are re-exported here, as ``repro``
@@ -25,26 +25,35 @@ from typing import Callable
 import torch
 
 from repro_torch.distributed import checkpoint as ckpt
+from repro_torch.distributed.context import NamedSharding, spec_of
 from repro_torch.serve.chaos import StragglerEvent, StragglerMonitor
 from repro_torch.tree import map_tree
 
 __all__ = ["StragglerEvent", "StragglerMonitor", "ElasticTrainer"]
 
 
-def _devices(tree):
-    """The device of every tensor leaf (``None`` for other leaves)."""
-    return map_tree(
-        lambda a: a.device if isinstance(a, torch.Tensor) else None, tree)
+def _layouts(tree):
+    """Where every leaf lives: a ``DTensor``'s mesh and placements (as a
+    ``NamedSharding``), a tensor's device, ``None`` for other leaves."""
+    from torch.distributed.tensor import DTensor
+
+    def one(a):
+        if isinstance(a, DTensor):
+            return NamedSharding(a.device_mesh, spec_of(
+                a.placements, a.device_mesh, a.ndim))
+        return a.device if isinstance(a, torch.Tensor) else None
+    return map_tree(one, tree)
 
 
 class ElasticTrainer:
-    """The checkpoint/restart training loop.
+    """Checkpoint/restart + elastic-mesh resume driver.
 
     ``build_state(mesh)`` -> (params, opt_state) for a fresh start;
     ``make_step()`` -> the step function.  On resume the manager loads the
-    latest checkpoint onto ``shardings`` (by default the devices of the
-    fresh state's leaves); the data pipeline is step-addressed, so the run
-    continues where the checkpoint left it.
+    latest checkpoint onto ``shardings`` (by default the fresh state's own
+    layout: each ``DTensor`` leaf's mesh and placements, each tensor's
+    device) — N -> N' rescale is transparent because checkpoints store
+    full (unsharded) arrays and the data pipeline is step-addressed.
     """
 
     def __init__(self, ckpt_dir: str, build_state, make_step,
@@ -61,7 +70,7 @@ class ElasticTrainer:
         params, opt_state = self.build_state(mesh)
         like = (params, opt_state)
         restored, step = self.manager.restore_latest(
-            like, _devices(like) if shardings is None else shardings)
+            like, _layouts(like) if shardings is None else shardings)
         if restored is not None:
             params, opt_state = restored
             start = step

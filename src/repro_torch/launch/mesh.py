@@ -28,6 +28,10 @@ from repro_torch.device import resolve_device
 #: the process-group backend of each device type
 DEVICE_BACKEND = {"cuda": "nccl", "cpu": "gloo"}
 
+#: torch's in-process backend whose collectives communicate nothing: the
+#: dry run's world of 256 (512) ranks in one process, on either device
+FAKE_BACKEND = "fake"
+
 #: the host's device count on the CPU, where a test mocks a larger host
 #: (the counterpart of JAX's ``--xla_force_host_platform_device_count``);
 #: read each time a mesh is built, unset means 1
@@ -75,16 +79,17 @@ def make_sweep_mesh(devices: int, device) -> List[torch.device]:
 
 def _world(device) -> Tuple[str, int]:
     """The device type and the default group's size, checked against each
-    other; with no group, a one-rank group of ``device``'s backend is
-    initialized (over an in-process store: one rank needs no
-    rendezvous).  The caller owns it (``dist.destroy_process_group``)."""
+    other (a fake group goes with either); with no group, a one-rank
+    group of ``device``'s backend is initialized (over an in-process
+    store: one rank needs no rendezvous).  The caller owns it
+    (``dist.destroy_process_group``)."""
     dev = resolve_device(device)
     want = DEVICE_BACKEND[dev.type]
     if not dist.is_initialized():
         dist.init_process_group(want, store=dist.HashStore(), rank=0,
                                 world_size=1)
     backend = str(dist.get_backend())
-    if backend != want:
+    if backend not in (want, FAKE_BACKEND):
         raise ValueError(f"a {dev.type} mesh runs over {want}, the default "
                          f"group is {backend}")
     return dev.type, dist.get_world_size()

@@ -150,12 +150,31 @@ def init_attention(gen, cfg: ModelConfig, dtype, device) -> Params:
     return p
 
 
+def split_heads(y, heads: int, hd: int):
+    """``y`` ``(B, S, heads * hd)`` viewed as ``(B, S, heads, hd)``.  On a
+    ``DTensor`` whose last dim is cut over more ranks than divide
+    ``heads`` (a projection's output sharded over ``model``, with fewer
+    or indivisible heads), that dim is gathered first: a view cannot cut
+    a head across ranks, and GSPMD lays ``repro``'s reshape out whole
+    there too."""
+    from torch.distributed.tensor import DTensor, Replicate
+    B, S = y.shape[:2]
+    if isinstance(y, DTensor):
+        last = y.ndim - 1
+        cut = [p.is_shard(last) for p in y.placements]
+        ranks = int(np.prod([y.device_mesh.size(i)
+                             for i, c in enumerate(cut) if c]))
+        if heads % ranks:
+            y = y.redistribute(y.device_mesh, [
+                Replicate() if c else p for p, c in zip(y.placements, cut)])
+    return y.reshape(B, S, heads, hd)
+
+
 def _qkv(x, p, cfg: ModelConfig, positions):
-    B, S, _ = x.shape
     hd = cfg.hd
-    q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, hd)
-    k = (x @ p["wk"]).reshape(B, S, cfg.n_kv_heads, hd)
-    v = (x @ p["wv"]).reshape(B, S, cfg.n_kv_heads, hd)
+    q = split_heads(x @ p["wq"], cfg.n_heads, hd)
+    k = split_heads(x @ p["wk"], cfg.n_kv_heads, hd)
+    v = split_heads(x @ p["wv"], cfg.n_kv_heads, hd)
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -194,9 +213,10 @@ def _sdpa(q, k, v, cfg: ModelConfig, *, causal, q_pos0=0, k_pos0=0,
 
 def _sdpa_chunked(q, k, v, cfg: ModelConfig, *, window=0):
     """Memory-bounded causal attention for long prefill: an outer loop
-    over query chunks, an inner online softmax over every KV chunk (as
-    ``repro``'s scan visits them) — scores never materialize beyond
-    (B, Hkv, G, cq, ck)."""
+    over query chunks, an inner online softmax over the KV chunks that
+    ``repro``'s scan visits, less those the mask hides wholly (they add
+    exact zeros) — scores never materialize beyond (B, Hkv, G, cq,
+    ck)."""
     B, S, H, Dh = q.shape
     Hkv = k.shape[2]
     G = H // Hkv
@@ -204,8 +224,8 @@ def _sdpa_chunked(q, k, v, cfg: ModelConfig, *, window=0):
     assert S % c == 0, (S, c)
     nq = S // c
     qg = q.reshape(B, nq, c, Hkv, G, Dh)
-    kc = k.reshape(B, nq, c, Hkv, Dh)
-    vc = v.reshape(B, nq, c, Hkv, Dh)
+    kc = k.reshape(B, nq, c, Hkv, Dh).unbind(1)
+    vc = v.reshape(B, nq, c, Hkv, Dh).unbind(1)
     scale = 1.0 / math.sqrt(Dh)
     ar = torch.arange(c, device=q.device)
     outs = []
@@ -217,21 +237,28 @@ def _sdpa_chunked(q, k, v, cfg: ModelConfig, *, window=0):
         acc = torch.zeros((B, c, Hkv, G, Dh), dtype=torch.float32,
                           device=q.device)
         for ki in range(nq):
-            s = torch.einsum("bskgd,btkd->bkgst", q_blk, kc[:, ki])
+            # a chunk the mask hides wholly (past the diagonal, or before
+            # the window) changes nothing, bit for bit: once a row has a
+            # valid key its p = exp(NEG - m) is 0 and its corr 1, and the
+            # first valid chunk's corr = 0 clears what came before it
+            if ki > qi or (window and (ki + 1) * c - 1 <= qi * c - window):
+                continue
+            s = torch.einsum("bskgd,btkd->bkgst", q_blk, kc[ki])
             s = s.float() * weak(scale, s)
-            qpos = qi * c + ar[:, None]
-            kpos = ki * c + ar[None, :]
-            msk = qpos >= kpos
-            if window:
-                msk &= kpos > qpos - window
-            s = torch.where(msk, s, NEG)
+            if ki == qi or window:      # else every key is valid
+                qpos = qi * c + ar[:, None]
+                kpos = ki * c + ar[None, :]
+                msk = qpos >= kpos
+                if window:
+                    msk &= kpos > qpos - window
+                s = torch.where(msk, s, NEG)
             m_new = torch.maximum(m, s.amax(dim=-1))
             p = torch.exp(s - m_new[..., None])
             corr = torch.exp(m - m_new)
             l = l * corr + p.sum(dim=-1)
             acc = (acc * corr.permute(0, 3, 1, 2)[..., None]
                    + torch.einsum("bkgst,btkd->bskgd", p.to(q_blk.dtype),
-                                  vc[:, ki]))
+                                  vc[ki]))
             m = m_new
         out = acc / l.permute(0, 3, 1, 2)[..., None]
         outs.append(out.reshape(B, c, H * Dh).to(q.dtype))
@@ -423,8 +450,7 @@ def attention(x, p, cfg: ModelConfig, *, positions, mode="causal",
     B, S, _ = x.shape
     win = cfg.sliding_window if window is None else window
     if mode == "cross":
-        hd = cfg.hd
-        q = (x @ p["wq"]).reshape(B, S, cfg.n_heads, hd)
+        q = split_heads(x @ p["wq"], cfg.n_heads, cfg.hd)
         if cfg.qk_norm:
             q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k, v = cross_kv
@@ -502,11 +528,14 @@ def init_mlp(gen, cfg: ModelConfig, d_ff: Optional[int] = None,
 
 
 def mlp(x, p, cfg: ModelConfig):
-    h = x @ p["w1"]
+    # under a mesh each product is laid out by ``act_btf`` before its
+    # nonlinearity: DTensor may leave it a partial sum over ``model``,
+    # and would then cut the sequence to reduce it
+    h = dctx.constrain(x @ p["w1"], "act_btf")
     if cfg.act == "silu":
-        h = silu(h) * (x @ p["w3"])
+        h = silu(h) * dctx.constrain(x @ p["w3"], "act_btf")
     elif cfg.act == "geglu":
-        h = gelu(h) * (x @ p["w3"])
+        h = gelu(h) * dctx.constrain(x @ p["w3"], "act_btf")
     else:
         h = gelu(h)
     h = dctx.constrain(h, "act_btf")

@@ -26,6 +26,7 @@ under autograd when the caller enables it (:func:`trainable`).
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, List, Optional
 
 import torch
@@ -284,7 +285,10 @@ def _block_apply(x, bp, cfg: ModelConfig, *, positions, mode,
         attn_out = attn_out + m_out
         if m_state is not None:
             new_cache["mamba"] = m_state
-    x = x + attn_out
+    # the residual laid out as at the block's edges (``act_btd``): the
+    # attention's output is a partial sum over ``model``, which DTensor
+    # would otherwise reduce by cutting the sequence
+    x = dctx.constrain(x + attn_out, "act_btd")
 
     if fam == "audio" and (enc_out is not None or
                            (cache is not None and "cross_kv" in cache)):
@@ -292,14 +296,13 @@ def _block_apply(x, bp, cfg: ModelConfig, *, positions, mode,
         if cache is not None and "cross_kv" in cache:
             ck, cv = cache["cross_kv"]
         else:
-            B, Fr, _ = enc_out.shape
-            ck = (enc_out @ bp["cross"]["wk"]).reshape(
-                B, Fr, cfg.n_kv_heads, cfg.hd)
-            cv = (enc_out @ bp["cross"]["wv"]).reshape(
-                B, Fr, cfg.n_kv_heads, cfg.hd)
+            ck = L.split_heads(enc_out @ bp["cross"]["wk"], cfg.n_kv_heads,
+                               cfg.hd)
+            cv = L.split_heads(enc_out @ bp["cross"]["wv"], cfg.n_kv_heads,
+                               cfg.hd)
         c_out, _ = L.attention(hc, bp["cross"], cfg, positions=None,
                                mode="cross", cross_kv=(ck, cv))
-        x = x + c_out
+        x = dctx.constrain(x + c_out, "act_btd")
         if mode in ("prefill", "decode"):
             new_cache["cross_kv"] = (ck, cv)
 
@@ -317,9 +320,9 @@ def _enc_block(x, bp, cfg: ModelConfig, positions):
     h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
     out, _ = L.attention(h, bp["attn"], cfg, positions=positions,
                          mode="bidir")
-    x = x + out
+    x = dctx.constrain(x + out, "act_btd")        # as in _block_apply
     h2 = L.rms_norm(x, bp["ln2"], cfg.norm_eps)
-    return x + L.mlp(h2, bp["mlp"], cfg)
+    return dctx.constrain(x + L.mlp(h2, bp["mlp"], cfg), "act_btd")
 
 
 def _m_block(x, bp, cfg: ModelConfig, st):
@@ -545,10 +548,12 @@ def prefill(params, tokens, cfg: ModelConfig,
         target = max(min(target, cfg.sliding_window), Sp)
     pad = max(target - Sp, 0)
     if pad:
+        # each rank pads its own rows: the sequence is whole on every rank
+        grow = functools.partial(F.pad, pad=(0, 0, 0, 0, 0, pad))
         for c in caches:
             attn = dict(c["attn"])
-            attn["k"] = F.pad(attn["k"], (0, 0, 0, 0, 0, pad))
-            attn["v"] = F.pad(attn["v"], (0, 0, 0, 0, 0, pad))
+            attn["k"] = dctx.on_local(grow, attn["k"])
+            attn["v"] = dctx.on_local(grow, attn["v"])
             attn["pos_slots"] = F.pad(attn["pos_slots"], (0, pad),
                                       value=-(1 << 30))
             c["attn"] = attn

@@ -22,7 +22,7 @@ import torch.nn.functional as F
 from repro_torch.distributed import context as dctx
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (ParamTree, _dense_init, silu,
-                                      softplus, weak)
+                                      softplus, split_heads, weak)
 
 CHUNK = 256
 
@@ -104,9 +104,11 @@ def mamba(x, p, cfg: ModelConfig, state: Optional[Dict] = None):
     windows = torch.stack(
         [conv_in[:, i:i + S, :] for i in range(k)], dim=2)  # (B,S,k,Di)
     u = silu(torch.einsum("bskd,kd->bsd", windows, p["conv"]))
-    bc = u @ p["x_bc"]
+    # both products sum over the model-sharded inner dim: laid out whole
+    # before their nonlinear use (DTensor would cut the sequence)
+    bc = dctx.constrain(u @ p["x_bc"], "act_btd")
     B_t, C_t = torch.split(bc, bc.shape[-1] // 2, dim=-1)  # (B,S,N)
-    dt = softplus(u @ p["x_dt"])                       # (B,S,1)
+    dt = softplus(dctx.constrain(u @ p["x_dt"], "act_btd"))  # (B,S,1)
     dt = dt.expand(B, S, di)
     h0 = (state["h"] if state is not None
           else torch.zeros((B, di, n), dtype=torch.float32, device=x.device))
@@ -187,10 +189,10 @@ def mlstm(x, p, cfg: ModelConfig, state: Optional[Dict] = None):
     xz = x @ p["in_proj"]
     u, z = torch.split(xz, xz.shape[-1] // 2, dim=-1)
     u = dctx.constrain(u, "act_btf")
-    q = (u @ p["wq"]).reshape(B, S, H, dh)
+    q = split_heads(u @ p["wq"], H, dh)
     q = q / weak(math.sqrt(dh), q)
-    k = (u @ p["wk"]).reshape(B, S, H, dh)
-    v = (u @ p["wv"]).reshape(B, S, H, dh)
+    k = split_heads(u @ p["wk"], H, dh)
+    v = split_heads(u @ p["wv"], H, dh)
     # qkv heads are few: under a mesh ``repro`` shards head_dim over the
     # model axis instead (``act_ssm_heads``)
     q = dctx.constrain(q, "act_ssm_heads")

@@ -4,10 +4,12 @@
 ``repro`` takes the gold logit as ``sum(one_hot(labels) * logits)`` so
 that a vocab-sharded logits array never gathers; the port gathers it,
 which gives the same value exactly (the other terms are zeros) without
-the (B, S, V) float32 one-hot.  Under a mesh (``DTensor`` logits) it takes
-``repro``'s one-hot sum.  A label outside ``[0, vocab)`` gives a
-gold logit of 0, as ``one_hot`` does; a negative one is masked out of the
-mean.
+the (B, S, V) float32 one-hot.  Under a mesh (``DTensor`` logits) each
+rank takes the log-sum-exp terms and the gold logit of its own vocabulary
+shard, reduced over ``model`` (:func:`_vocab_parallel`), so the logits
+are never gathered, as GSPMD partitions ``repro``'s ``logsumexp`` and
+one-hot sum.  A label outside ``[0, vocab)`` gives a gold logit of 0, as
+``one_hot`` does; a negative one is masked out of the mean.
 """
 
 from __future__ import annotations
@@ -18,6 +20,9 @@ import torch
 from torch.distributed.tensor import DTensor
 
 from repro_torch.device import resolve_device
+from repro_torch.distributed import context as dctx
+from repro_torch.distributed.context import PartitionSpec as P
+from repro_torch.models import layers as L
 from repro_torch.models import model as M
 from repro_torch.models.config import ModelConfig
 from repro_torch.train import optimizer as opt
@@ -40,21 +45,51 @@ def lm_loss(params, batch: Dict, cfg: ModelConfig,
                                  if k in EXTRA}, device=device)
     logits = logits.float()
     labels = torch.as_tensor(batch["labels"], device=logits.device)
-    lse = torch.logsumexp(logits, dim=-1)
     inside = (labels >= 0) & (labels < cfg.vocab)
-    idx = torch.where(inside, labels, 0).long()
     if isinstance(logits, DTensor):
-        # vocab-sharded under a mesh: ``repro``'s one-hot sum, a partial
-        # sum over the model axis, so the logits are never gathered
-        vocab = torch.arange(cfg.vocab, device=idx.device)
-        picked = ((idx[..., None] == vocab).to(logits.dtype)
-                  * logits).sum(-1)
+        lse, picked = _vocab_parallel(logits, labels, cfg.vocab)
     else:
+        lse = torch.logsumexp(logits, dim=-1)
+        idx = torch.where(inside, labels, 0).long()
         picked = torch.gather(logits, -1, idx[..., None])[..., 0]
     gold = torch.where(inside, picked, 0.0)
     mask = (labels >= 0).float()
     return (torch.sum((lse - gold) * mask)
             / torch.clamp(mask.sum(), min=1.0))
+
+
+def _vocab_parallel(logits, labels, vocab: int):
+    """``(logsumexp(logits), gold logit)`` under a mesh context (Megatron's
+    cross entropy), as a ``shard_map``: each rank takes its shard of the
+    vocabulary (``model``, where it divides the vocabulary), the maximum
+    and the sum of exponentials are reduced over the axis, and the gold
+    logit is the one rank's that holds the label, 0 elsewhere, summed.
+    Where no axis cuts the vocabulary each rank takes the unsharded ops
+    on its rows, so a one-rank mesh computes what one device does."""
+    ctx = dctx.current()
+    sizes = dctx.axis_sizes(ctx.mesh)
+    ax = ("model" if sizes.get("model", 1) > 1
+          and logits.shape[-1] % sizes["model"] == 0 else None)
+    batch = L._batch_axes(ctx, logits.shape[0])
+
+    def local(lg, lab):
+        lo = dctx.axis_index(ax) * lg.shape[-1] if ax else 0
+        if ax is None:          # the whole vocabulary: the unsharded ops
+            lse = torch.logsumexp(lg, dim=-1)
+        else:
+            m = dctx.pmax(lg.detach().amax(dim=-1, keepdim=True), ax)
+            e = dctx.psum(torch.exp(lg - m).sum(dim=-1), ax)
+            lse = torch.log(e) + m[..., 0]
+        j = lab.long() - lo
+        mine = (lab >= 0) & (lab < vocab) & (j >= 0) & (j < lg.shape[-1])
+        picked = torch.where(mine, torch.gather(
+            lg, -1, torch.where(mine, j, 0)[..., None])[..., 0], 0.0)
+        return lse, (dctx.psum(picked, ax) if ax else picked)
+
+    return dctx.shard_map(local, mesh=ctx.mesh,
+                          in_specs=(P(batch, None, ax), P(batch, None)),
+                          out_specs=(P(batch, None), P(batch, None)))(
+        logits, labels)
 
 
 def loss_and_grads(params, batch: Dict, cfg: ModelConfig,

@@ -842,7 +842,8 @@ def test_port_config_and_jax_config_load():
                               "repro_torch.train", "repro_torch.launch.train",
                               "repro_torch.launch.specs",
                               "repro_torch.launch.costmodel",
-                              "repro_torch.launch.roofline")
+                              "repro_torch.launch.roofline",
+                              "repro_torch.launch.dryrun")
     assert cfg.csrc_root == "src/repro_torch/csrc"
     assert cfg.kernel_tests == ("tests/test_torch_cuda.py", "chip_smoke.py")
     jax_cfg = load_config(REPO_ROOT, "analysis.cfg")

@@ -111,6 +111,10 @@ _LM_MESH_MODULES = {"repro_torch.core.hbm_adapter",
                     "repro_torch.launch.mesh",
                     "repro_torch.distributed.sharding"}
 
+#: the modules of the dry run and the HLO parser
+_DRYRUN_MODULES = {"repro_torch.launch.dryrun",
+                   "repro_torch.launch.hlo_parse"}
+
 #: an import statement naming jax or the JAX package (not repro_torch)
 _IMPORT = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)",
                      re.M)
@@ -129,7 +133,8 @@ def test_import_leaves_jax_and_repro_out():
     assert (_DYNAMIC_MODULES | _STATIONARY_MODULES | _CACHE_MODULES
             | _EVENT_MODULES | _SWEEP_MODULES | _CORPUS_MODULES
             | _SERVICE_MODULES | _ANALYSIS_MODULES | _LM_MODULES
-            | _TRAIN_MODULES | _LM_MESH_MODULES <= set(names.split())), names
+            | _TRAIN_MODULES | _LM_MESH_MODULES | _DRYRUN_MODULES
+            <= set(names.split())), names
 
 
 def test_no_jax_or_repro_import_in_sources():

@@ -78,7 +78,7 @@ class TestCheckpoint:
             assert isinstance(out["w"], torch.Tensor)
             np.testing.assert_array_equal(out["w"].numpy(), tree["w"])
             assert out["s"].shape == () and out["s"].dtype == torch.int32
-        with pytest.raises(NotImplementedError, match="item 11"):
+        with pytest.raises(TypeError, match="NamedSharding"):
             ckpt.restore(path, tree, {"w": object(), "s": "cpu"})
 
     def test_train_resume_equivalence(self, tmp_path):
@@ -282,13 +282,20 @@ def test_cli_runs_and_resumes(tmp_path, capsys):
 
 
 def test_cli_refuses_a_mesh(tmp_path, monkeypatch):
-    with pytest.raises(NotImplementedError, match="item 11"):
+    """The production mesh needs a world of 256 ranks: on one process
+    (no group, or torchrun's environment absent) the CLI refuses it,
+    naming the world size, as ``jax.make_mesh`` refuses the device count;
+    on the card the same without ``--device``."""
+    for k in launch_train.TORCHRUN_ENV:
+        monkeypatch.delenv(k, raising=False)
+    with pytest.raises(ValueError, match="needs 256 ranks, the world has 1"):
         launch_train.main(ARGS + ["--production-mesh", "--ckpt-dir",
                                   str(tmp_path)])
     monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
     monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        launch_train.main(["--smoke", "--ckpt-dir", str(tmp_path)])
+    with pytest.raises(ValueError, match="needs 256 ranks, the world has 1"):
+        launch_train.main(["--smoke", "--production-mesh", "--ckpt-dir",
+                           str(tmp_path)])
 
 
 def test_entry_points_run_on_the_card_or_raise(monkeypatch, tmp_path):

@@ -35,6 +35,13 @@ xLSTM; arctic and llama4-scout at their own capacity factor too) on a ``(4, 2)``
 subprocess (``jax.make_mesh``'s default ``Explicit`` axes make ``repro``'s
 ``constrain`` raise under JAX 0.9.0); the port's sharded results are held
 to it at rtol 1e-4.
+
+The same ranks also form a ``(data=2, model=4)`` mesh, wider on ``model``
+than the key/value heads of qwen3-smoke (2) and gemma-smoke (1): their
+loss and every gradient against the unsharded port, and qwen3's against
+``repro`` on an ``Auto``-axis ``(2, 4)`` mesh (the projections' outputs
+are gathered over ``model`` before a head view that would cut a head
+across ranks, ``layers.split_heads``).
 """
 
 import functools
@@ -60,6 +67,10 @@ F32 = {"rtol": 1e-4, "atol": 1e-5}
 SERVE_ARCHS = ("qwen3_0_6b", "llama4_scout_17b_a16e", "xlstm_1_3b")
 EP_ARCHS = ("arctic_480b", "llama4_scout_17b_a16e")
 REPRO_ARCHS = ("qwen3_0_6b", "arctic_480b", "xlstm_1_3b")
+#: the (2, 4) mesh's configs, and those also held to repro there
+WIDE_ARCHS = ("qwen3_0_6b", "gemma_2b")
+WIDE_REPRO_ARCHS = ("qwen3_0_6b",)
+WIDE = "@2x4"
 
 #: what both packages' rank scripts share: a config without dropped
 #: tokens, the weights from the npz, the batch
@@ -95,7 +106,7 @@ def nested(path):
 """
 
 #: one rank of the gloo world: prints a JSON object on its last line
-RANK_SCRIPT = COMMON + r"""
+RANK_SCRIPT = COMMON + f"WIDE = {WIDE!r}\n" + r"""
 import datetime, json, sys, time
 import torch
 import torch.distributed as dist
@@ -116,8 +127,8 @@ from repro_torch.tree import leaves, map_tree
 
 rank, world, store, wdir, odir = sys.argv[1:6]
 rank, world = int(rank), int(world)
-serve_archs, ep_archs, repro_archs = ([x for x in a.split(",") if x]
-                                      for a in sys.argv[6:9])
+serve_archs, ep_archs, repro_archs, wide_archs, wide_repro = (
+    [x for x in a.split(",") if x] for a in sys.argv[6:11])
 OWN_CF = "@own_cf"
 dist.init_process_group("gloo", store=dist.FileStore(store, world),
                         rank=rank, world_size=world,
@@ -151,7 +162,7 @@ def batch_for(cfg):
     return {k: torch.as_tensor(np.asarray(v)) for k, v in b.items()}
 
 
-def train_case(arch, mesh, out):
+def train_case(arch, mesh, out, saved=None, tag=""):
     cfg = no_drop(get_config(arch, smoke=True))
     tree = interop.lm_params(nested(f"{wdir}/{arch}.npz"), cfg, "cpu")
     batch = batch_for(cfg)
@@ -177,11 +188,12 @@ def train_case(arch, mesh, out):
                  "collectives": int(comm.get_total_counts()),
                  "dtensor_grads": all(isinstance(g, DTensor)
                                       for g in leaves(dgrads))}
-    if arch in repro_archs:
+    if arch in (repro_archs if saved is None else saved):
         # full_tensor is a collective: every rank gathers, rank 0 saves
         flat = _flatten(map_tree(lambda g: full(g).detach(), dgrads))
         if rank == 0:
-            np.savez(f"{odir}/{arch}.npz", loss=np.float32(out[arch]["dloss"]),
+            np.savez(f"{odir}/{arch}{tag}.npz",
+                     loss=np.float32(out[arch]["dloss"]),
                      **{"g/" + k: v for k, v in flat.items()})
 
 
@@ -328,15 +340,21 @@ def serve_case(arch, mesh, out, steps=4):
 
 try:
     mesh = make_host_mesh(2, device="cpu")
+    wide = make_host_mesh(4, device="cpu")
     res = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
-           "train": {}, "own_cf": {}, "attn": {}, "ep": {}, "serve": {}}
+           "wide_mesh": dict(zip(wide.mesh_dim_names, wide.mesh.shape)),
+           "train": {}, "wide": {}, "own_cf": {}, "attn": {}, "ep": {},
+           "serve": {}}
     for arch in ARCHS:
         t0 = time.perf_counter()
         print("train", arch, file=sys.stderr, flush=True)
         train_case(arch, mesh, res["train"])
         res["train"][arch]["seconds"] = time.perf_counter() - t0
+    for arch in wide_archs:
+        print("wide", arch, file=sys.stderr, flush=True)
+        train_case(arch, wide, res["wide"], saved=wide_repro, tag=WIDE)
     print("attn", file=sys.stderr, flush=True)
-    attn_case({2: mesh, 4: make_host_mesh(4, device="cpu")}, res["attn"])
+    attn_case({2: mesh, 4: wide}, res["attn"])
     for arch in ep_archs:
         print("ep", arch, file=sys.stderr, flush=True)
         ep_case(arch, mesh, res["ep"])
@@ -364,11 +382,13 @@ from repro.train import data as JD
 from repro.train import step as JS
 
 wdir, odir = sys.argv[1:3]
-mesh = jax.make_mesh((4, 2), ("data", "model"),
-                     axis_types=(AxisType.Auto,) * 2)
-runs = [(a, no_drop, "") for a in sys.argv[3].split(",")]
-runs += [(a, f32, "@own_cf") for a in sys.argv[4].split(",")]
-for arch, as_run, tag in runs:
+mesh42, mesh24 = (jax.make_mesh(shape, ("data", "model"),
+                                axis_types=(AxisType.Auto,) * 2)
+                  for shape in ((4, 2), (2, 4)))
+runs = [(a, no_drop, "", mesh42) for a in sys.argv[3].split(",")]
+runs += [(a, f32, "@own_cf", mesh42) for a in sys.argv[4].split(",")]
+runs += [(a, no_drop, sys.argv[6], mesh24) for a in sys.argv[5].split(",")]
+for arch, as_run, tag, mesh in runs:
     cfg = as_run(get_config(arch, smoke=True))
     params = jax.tree.map(jnp.asarray, nested(f"{wdir}/{arch}.npz"))
     batch = JD.make_batch(cfg, JD.DataConfig(seq_len=SEQ, global_batch=ROWS,
@@ -407,12 +427,14 @@ def world(tmp_path_factory):
     procs = [subprocess.Popen(
         [sys.executable, "-c", RANK_SCRIPT, str(r), str(WORLD),
          str(base / "store"), str(wdir), str(port_out), ",".join(SERVE_ARCHS),
-         ",".join(EP_ARCHS), ",".join(REPRO_ARCHS)],
+         ",".join(EP_ARCHS), ",".join(REPRO_ARCHS), ",".join(WIDE_ARCHS),
+         ",".join(WIDE_REPRO_ARCHS)],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for r in range(WORLD)]
     procs.append(subprocess.Popen(
         [sys.executable, "-c", REPRO_SCRIPT, str(wdir), str(repro_out),
-         ",".join(REPRO_ARCHS), ",".join(EP_ARCHS)],
+         ",".join(REPRO_ARCHS), ",".join(EP_ARCHS),
+         ",".join(WIDE_REPRO_ARCHS), WIDE],
         env=jenv, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     try:
         outs = [p.communicate(timeout=RANK_TIMEOUT_S) for p in procs]
@@ -429,6 +451,32 @@ def world(tmp_path_factory):
 
 def test_host_mesh_is_four_by_two(world):
     assert world[0]["mesh"] == {"data": 4, "model": 2}
+
+
+@pytest.mark.parametrize("arch", WIDE_ARCHS)
+def test_wider_model_axis_than_kv_heads(world, arch):
+    """On the ``(2, 4)`` mesh, whose ``model`` axis is wider than the
+    config's key/value heads (qwen3-smoke 2, gemma-smoke 1; the port
+    raised "Cannot unflatten unevenly sharded tensor" at the head view):
+    on every rank the loss and every gradient within rtol 1e-4 of the
+    unsharded port's, the gradients ``DTensor``s."""
+    assert world[0]["wide_mesh"] == {"data": 2, "model": 4}
+    cfg = get_config(arch, smoke=True)
+    assert cfg.n_kv_heads < world[0]["wide_mesh"]["model"], cfg
+    for res in world[1]:
+        r = res["wide"][arch]
+        assert r["loss_excess"] <= 0, r
+        assert r["grad_excess"] <= 0, r
+        assert r["dtensor_grads"], r
+        assert r["placed"], r
+
+
+@pytest.mark.parametrize("arch", WIDE_REPRO_ARCHS)
+def test_wider_model_axis_equals_sharded_repro(world, arch):
+    """The port's loss and gradients on the ``(2, 4)`` mesh (rank 0's)
+    against ``repro``'s on its ``Auto``-axis ``(2, 4)`` mesh, leaf by
+    leaf."""
+    _held_to_repro(world, arch + WIDE)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
