@@ -292,7 +292,15 @@ Phases, one JSON line each:
               tensors on the card and a ``cuda`` mesh over a fake world of
               256 (512) ranks, every admitted cell ``ok``, its argument
               and output bytes equal to the CPU pins exactly, its
-              collectives by kind beside the pins', its seconds;
+              collectives by kind beside the pins', its seconds; beside
+              them hymba-1.5b's and xlstm-1.3b's ``prefill_32k`` on
+              16x16 (their recurrences counted by a few iterations) and
+              xlstm-1.3b's ``train_4k`` on 2x16x16 cut to 8 of its 48
+              layers (one group of 7 mLSTM blocks and an sLSTM block,
+              the widths as published), started with phase 15 so that
+              they run beside phases 15-17, each ``ok`` with argument and
+              output bytes equal to the CPU pins; every cell's temp bytes
+              equal the pins' where its collectives do;
               ``lm_train_mesh``, meanwhile, qwen3-0.6b as published (28
               layers, bf16 compute) through ``launch.train.main``, 4 steps
               of 2 x 256 tokens saving every 2, on a one-rank NCCL group
@@ -5412,6 +5420,14 @@ def run_lm_mesh_phase(card, dev) -> dict:
 
 
 LM_DRYRUN_ARCH = "qwen3_0_6b"
+#: cells beyond LM_DRYRUN_ARCH's: the recurrences' 32k prefills (counted
+#: by a few iterations, ``models.ssm.scan``) and xlstm-1.3b's multi-pod
+#: train step, cut in depth to one group of its published 7:1 mLSTM /
+#: sLSTM blocks (8 of 48 layers; the widths as published):
+#: ``(arch, shape, multi_pod, layers)``
+LM_DRYRUN_MORE = [("hymba_1_5b", "prefill_32k", False, None),
+                  ("xlstm_1_3b", "prefill_32k", False, None),
+                  ("xlstm_1_3b", "train_4k", True, 8)]
 LM_DRYRUN_PINS = ROOT / "tools" / "lm_dryrun_pins.json"
 LM_DRYRUN_TIMEOUT_S = 600
 LM_TRAIN_MESH_ARGV = ["--arch", LM_ARCH, "--steps", "4", "--seq-len", "256",
@@ -5419,85 +5435,112 @@ LM_TRAIN_MESH_ARGV = ["--arch", LM_ARCH, "--steps", "4", "--seq-len", "256",
 LM_TRAIN_MESH_TOL = 1e-6
 
 
-def lm_dryrun_start(out_dir: str) -> list:
-    """Start ``launch.dryrun`` on every cell of LM_DRYRUN_ARCH over both
-    production meshes on the card, one process a cell (``long_500k``'s
-    two, which the shape rules skip, in one).  Returns ``(name, process,
-    report path, log, end)`` for each; a thread fills ``end`` with the
-    process's exit code and seconds when it exits."""
+def lm_dryrun_start(out_dir: str, more: bool = False) -> list:
+    """Start ``launch.dryrun`` on the card: on every cell of LM_DRYRUN_ARCH
+    over both production meshes, one process a cell (``long_500k``'s two,
+    which the shape rules skip, in one), or with ``more`` on each cell of
+    LM_DRYRUN_MORE.  Returns ``(name, process, report path, log, end,
+    layers)`` for each; a thread fills ``end`` with the process's exit
+    code and seconds when it exits."""
     from repro_torch.launch.specs import SHAPES
-    jobs = []
-    for shape in SHAPES:
+    runs = []
+    for shape in () if more else SHAPES:
         meshes = ([["--both-meshes"]] if shape == "long_500k"
                   else [[], ["--multi-pod"]])
         for extra in meshes:
-            name = shape + "".join(extra).replace("--", "@")
-            out = os.path.join(out_dir, name + ".json")
-            log = open(os.path.join(out_dir, name + ".log"), "w")
-            proc = subprocess.Popen(
-                [sys.executable, "-m", "repro_torch.launch.dryrun",
-                 "--arch", LM_DRYRUN_ARCH, "--shape", shape, *extra,
-                 "--out", out], cwd=ROOT, stdout=log,
-                stderr=subprocess.STDOUT,
-                env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
-            t0 = time.perf_counter()
-            ended = {}
-            waiter = threading.Thread(
-                target=lambda p=proc, e=ended, t=t0: e.update(
-                    rc=p.wait(), seconds=time.perf_counter() - t),
-                daemon=True)
-            waiter.start()
-            jobs.append((name, proc, out, log, ended))
+            runs.append((LM_DRYRUN_ARCH, shape, extra, None))
+    for arch, shape, multi_pod, layers in LM_DRYRUN_MORE if more else ():
+        extra = ["--multi-pod"] * multi_pod
+        if layers is not None:
+            extra += ["--layers", str(layers)]
+        runs.append((arch, shape, extra, layers))
+    jobs = []
+    for arch, shape, extra, layers in runs:
+        name = f"{arch}.{shape}" + "".join(extra).replace("--", "@")
+        out = os.path.join(out_dir, name + ".json")
+        log = open(os.path.join(out_dir, name + ".log"), "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun",
+             "--arch", arch, "--shape", shape, *extra,
+             "--out", out], cwd=ROOT, stdout=log,
+            stderr=subprocess.STDOUT,
+            env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
+        t0 = time.perf_counter()
+        ended = {}
+        waiter = threading.Thread(
+            target=lambda p=proc, e=ended, t=t0: e.update(
+                rc=p.wait(), seconds=time.perf_counter() - t),
+            daemon=True)
+        waiter.start()
+        jobs.append((name, proc, out, log, ended, layers))
     return jobs
 
 
 def lm_dryrun_finish(jobs, card) -> dict:
     """Wait for :func:`lm_dryrun_start`'s processes and hold every cell to
-    the pins: admitted cells ``ok``, argument and output bytes exact."""
+    the pins: admitted cells ``ok``, argument and output bytes exact, and
+    temp bytes exact where the cell's collectives are the pins'."""
     from repro_torch.configs import get_config
     from repro_torch.launch.specs import shape_supported
     pins = json.loads(LM_DRYRUN_PINS.read_text())
-    pinned = {(c["shape"], c["mesh"]): c for c in pins["port"]
-              if c["arch"] == LM_DRYRUN_ARCH}
-    cfg = get_config(LM_DRYRUN_ARCH)
+    more = {(a, s, "2x16x16" if mp else "16x16"): n
+            for a, s, mp, n in LM_DRYRUN_MORE}
+    pinned = {}
+    for c in pins["port"] + pins["cuts"]:
+        key = (c["arch"], c["shape"], c["mesh"], c.get("layers"))
+        if c["arch"] == LM_DRYRUN_ARCH or more.get(key[:3], 0) == key[3]:
+            pinned[key] = c
     cells = {}
     try:
-        for name, proc, out, log, ended in jobs:
+        for name, proc, out, log, ended, layers in jobs:
             proc.wait(timeout=LM_DRYRUN_TIMEOUT_S)
             log.close()
             time.sleep(0.1)                 # the waiter records the end
             with open(out) as f:
                 for c in json.load(f):
                     c["process_seconds"] = ended.get("seconds")
-                    cells[(c["shape"], c["mesh"])] = c
+                    cells[(c["arch"], c["shape"], c["mesh"], layers)] = c
     finally:
-        for _, proc, _, log, _ in jobs:
+        for _, proc, _, log, _, _ in jobs:
             if proc.poll() is None:
                 proc.kill()
                 proc.wait()
             log.close()
     assert set(cells) == set(pinned), (sorted(cells), sorted(pinned))
     logs = {}
-    for name, _, _, log, _ in jobs:
+    for name, _, _, log, _, _ in jobs:
         with open(log.name) as f:
             logs[name] = f.read()
     bad = []
-    for key, c in sorted(cells.items()):
+    for key, c in sorted(cells.items(), key=str):
+        arch, shape, mesh, layers = key
         pin = pinned[key]
-        admitted, _ = shape_supported(cfg, c["shape"])
+        admitted, _ = shape_supported(get_config(arch), shape)
         if (c["status"] != ("ok" if admitted else "skipped")
                 or pin["status"] != c["status"]):
             bad.append((key, c["status"], c["reason"], [
                 text[-3000:] for name, text in logs.items()
-                if name.startswith(c["shape"]) and "FAIL" in text]))
-        for field in ("arg_bytes_per_device", "output_bytes_per_device"):
+                if name.startswith(f"{arch}.{shape}") and "FAIL" in text]))
+        # the temp bytes follow the collectives DTensor plans, which a
+        # ``cuda`` mesh may plan otherwise (an all-to-all where a ``cpu``
+        # mesh all-gathers): held exactly where the plan is the pins'
+        same_plan = all(c[f] == pin[f] for f in ("collective_bytes",
+                                                 "collective_counts"))
+        fields = ["arg_bytes_per_device", "output_bytes_per_device"]
+        fields += ["temp_bytes_per_device"] * same_plan
+        for field in fields:
             if c[field] != pin[field]:
                 bad.append((key, field, c[field], pin[field]))
-        emit(phase="lm_dryrun", arch=LM_DRYRUN_ARCH, shape=c["shape"],
-             mesh=c["mesh"], status=c["status"],
+        emit(phase="lm_dryrun", arch=arch, shape=shape, mesh=mesh,
+             cut=(f"{layers} of {get_config(arch).n_layers} layers, "
+                  "widths as published" if layers else None),
+             status=c["status"],
              arg_bytes=c["arg_bytes_per_device"],
              output_bytes=c["output_bytes_per_device"],
-             equal_to_pins="argument and output bytes, exact",
+             equal_to_pins=("argument, output and temp bytes, exact (the "
+                            "pins' collectives)" if same_plan else
+                            "argument and output bytes, exact (other "
+                            "collectives than the pins')"),
              temp_bytes=c["temp_bytes_per_device"],
              cpu_pin_temp_bytes=pin["temp_bytes_per_device"],
              collective_bytes=c["collective_bytes"],
@@ -5571,9 +5614,10 @@ def lm_train_mesh_runs(dev, tmp: str) -> dict:
         LT.make_train_step = made
 
 
-def run_lm_dryrun_phase(card, dev) -> dict:
+def run_lm_dryrun_phase(card, dev, early=()) -> dict:
     """Phase 18: ``lm_dryrun`` (:func:`lm_dryrun_start`'s processes, on
-    the card's host while the training runs) and ``lm_train_mesh``
+    the card's host while the training runs, read with ``early``'s, the
+    LM_DRYRUN_MORE processes started at phase 15) and ``lm_train_mesh``
     (:func:`lm_train_mesh_runs`); the port launches no kernel here.
     Returns the launches, the cells and the seconds."""
     from repro_torch.kernels import launch_counts, zero_launch_counts
@@ -5585,7 +5629,7 @@ def run_lm_dryrun_phase(card, dev) -> dict:
         try:
             runs = lm_train_mesh_runs(dev, tmp)
         finally:
-            cells, bad = lm_dryrun_finish(jobs, card)
+            cells, bad = lm_dryrun_finish(list(early) + jobs, card)
     launches = {"lm_dryrun": launch_counts()}
     mesh, single = runs["mesh"], runs["single"]
     rel = [abs(a - b) / abs(b) for a, b in zip(mesh["losses"],
@@ -5609,7 +5653,8 @@ def run_lm_dryrun_phase(card, dev) -> dict:
         assert resumed[:2] == runs[name]["losses"][2:4], (name, runs)
     seconds = time.perf_counter() - t_phase
     emit(phase="lm_dryrun", part="total", seconds=seconds,
-         cells={"/".join(k): c["status"] for k, c in sorted(cells.items())},
+         cells={"/".join(map(str, k)): c["status"]
+                for k, c in sorted(cells.items(), key=str)},
          launches=launches, card=card)
     return {"launches": launches, "seconds": seconds, "cells": cells,
             "train": runs}
@@ -5921,19 +5966,31 @@ def main() -> int:
     launches.update({f"distributed_{part}": counts
                      for part, counts in distributed["launches"].items()})
 
-    # ---- 15. the LM serve path -------------------------------------------
-    lm = run_lm_phase(card, dev)
+    # phase 18's longest dry-run cells (fake tensors, one host core each)
+    # run on the card's host beside phases 15-17
+    dry_dir = tempfile.mkdtemp(prefix="lm_dryrun_")
+    early = lm_dryrun_start(dry_dir, more=True)
+    try:
+        # ---- 15. the LM serve path ---------------------------------------
+        lm = run_lm_phase(card, dev)
 
-    # ---- 16. LM training -------------------------------------------------
-    lm_train = run_lm_train_phase(card, dev)
+        # ---- 16. LM training ---------------------------------------------
+        lm_train = run_lm_train_phase(card, dev)
 
-    # ---- 17. the LM cost tooling and the LM on a mesh --------------------
-    lm_mesh = run_lm_mesh_phase(card, dev)
-    launches.update(lm_mesh["launches"])
+        # ---- 17. the LM cost tooling and the LM on a mesh ----------------
+        lm_mesh = run_lm_mesh_phase(card, dev)
+        launches.update(lm_mesh["launches"])
 
-    # ---- 18. the dry run and training on a mesh ------------------------
-    lm_dry = run_lm_dryrun_phase(card, dev)
-    launches.update(lm_dry["launches"])
+        # ---- 18. the dry run and training on a mesh ----------------------
+        lm_dry = run_lm_dryrun_phase(card, dev, early)
+        launches.update(lm_dry["launches"])
+    finally:
+        for _, proc, _, log, _, _ in early:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            log.close()
+        shutil.rmtree(dry_dir, ignore_errors=True)
     emit(phase="wall", seconds=time.perf_counter() - t_start,
          event_phase_seconds=event_s, sweep_phase_seconds=swept["seconds"],
          corpus_phase_seconds=corp["seconds"],

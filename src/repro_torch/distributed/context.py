@@ -162,6 +162,28 @@ def current() -> Optional[ShardCtx]:
     return getattr(_STATE, "ctx", None)
 
 
+# The dry run's counter of a step's local ops (``launch.dryrun``), read by
+# the models' recurrences (``models.ssm.scan``) so that they need not
+# import ``launch``.  A counter has ``iteration(fn) -> (fn(), delta)``,
+# ``repeat(delta, times)`` and ``release(y, times)``.
+_LOOPS: Dict[str, Any] = {"counter": None}
+
+
+def loop_counter():
+    """The counter a dry run installed (:func:`counted_by`), or None."""
+    return _LOOPS["counter"]
+
+
+@contextlib.contextmanager
+def counted_by(counter):
+    """Install ``counter`` as :func:`loop_counter` for the block."""
+    prev, _LOOPS["counter"] = _LOOPS["counter"], counter
+    try:
+        yield
+    finally:
+        _LOOPS["counter"] = prev
+
+
 @contextlib.contextmanager
 def use(ctx: Optional[ShardCtx]):
     """Install ``ctx`` for the block.  With a mesh installed, a plain

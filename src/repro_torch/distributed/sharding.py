@@ -245,8 +245,11 @@ def cache_shardings(cache_shape, mesh, multi_pod: bool, cfg):
         elif len(shape) >= 2 and name not in ("pos_slots", "length", "pos"):
             if shape[0] % n_batch == 0:
                 spec[0] = ba
-            # shard the widest remaining dim over model if divisible
+            # shard the widest remaining dim over model if divisible; the
+            # last of the mLSTM's square C, as ``ssm.mlstm`` holds it
             dims = list(range(1, len(shape)))
+            if name == "C" and path[0] == "m":
+                dims.reverse()
             widest = max(dims, key=lambda i: shape[i])
             if shape[widest] % n_model == 0:
                 spec[widest] = "model"

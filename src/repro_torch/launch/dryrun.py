@@ -28,7 +28,7 @@ never meets a real one.
 Usage:
   PYTHONPATH=src python -m repro_torch.launch.dryrun --arch qwen3-0.6b \\
       --shape train_4k [--multi-pod] [--both-meshes] [--all] \\
-      [--out results.json] [--device cpu]
+      [--out results.json] [--device cpu] [--layers N]
 """
 
 from __future__ import annotations
@@ -280,6 +280,7 @@ class _Counter(TorchDispatchMode):
         self.live = 0
         self.peak = 0
         self.paused = 0
+        self.repeated = 0           # iterations counted, not dispatched
         self._seen = weakref.WeakKeyDictionary()
         for t in _tensors(args):
             self._track(t, count=False)
@@ -298,6 +299,60 @@ class _Counter(TorchDispatchMode):
     def _free(self, n: int) -> None:
         self.live -= n
 
+    # a recurrence counted by one of its iterations (``models.ssm.scan``)
+
+    def iteration(self, fn):
+        """``fn()`` and what it counted: FLOPs, bytes, collectives by
+        kind and axis, the live bytes it left and the rise of the live
+        bytes above their start within it."""
+        before = (self.flops, self.bytes, dict(self.coll_bytes),
+                  dict(self.coll_counts), dict(self.by_axis), self.live)
+        peak, self.peak = self.peak, self.live
+        try:
+            out = fn()
+        finally:
+            rise = self.peak - before[5]
+            self.peak = max(peak, self.peak)
+
+        def grown(now, then):
+            return tuple(sorted((k, v - then.get(k, 0))
+                                for k, v in now.items()
+                                if v != then.get(k, 0)))
+
+        return out, (self.flops - before[0], self.bytes - before[1],
+                     grown(self.coll_bytes, before[2]),
+                     grown(self.coll_counts, before[3]),
+                     grown(self.by_axis, before[4]),
+                     self.live - before[5], rise)
+
+    def repeat(self, delta, times: int) -> None:
+        """Count ``times`` more iterations like the one that counted
+        ``delta`` (:meth:`iteration`): its counts ``times`` over, the
+        live bytes it left ``times`` over, and the peak the last of them
+        (or, where they shrink the live bytes, the first) reaches."""
+        if not times:
+            return
+        self.repeated += times
+        flops, nbytes, coll_bytes, coll_counts, by_axis, left, rise = delta
+        self.flops += times * flops
+        self.bytes += times * nbytes
+        for total, grown in ((self.coll_bytes, coll_bytes),
+                             (self.coll_counts, coll_counts),
+                             (self.by_axis, by_axis)):
+            for k, v in grown:
+                total[k] = total.get(k, 0) + times * v
+        self.peak = max(self.peak, self.live + rise
+                        + max(0, (times - 1) * left))
+        self.live += times * left
+
+    def release(self, y, times: int) -> None:
+        """Free the storage of ``times`` copies of ``y`` (a repeated
+        iteration's output, which :meth:`repeat` left live)."""
+        from torch.distributed.tensor import DTensor
+        if times:
+            t = y._local_tensor if isinstance(y, DTensor) else y
+            self.live -= times * t.untyped_storage().nbytes()
+
     def _axis(self, args) -> str:
         """The mesh axis of a collective's group: a functional op names
         its group, a ``c10d`` op passes the group itself."""
@@ -315,6 +370,8 @@ class _Counter(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         from torch.distributed.tensor import DTensor
         kwargs = kwargs or {}
+        if func is torch.ops.prim.device.default:    # a tensor's device
+            return func(*args, **kwargs)
         if any(issubclass(t, DTensor) for t in types):
             return NotImplemented
         packet = func._overloadpacket
@@ -498,7 +555,8 @@ def measure(cfg, shape_name: str, mesh, multi_pod: bool, device,
     fake tensors under ``make_ctx``: the :class:`CellReport` fields it
     measures.  ``detail``, where given, gets the collectives' counts by
     kind and mesh axis (``"all-gather@data"``) and the step's arguments
-    and outputs (fake)."""
+    and outputs (fake), and the number of recurrence iterations counted
+    without being dispatched (``models.ssm.scan``)."""
     axes = {mesh.get_group(n).group_name: n for n in mesh.mesh_dim_names}
     try:
         return _measure(cfg, shape_name, mesh, multi_pod, device, detail,
@@ -516,10 +574,12 @@ def _measure(cfg, shape_name, mesh, multi_pod, device, detail, axes):
         arg_bytes = _local_bytes(args)
         counter = _Counter(args, axes)
         with dctx.use(shd.make_ctx(cfg, mesh, multi_pod)), \
-                _propagation_unseen(counter), counter:
+                _propagation_unseen(counter), dctx.counted_by(counter), \
+                counter:
             out = fn(*args)
         if detail is not None:
-            detail.update(by_axis=dict(counter.by_axis), args=args, out=out)
+            detail.update(by_axis=dict(counter.by_axis), args=args, out=out,
+                          repeated=counter.repeated)
         return {"flops": float(counter.flops),
                 "hlo_bytes": float(counter.bytes),
                 "collective_bytes": dict(counter.coll_bytes),
@@ -581,6 +641,9 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="cpu for fake tensors and a mesh on the host "
                          "(default: the card)")
+    ap.add_argument("--layers", type=int, default=None,
+                    help="cut the depth to this many layers, the widths "
+                         "kept as published")
     args = ap.parse_args(argv)
 
     archs = ARCHS if (args.all or not args.arch) else [args.arch]
@@ -590,10 +653,13 @@ def main(argv=None) -> int:
 
     reports = []
     for arch in archs:
+        cfg = get_config(arch)
+        if args.layers is not None:
+            cfg = dataclasses.replace(cfg, n_layers=args.layers)
         for shape in shapes:
             for mp in meshes:
                 reports.append(run_cell(arch, shape, mp,
-                                        device=args.device))
+                                        device=args.device, cfg=cfg))
     if args.out:
         with open(args.out, "w") as f:
             json.dump([r.to_json() for r in reports], f, indent=1)

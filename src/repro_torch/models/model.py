@@ -35,6 +35,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.device import resolve_device
 from repro_torch.distributed import context as dctx
+from repro_torch.distributed.context import PartitionSpec as P
 from repro_torch.models import layers as L
 from repro_torch.models import ssm as S
 from repro_torch.models.config import ModelConfig
@@ -329,14 +330,15 @@ def _m_block(x, bp, cfg: ModelConfig, st):
     bp = _cast_tree(bp, _cdt(cfg))
     h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
     out, new_st = S.mlstm(h, bp["mlstm"], cfg, state=st)
-    return x + out, new_st
+    # the residual laid out as at the block's edges, as in _block_apply
+    return dctx.constrain(x + out, "act_btd"), new_st
 
 
 def _s_block(x, bp, cfg: ModelConfig, st):
     bp = _cast_tree(bp, _cdt(cfg))
     h = L.rms_norm(x, bp["ln1"], cfg.norm_eps)
     out, new_st = S.slstm(h, bp["slstm"], cfg, state=st)
-    return x + out, new_st
+    return dctx.constrain(x + out, "act_btd"), new_st
 
 
 # ---------------------------------------------------------------------------
@@ -393,6 +395,20 @@ def _head(params, x, cfg: ModelConfig):
             else params["lm_head"])
     logits = x @ head.to(x.dtype)
     return dctx.constrain(logits, "logits")
+
+
+def _served(logits):
+    """The logits a serve step returns.  Under a mesh context with no
+    ``logits`` rule (a vocabulary the ``model`` axis does not divide),
+    laid out by the batch alone, over the batch axes where they divide
+    the rows, else whole: the layout XLA gives ``repro``'s unconstrained
+    output, where DTensor would leave uneven vocabulary shards or partial
+    sums."""
+    ctx = dctx.current()
+    if ctx is None or ctx.spec("logits") is not None:
+        return logits
+    return dctx.constrain_spec(
+        logits, P(L._batch_axes(ctx, logits.shape[0]), None, None))
 
 
 def _remat(cfg: ModelConfig, mode: str) -> bool:
@@ -526,7 +542,7 @@ def decode_step(params, cache, tokens, cfg: ModelConfig,
                                 cache=lc, enc_out=None)
             new_layers.append(c)
         new_cache = {"layers": new_layers, "pos": pos + 1}
-    return _head(params, x, cfg), new_cache
+    return _served(_head(params, x, cfg)), new_cache
 
 
 @torch.inference_mode()
@@ -542,7 +558,7 @@ def prefill(params, tokens, cfg: ModelConfig,
     B, Sp = tokens.shape
     pos = torch.full((), Sp, dtype=torch.int32, device=logits.device)
     if cfg.family == "ssm":
-        return logits[:, -1:], {**caches, "pos": pos}
+        return _served(logits[:, -1:]), {**caches, "pos": pos}
     target = max_len if max_len is not None else Sp + 128
     if cfg.sliding_window:
         target = max(min(target, cfg.sliding_window), Sp)
@@ -557,4 +573,4 @@ def prefill(params, tokens, cfg: ModelConfig,
             attn["pos_slots"] = F.pad(attn["pos_slots"], (0, pad),
                                       value=-(1 << 30))
             c["attn"] = attn
-    return logits[:, -1:], {"layers": caches, "pos": pos}
+    return _served(logits[:, -1:]), {"layers": caches, "pos": pos}

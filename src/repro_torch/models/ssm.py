@@ -4,11 +4,12 @@ xLSTM's mLSTM + sLSTM.
 A port of ``repro.models.ssm``.  All recurrences are chunked as there:
 within a chunk Mamba's recurrence runs as a log-depth inclusive scan
 (``repro`` uses ``jax.lax.associative_scan``; the two differ only by
-float32 rounding) and mLSTM's in matmul form; chunks chain through a
-Python loop carrying O(state) memory.  sLSTM steps through time.  As in
-``layers``, the port follows XLA's float32 where ``repro``'s results
-depend on it: mLSTM's exp of the input gate stays float32 for its float32
-product, and its gate cumsum sums in XLA's order (:func:`_prefix_sum`).
+float32 rounding) and mLSTM's in matmul form; chunks chain through
+:func:`scan`, ``jax.lax.scan``'s counterpart, carrying O(state) memory.
+sLSTM steps through time.  As in ``layers``, the port follows XLA's
+float32 where ``repro``'s results depend on it: mLSTM's exp of the input
+gate stays float32 for its float32 product, and its gate cumsum sums in
+XLA's order (:func:`_prefix_sum`).
 """
 
 from __future__ import annotations
@@ -20,11 +21,68 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.distributed import context as dctx
+from repro_torch.distributed.context import PartitionSpec as P
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.layers import (ParamTree, _dense_init, silu,
-                                      softplus, split_heads, weak)
+from repro_torch.models.layers import (ParamTree, _batch_axes, _dense_init,
+                                      silu, softplus, split_heads, weak)
 
 CHUNK = 256
+
+
+def scan(step, carry, xs, size: Optional[int] = None):
+    """``jax.lax.scan`` along dim 1 of the tensors ``xs``: ``step(carry,
+    x) -> (carry, y)`` for each position of dim 1 (``x`` the tensors at
+    that index, the ``y``s stacked on dim 1), or with ``size`` for each
+    block of ``size`` positions (the ``y``s concatenated on dim 1).
+    Returns the last carry and the joined ``y``s.
+
+    Under a dry run's counter (:func:`dctx.loop_counter`) with autograd
+    off, iterations are dispatched until two in a row count the same;
+    the rest are counted as that one repeated, and their outputs are
+    that one's again (the values are fake), so the joined output, the
+    counts and the peak of live bytes are the full loop's.  A
+    differentiated loop runs every iteration."""
+    # cut once: one view op a tensor, whose backward joins the pieces'
+    # gradients once (a select a step would scatter each step's gradient
+    # into a zero tensor of the whole input)
+    cut = [x.unbind(1) if size is None else x.split(size, dim=1)
+           for x in xs]
+    n = len(cut[0])
+
+    def piece(i):
+        return tuple(c[i] for c in cut)
+
+    def join(ys):
+        return torch.stack(ys, dim=1) if size is None else torch.cat(ys,
+                                                                     dim=1)
+
+    counter = dctx.loop_counter()
+    ys = []
+    if counter is None or torch.is_grad_enabled():
+        for i in range(n):
+            carry, y = step(carry, piece(i))
+            ys.append(y)
+        return carry, join(ys)
+    # the carry passes through a box so that the iteration lets the old
+    # one go before it is counted, as the plain loop's rebinding does
+    box, i, last = [carry], 0, None
+    while i < n:
+        (new, y), delta = counter.iteration(lambda: step(box.pop(),
+                                                         piece(i)))
+        box.append(new)
+        del new
+        ys.append(y)
+        i += 1
+        if delta == last:
+            break
+        last = delta
+    carry = box.pop()
+    rest = n - i
+    counter.repeat(last, rest)
+    out = join(ys + [y] * rest)
+    del ys                      # the pieces, and the repeats' stand-ins
+    counter.release(y, rest)
+    return carry, out
 
 
 # ---------------------------------------------------------------------------
@@ -72,19 +130,17 @@ def _selective_scan_chunked(u, dt, B_t, C_t, a_log, h0):
     c = min(CHUNK, S)
     assert S % c == 0
     A = -torch.exp(a_log.float())                        # (Di, N)
-    h = h0.float()
-    ys = []
-    for i in range(0, S, c):
-        uc, dtc = u[:, i:i + c], dt[:, i:i + c]
-        bc, cc = B_t[:, i:i + c], C_t[:, i:i + c]
+
+    def chunk(h, xs):
+        uc, dtc, bc, cc = xs
         dec = torch.exp(dtc[..., None].float() * A)
         xin = (dtc * uc)[..., None].float() * bc[:, :, None, :].float()
         a_scan, b_scan = _inclusive_scan(dec, xin)
         hs = a_scan * h[:, None] + b_scan                # (B,c,Di,N)
         y = torch.einsum("bcdn,bcn->bcd", hs, cc.float())
-        h = hs[:, -1]
-        ys.append(y.to(u.dtype))
-    y = torch.cat(ys, dim=1)
+        return hs[:, -1], y.to(u.dtype)
+
+    h, y = scan(chunk, h0.float(), (u, dt, B_t, C_t), size=c)
     return y.to(u.dtype), h
 
 
@@ -175,47 +231,18 @@ def init_mlstm(gen, cfg: ModelConfig, dtype, device) -> Dict:
     }
 
 
-def mlstm(x, p, cfg: ModelConfig, state: Optional[Dict] = None):
-    """Chunkwise mLSTM with matrix memory C (B,H,dh,dh) and normalizer n.
+def _mlstm_chunks(q, k, v, i_gate, f_gate, C_st, n_st, c: int, dtype):
+    """The chunk loop of :func:`mlstm`: q, k ``(B,S,H,dh)``, v ``(B,S,H,
+    dv)``, the gates ``(B,S,H)``, the state C ``(B,H,dh,dv)`` and n
+    ``(B,H,dh)``.  ``dv`` is ``dh`` or a shard of it: every product keeps
+    v's last dim as its own.  Returns h ``(B,S,H,dv)`` in ``dtype``, C
+    and n."""
+    mask = (torch.arange(c, device=q.device)[:, None]
+            >= torch.arange(c, device=q.device)[None, :])[None, :, :, None]
 
-    Within a chunk the recurrence is evaluated in matmul form (decay-
-    weighted attention-like products); chunks chain through the carried
-    (C, n) state — the standard chunk-recurrent formulation.
-    """
-    B, S, D = x.shape
-    H = cfg.n_heads
-    di = D * max(cfg.ssm_expand, 1)
-    dh = di // H
-    xz = x @ p["in_proj"]
-    u, z = torch.split(xz, xz.shape[-1] // 2, dim=-1)
-    u = dctx.constrain(u, "act_btf")
-    q = split_heads(u @ p["wq"], H, dh)
-    q = q / weak(math.sqrt(dh), q)
-    k = split_heads(u @ p["wk"], H, dh)
-    v = split_heads(u @ p["wv"], H, dh)
-    # qkv heads are few: under a mesh ``repro`` shards head_dim over the
-    # model axis instead (``act_ssm_heads``)
-    q = dctx.constrain(q, "act_ssm_heads")
-    k = dctx.constrain(k, "act_ssm_heads")
-    v = dctx.constrain(v, "act_ssm_heads")
-    gates = u @ p["w_if"]                                  # (B,S,2H)
-    i_gate = gates[..., :H]
-    f_gate = dctx.elementwise(F.logsigmoid, gates[..., H:].float())
-
-    c = min(CHUNK, S)
-    assert S % c == 0
-    if state is None:
-        C_st = torch.zeros((B, H, dh, dh), dtype=torch.float32,
-                           device=x.device)
-        n_st = torch.zeros((B, H, dh), dtype=torch.float32, device=x.device)
-    else:
-        C_st, n_st = state["C"], state["n"]
-    mask = (torch.arange(c, device=x.device)[:, None]
-            >= torch.arange(c, device=x.device)[None, :])[None, :, :, None]
-    hs = []
-    for i in range(0, S, c):
-        qb, kb, vb = q[:, i:i + c], k[:, i:i + c], v[:, i:i + c]
-        ib, fb = i_gate[:, i:i + c], f_gate[:, i:i + c]
+    def chunk(carry, xs):
+        C_st, n_st = carry
+        qb, kb, vb, ib, fb = xs
         fcum = _prefix_sum(fb)                             # (B,c,H)
         # decay of the carried state to each position t: exp(fcum_t)
         dec_in = torch.exp(fcum)                           # (B,c,H)
@@ -245,10 +272,98 @@ def mlstm(x, p, cfg: ModelConfig, state: Optional[Dict] = None):
         C_st = C_st * torch.exp(fcum[:, -1])[:, :, None, None] + kv
         n_st = n_st * torch.exp(fcum[:, -1])[:, :, None] + torch.einsum(
             "bshd,bsh->bhd", kf, wk)
-        hs.append(h.to(x.dtype))
-    h = torch.cat(hs, dim=1).reshape(B, S, di)
+        return (C_st, n_st), h.to(dtype)
+
+    (C_st, n_st), h = scan(chunk, (C_st, n_st), (q, k, v, i_gate, f_gate),
+                           size=c)
+    return h, C_st, n_st
+
+
+def mlstm(x, p, cfg: ModelConfig, state: Optional[Dict] = None):
+    """Chunkwise mLSTM with matrix memory C (B,H,dh,dh) and normalizer n.
+
+    Within a chunk the recurrence is evaluated in matmul form (decay-
+    weighted attention-like products); chunks chain through the carried
+    (C, n) state — the standard chunk-recurrent formulation.
+
+    Under a mesh context the chunk loop runs on each rank's shards
+    (``shard_map``): the batch over the batch axes; where the
+    ``act_ssm_heads`` rule shards the head dim over an axis, v, C's last
+    dim and h's head dim over it, q, k and n whole on each of its ranks,
+    so that ``k (x) v`` is the rank's block of C and the loop needs no
+    collective (``repro`` shards q, k and v alike and lets GSPMD reduce
+    the contractions over the head dim).
+    """
+    B, S, D = x.shape
+    H = cfg.n_heads
+    di = D * max(cfg.ssm_expand, 1)
+    dh = di // H
+    xz = x @ p["in_proj"]
+    u, z = torch.split(xz, xz.shape[-1] // 2, dim=-1)
+    u = dctx.constrain(u, "act_btf")
+    q = split_heads(u @ p["wq"], H, dh)
+    q = q / weak(math.sqrt(dh), q)
+    k = split_heads(u @ p["wk"], H, dh)
+    v = split_heads(u @ p["wv"], H, dh)
+    # qkv heads are few: under a mesh ``repro`` shards head_dim over the
+    # model axis instead (``act_ssm_heads``)
+    q = dctx.constrain(q, "act_ssm_heads")
+    k = dctx.constrain(k, "act_ssm_heads")
+    v = dctx.constrain(v, "act_ssm_heads")
+    # a sum over the model-sharded inner dim: laid out whole before the
+    # gates are cut apart (DTensor cannot plan the cut's backward from a
+    # partial sum on every mesh)
+    gates = dctx.constrain(u @ p["w_if"], "act_btd")       # (B,S,2H)
+    i_gate = gates[..., :H]
+    f_gate = dctx.elementwise(F.logsigmoid, gates[..., H:].float())
+
+    c = min(CHUNK, S)
+    assert S % c == 0
+    st = () if state is None else (state["C"], state["n"])
+    ctx = dctx.current()
+    hv = None                  # the axis that cuts v's head dim
+    if ctx is not None:
+        batch = _batch_axes(ctx, B)
+        rule = ctx.spec("act_ssm_heads") or P()
+        hv = rule[3] if len(rule) > 3 else None
+        whole, cut = P(batch, None, None, None), P(batch, None, None, hv)
+        gate = P(batch, None, None)
+
+    def loop(q, k, v, i_gate, f_gate, *st):
+        Bl, dv = q.shape[0], v.shape[-1]
+        if st:
+            C0, n0 = st
+        else:
+            C0 = torch.zeros((Bl, H, dh, dv), dtype=torch.float32,
+                             device=x.device)
+            n0 = torch.zeros((Bl, H, dh), dtype=torch.float32,
+                             device=x.device)
+        h, C_new, n_new = _mlstm_chunks(q, k, v, i_gate, f_gate, C0, n0, c,
+                                        x.dtype)
+        if not st:
+            return h
+        if dv < dh:            # n whole on each rank: return its block
+            n_new = n_new.narrow(2, dctx.axis_index(hv) * dv, dv)
+        return h, C_new, n_new
+
+    if ctx is None:
+        res = loop(q, k, v, i_gate, f_gate, *st)
+    else:
+        ins, outs = (whole, whole, cut, gate, gate), cut
+        if st:
+            ins, outs = ins + (cut, gate), (cut, cut, P(batch, None, hv))
+        res = dctx.shard_map(loop, mesh=ctx.mesh, in_specs=ins,
+                             out_specs=outs)(q, k, v, i_gate, f_gate, *st)
+    h, new_state = (res, None) if state is None else (res[0], {
+        "C": res[1], "n": res[2]})
+    if ctx is not None:
+        # whole over ``model`` on both sides of the head merge: DTensor
+        # merges a cut head dim into a strided shard, whose indices a fake
+        # tensor cannot give, and cannot view a gradient cut over more
+        # ranks than divide the heads back into heads (``split_heads``)
+        h = dctx.constrain_spec(h, whole)
+    h = dctx.constrain(h.reshape(B, S, di), "act_btd")
     out = (h * silu(z)) @ p["out_proj"]
-    new_state = {"C": C_st, "n": n_st} if state is not None else None
     return out, new_state
 
 
@@ -271,37 +386,68 @@ def init_slstm(gen, cfg: ModelConfig, dtype, device) -> Dict:
 
 
 def slstm(x, p, cfg: ModelConfig, state: Optional[Dict] = None):
-    """sLSTM with exponential gating (sequential scan over time)."""
+    """sLSTM with exponential gating (sequential scan over time).
+
+    Under a mesh context the time loop runs on each rank's shards
+    (``shard_map``): the batch over the batch axes, the features and the
+    recurrent matrix whole, so that no step needs a collective; a state
+    given is gathered once, and the new one is returned cut over
+    ``model`` as ``cache_shardings`` lays it."""
     B, S, D = x.shape
     pre = x @ p["w_in"]                                    # (B,S,4D)
-    if state is None:
-        h = torch.zeros((B, D), dtype=torch.float32, device=x.device)
-        c = torch.zeros_like(h)
-        n = torch.ones_like(h)
-        m = torch.zeros_like(h)
-    else:
-        h, c, n, m = (state["h"], state["c"], state["n"], state["m"])
     # used at every time step: replicated once here under a mesh
     r_rec = dctx.constrain(p["r_rec"].float(), "replicated2d")
-    hs = []
-    for t in range(S):
-        g = pre[:, t].float() + h @ r_rec
-        zi, ii, fi, oi = torch.split(g, D, dim=-1)
-        z = torch.tanh(zi)
-        o = torch.sigmoid(oi)
-        log_f = dctx.elementwise(F.logsigmoid, fi)
-        m_new = torch.maximum(log_f + m, ii)
-        i_e = torch.exp(ii - m_new)
-        f_e = torch.exp(log_f + m - m_new)
-        c = f_e * c + i_e * z
-        n = f_e * n + i_e
-        h = o * c / torch.clamp(n, min=1.0)
-        m = m_new
-        hs.append(h.to(x.dtype))
-    out = torch.stack(hs, dim=1) @ p["out_proj"]
-    new_state = ({"h": h, "c": c, "n": n, "m": m}
-                 if state is not None else None)
-    return out, new_state
+
+    st = () if state is None else tuple(state[k] for k in "hcnm")
+    ctx = dctx.current()
+    cut = None                 # the axis the new state is returned cut over
+    if ctx is not None:
+        batch = _batch_axes(ctx, B)
+        sizes = dctx.axis_sizes(ctx.mesh)
+        if "model" in sizes and D % sizes["model"] == 0:
+            cut = "model"
+
+    def loop(pre, r_rec, *st):
+        def step(carry, xs):
+            h, c, n, m = carry
+            g = xs[0].float() + h @ r_rec
+            zi, ii, fi, oi = torch.split(g, D, dim=-1)
+            z = torch.tanh(zi)
+            o = torch.sigmoid(oi)
+            log_f_m = F.logsigmoid(fi) + m
+            m_new = torch.maximum(log_f_m, ii)
+            i_e = torch.exp(ii - m_new)
+            f_e = torch.exp(log_f_m - m_new)
+            c = f_e * c + i_e * z
+            n = f_e * n + i_e
+            h = o * c / torch.clamp(n, min=1.0)
+            return (h, c, n, m_new), h.to(x.dtype)
+
+        if not st:
+            h = torch.zeros((pre.shape[0], D), dtype=torch.float32,
+                            device=x.device)
+            st = (h, torch.zeros_like(h), torch.ones_like(h),
+                  torch.zeros_like(h))
+        st, hs = scan(step, st, (pre,))
+        if state is None:
+            return hs
+        if cut is not None:
+            n = D // dctx.axis_size(cut)
+            st = tuple(t.narrow(1, dctx.axis_index(cut) * n, n) for t in st)
+        return (hs,) + st
+
+    if ctx is None:
+        res = loop(pre, r_rec, *st)
+    else:
+        seq = P(batch, None, None)
+        outs = seq if state is None else (seq,) + (P(batch, cut),) * 4
+        res = dctx.shard_map(
+            loop, mesh=ctx.mesh,
+            in_specs=(seq, P(None, None)) + (P(batch, None),) * len(st),
+            out_specs=outs)(pre, r_rec, *st)
+    if state is None:
+        return res @ p["out_proj"], None
+    return res[0] @ p["out_proj"], dict(zip("hcnm", res[1:]))
 
 
 def init_slstm_state(cfg: ModelConfig, batch: int, device) -> Dict:

@@ -23,6 +23,7 @@
 
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -41,6 +42,7 @@ from repro_torch.launch import specs as SP
 from repro_torch.launch.mesh import make_host_mesh
 from repro_torch.models import layers as TL
 from repro_torch.models import model as M
+from repro_torch.models import ssm as TS
 
 ROOT = Path(__file__).resolve().parents[1]
 PINS = json.loads((ROOT / "tools" / "lm_dryrun_pins.json").read_text())
@@ -107,6 +109,79 @@ print(json.dumps([DR.run_cell("qwen3_0_6b", s, multi_pod, verbose=False,
 """
 
 
+#: the recurrences' cells for the counted loops: a cut depth at published
+#: widths and a prefill length whose every iteration is quick to dispatch
+#: (xlstm: one mLSTM block of 4 chunks and one sLSTM block of 1,024 steps;
+#: hymba: one layer, 8 mamba chunks)
+LOOP_CELLS = {"xlstm_1_3b": ({"n_layers": 2, "xlstm_group": 2}, 1024),
+              "hymba_1_5b": ({"n_layers": 1}, 2048)}
+
+#: one cell's prefill on a fake ``16x16`` world, its recurrences counted
+#: (``counted``) or every iteration dispatched (``dispatched``); prints the
+#: measured fields, the collectives by axis and the iterations counted
+#: without being dispatched
+LOOPS_SCRIPT = r"""
+import dataclasses, json, sys
+from repro_torch.configs import get_config
+from repro_torch.distributed import context as dctx
+from repro_torch.launch import dryrun as DR
+from repro_torch.launch import specs as SP
+from repro_torch.launch.mesh import make_production_mesh
+
+arch, cut, seq, mode = (sys.argv[1], json.loads(sys.argv[2]),
+                        int(sys.argv[3]), sys.argv[4])
+SP.SHAPE_SPECS["prefill_32k"] = SP.ShapeSpec("prefill_32k", "prefill", seq,
+                                             32)
+if mode == "dispatched":
+    dctx.loop_counter = lambda: None
+cfg = dataclasses.replace(get_config(arch), **cut)
+detail = {}
+with DR.fake_world(256):
+    mesh = make_production_mesh(device="cpu")
+    got = DR.measure(cfg, "prefill_32k", mesh, False, "cpu", detail)
+print(json.dumps({**got, "by_axis": detail["by_axis"],
+                  "repeated": detail["repeated"]}))
+"""
+
+#: xlstm-1.3b's published widths on the fake ``2x16x16`` world, cut to one
+#: mLSTM and one sLSTM block (``xlstm_group`` 2) and a train step of 256
+#: x 256 tokens: prints the ``CellReport``
+MLSTM_MP_SCRIPT = r"""
+import dataclasses, json
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun as DR
+from repro_torch.launch import specs as SP
+
+SP.SHAPE_SPECS["train_4k"] = SP.ShapeSpec("train_4k", "train", 256, 256)
+cfg = dataclasses.replace(get_config("xlstm_1_3b"), n_layers=2,
+                          xlstm_group=2)
+print(json.dumps(DR.run_cell("xlstm_1_3b", "train_4k", True, verbose=False,
+                             device="cpu", cfg=cfg).to_json()))
+"""
+
+#: the pins' LEAF_CELLS on the fake ``16x16`` world: the port's argument
+#: and output bytes leaf by leaf
+LEAVES_SCRIPT = r"""
+import json, sys
+from repro_torch.configs import get_config
+from repro_torch.launch import dryrun as DR
+from repro_torch.launch.mesh import make_production_mesh
+
+out = {}
+for arch, shape in json.loads(sys.argv[1]):
+    detail = {}
+    with DR.fake_world(256):
+        mesh = make_production_mesh(device="cpu")
+        got = DR.measure(get_config(arch), shape, mesh, False, "cpu", detail)
+    out[f"{arch}/{shape}/16x16"] = {
+        "arg_bytes_by_leaf": DR.local_bytes_by_leaf(tuple(detail["args"])),
+        "output_bytes_by_leaf": DR.local_bytes_by_leaf(tuple(detail["out"])),
+        "arg_bytes_per_device": got["arg_bytes_per_device"],
+        "output_bytes_per_device": got["output_bytes_per_device"]}
+print(json.dumps(out))
+"""
+
+
 def _env(**extra):
     return dict(os.environ, PYTHONPATH=str(ROOT / "src"), **extra)
 
@@ -124,6 +199,19 @@ def started():
             [sys.executable, "-c", CELLS_SCRIPT, str(mp),
              str(PRODUCTION_LAYERS)], env=_env(OMP_NUM_THREADS="1"),
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    for arch, (cut, seq) in LOOP_CELLS.items():
+        for mode in ("counted", "dispatched"):
+            procs[arch, mode] = subprocess.Popen(
+                [sys.executable, "-c", LOOPS_SCRIPT, arch, json.dumps(cut),
+                 str(seq), mode], env=_env(OMP_NUM_THREADS="1"),
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    procs["mlstm_mp"] = subprocess.Popen(
+        [sys.executable, "-c", MLSTM_MP_SCRIPT], env=_env(OMP_NUM_THREADS="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    procs["leaves"] = subprocess.Popen(
+        [sys.executable, "-c", LEAVES_SCRIPT,
+         json.dumps(PINS["leaves"]["cells"])], env=_env(OMP_NUM_THREADS="1"),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
     results = {}
     yield procs, results
     for p in procs.values():
@@ -342,3 +430,263 @@ def _every_chunk(q, k, v, c, window):
         out = acc / l.permute(0, 3, 1, 2)[..., None]
         outs.append(out.reshape(B, c, H * Dh).to(q.dtype))
     return torch.stack(outs, dim=1).reshape(B, S, H * Dh)
+
+
+@pytest.mark.parametrize("arch", list(LOOP_CELLS))
+def test_counted_recurrences_equal_dispatched_ones(started, arch):
+    """The prefill of xlstm-1.3b (mLSTM chunks, sLSTM steps) and of
+    hymba-1.5b (mamba chunks) at published widths, cut in depth and
+    length, on a fake ``16x16`` world: with the recurrences counted by a
+    few iterations and scaled (``ssm.scan`` under the dry run's counter)
+    every measured field (FLOPs, bytes, collectives by kind and by axis,
+    argument, output and temp bytes) equals the fully dispatched loop's
+    exactly; the counted run left iterations undispatched, the other
+    none.  Each run is a process of its own (a process's first cell
+    counts a few bytes of one-off scalars)."""
+    counted = dict(_result(started, (arch, "counted")))
+    dispatched = dict(_result(started, (arch, "dispatched")))
+    assert counted.pop("repeated") > 0
+    assert dispatched.pop("repeated") == 0
+    assert counted == dispatched
+    assert counted["temp_bytes_per_device"] > 0 and counted["flops"] > 0
+
+
+def test_mlstm_train_on_the_multi_pod_mesh(started):
+    """xlstm-1.3b's published widths (4 heads of 512 on a ``model`` axis
+    of 16, ``act_ssm_heads`` cutting the head dim) in a train step on the
+    fake ``2x16x16`` world, cut to one mLSTM and one sLSTM block and 256
+    x 256 tokens: ``ok`` with collectives (it raised ``ValueError:
+    Cannot view a tensor ...`` in ``ssm.mlstm``'s chunk loop before the
+    loop ran on local shards)."""
+    c = _result(started, "mlstm_mp")
+    assert c["status"] == "ok", c["reason"]
+    assert c["mesh"] == "2x16x16"
+    assert c["arg_bytes_per_device"] > 0 and c["temp_bytes_per_device"] > 0
+    assert sum(c["collective_bytes"].values()) > 0, c
+
+
+def _leaf_cells():
+    return [f"{a}/{s}/{m}" for a, s in PINS["leaves"]["cells"]
+            for m in ("16x16", "2x16x16")]
+
+
+#: the argument leaves ``jax.jit`` drops as unused from ``repro``'s steps
+#: (``keep_unused=False``), which XLA's argument size then leaves out: the
+#: image adapter in a decode step, whisper's encoder and cross-attention
+#: key/value projections in one (their keys and values come from the
+#: cache)
+UNUSED = {"phi_3_vision_4_2b/decode_32k": lambda k: k == "0/img_adapter",
+          "whisper_tiny/decode_32k": lambda k: k.startswith((
+              "0/enc_blocks/", "0/enc_norm", "0/blocks/cross/wk",
+              "0/blocks/cross/wv"))}
+#: output leaves whose layout DTensor cannot express: XLA splits
+#: whisper-tiny's 6 cross-attention key/value heads two ways over a
+#: ``model`` axis of 16; the port holds them whole on every ``model`` rank
+WHOLE_OVER_MODEL = {"whisper_tiny/prefill_32k": (
+    "1/layers/cross_kv/0", "1/layers/cross_kv/1")}
+
+
+def _held_leaf_by_leaf(cell, port, repro):
+    """The port's bytes against ``repro``'s, leaf by leaf, and
+    ``repro``'s totals from its leaves (XLA's: the unused arguments left
+    out, an 8-byte tuple entry an output leaf)."""
+    name = cell.rsplit("/", 1)[0]
+    unused = UNUSED.get(name, lambda k: False)
+    assert port["arg_bytes_by_leaf"] == repro["arg_bytes_by_leaf"], cell
+    assert port["arg_bytes_per_device"] == sum(
+        port["arg_bytes_by_leaf"].values())
+    assert sorted(repro["unused_args"]) == sorted(
+        k for k in repro["arg_bytes_by_leaf"] if unused(k)), cell
+    assert repro["arg_bytes_per_device"] == sum(
+        v for k, v in repro["arg_bytes_by_leaf"].items() if not unused(k))
+    whole = WHOLE_OVER_MODEL.get(name, ())
+    want = {k: 2 * v if k in whole else v
+            for k, v in repro["output_bytes_by_leaf"].items()}
+    assert port["output_bytes_by_leaf"] == want, cell
+    assert repro["output_bytes_per_device"] == sum(
+        repro["output_bytes_by_leaf"].values()) + TUPLE_ENTRY * len(want)
+
+
+@pytest.mark.parametrize("cell", [c for c in _leaf_cells()
+                                  if c.endswith("/16x16")])
+def test_leaf_bytes_equal_repro(started, cell):
+    """The cells whose bytes differed from ``repro``'s (phi-3-vision's and
+    whisper-tiny's ``decode_32k`` arguments, whisper-tiny's
+    ``prefill_32k`` and hymba-1.5b's ``long_500k`` outputs), on the fake
+    ``16x16`` world at full size: every argument leaf's bytes equal
+    ``repro``'s, and ``repro``'s argument size is their sum less the
+    leaves ``jax.jit`` drops as unused; every output leaf's bytes equal
+    ``repro``'s (the logits laid out by the batch alone where the
+    ``model`` axis does not divide the vocabulary, ``model._served``) but
+    whisper's cross-attention keys and values, whole over ``model`` where
+    XLA splits their heads two ways."""
+    port = _result(started, "leaves")[cell]
+    _held_leaf_by_leaf(cell, port, PINS["leaves"]["repro"][cell])
+
+
+@pytest.mark.parametrize("cell", _leaf_cells())
+def test_pinned_leaf_bytes_equal_repro(cell):
+    """The same on both meshes for the port's side as
+    ``tools/lm_dryrun_pins.py`` pinned it."""
+    _held_leaf_by_leaf(cell, PINS["leaves"]["port"][cell],
+                       PINS["leaves"]["repro"][cell])
+
+
+# ---------------------------------------------------------------------------
+# ``ssm.scan`` on real tensors: the plain loops it replaced, bit for bit
+# ---------------------------------------------------------------------------
+
+def _plain_selective_scan(u, dt, B_t, C_t, a_log, h0, c):
+    A = -torch.exp(a_log.float())
+    h, ys = h0.float(), []
+    for i in range(0, u.shape[1], c):
+        uc, dtc = u[:, i:i + c], dt[:, i:i + c]
+        bc, cc = B_t[:, i:i + c], C_t[:, i:i + c]
+        dec = torch.exp(dtc[..., None].float() * A)
+        xin = (dtc * uc)[..., None].float() * bc[:, :, None, :].float()
+        a_scan, b_scan = TS._inclusive_scan(dec, xin)
+        hs = a_scan * h[:, None] + b_scan
+        y = torch.einsum("bcdn,bcn->bcd", hs, cc.float())
+        h = hs[:, -1]
+        ys.append(y.to(u.dtype))
+    return torch.cat(ys, dim=1).to(u.dtype), h
+
+
+def _plain_mlstm(x, p, cfg, state, c):
+    B, S, D = x.shape
+    H = cfg.n_heads
+    di = D * max(cfg.ssm_expand, 1)
+    dh = di // H
+    u, z = torch.split(x @ p["in_proj"], di, dim=-1)
+    q = TL.split_heads(u @ p["wq"], H, dh)
+    q = q / TL.weak(math.sqrt(dh), q)
+    k = TL.split_heads(u @ p["wk"], H, dh)
+    v = TL.split_heads(u @ p["wv"], H, dh)
+    gates = u @ p["w_if"]
+    i_gate = gates[..., :H]
+    f_gate = torch.nn.functional.logsigmoid(gates[..., H:].float())
+    if state is None:
+        C_st = torch.zeros((B, H, dh, dh), dtype=torch.float32)
+        n_st = torch.zeros((B, H, dh), dtype=torch.float32)
+    else:
+        C_st, n_st = state["C"], state["n"]
+    mask = (torch.arange(c)[:, None] >= torch.arange(c)[None, :])[
+        None, :, :, None]
+    hs = []
+    for i in range(0, S, c):
+        qb, kb, vb = q[:, i:i + c], k[:, i:i + c], v[:, i:i + c]
+        ib, fb = i_gate[:, i:i + c], f_gate[:, i:i + c]
+        fcum = TS._prefix_sum(fb)
+        dec_in = torch.exp(fcum)
+        logw = (fcum[:, :, None, :] - fcum[:, None, :, :]
+                + ib[:, None, :, :])
+        w = torch.exp(torch.where(mask, logw, -math.inf))
+        qf, kf, vf = qb.float(), kb.float(), vb.float()
+        scores = torch.einsum("bthd,bshd->bths", qf, kf) * w.permute(
+            0, 1, 3, 2)
+        intra = torch.einsum("bths,bshd->bthd", scores, vf)
+        norm_intra = torch.einsum(
+            "bths,bshd->bthd", scores, torch.ones_like(vf[..., :1]))[..., 0]
+        inter = torch.einsum("bthd,bhde->bthe", qf, C_st) * dec_in[..., None]
+        norm_inter = torch.einsum("bthd,bhd->bth", qf, n_st) * dec_in
+        denom = torch.clamp(torch.abs(norm_intra + norm_inter), min=1.0)
+        h = (intra + inter) / denom[..., None]
+        dec_all = torch.exp(fcum[:, -1, None, :] - fcum)
+        wk = dec_all * torch.exp(ib.float())
+        kv = torch.einsum("bshd,bshe,bsh->bhde", kf, vf, wk)
+        C_st = C_st * torch.exp(fcum[:, -1])[:, :, None, None] + kv
+        n_st = n_st * torch.exp(fcum[:, -1])[:, :, None] + torch.einsum(
+            "bshd,bsh->bhd", kf, wk)
+        hs.append(h.to(x.dtype))
+    h = torch.cat(hs, dim=1).reshape(B, S, di)
+    out = (h * TL.silu(z)) @ p["out_proj"]
+    return out, ({"C": C_st, "n": n_st} if state is not None else None)
+
+
+def _plain_slstm(x, p, state):
+    B, S, D = x.shape
+    pre = x @ p["w_in"]
+    if state is None:
+        h = torch.zeros((B, D), dtype=torch.float32)
+        c, n, m = torch.zeros_like(h), torch.ones_like(h), torch.zeros_like(h)
+    else:
+        h, c, n, m = (state[k] for k in "hcnm")
+    r_rec = p["r_rec"].float()
+    hs = []
+    for t in range(S):
+        g = pre[:, t].float() + h @ r_rec
+        zi, ii, fi, oi = torch.split(g, D, dim=-1)
+        z, o = torch.tanh(zi), torch.sigmoid(oi)
+        log_f = torch.nn.functional.logsigmoid(fi)
+        m_new = torch.maximum(log_f + m, ii)
+        i_e = torch.exp(ii - m_new)
+        f_e = torch.exp(log_f + m - m_new)
+        c = f_e * c + i_e * z
+        n = f_e * n + i_e
+        h = o * c / torch.clamp(n, min=1.0)
+        m = m_new
+        hs.append(h.to(x.dtype))
+    out = torch.stack(hs, dim=1) @ p["out_proj"]
+    return out, ({"h": h, "c": c, "n": n, "m": m}
+                 if state is not None else None)
+
+
+def _same(a, b):
+    assert (a is None) == (b is None)
+    if isinstance(a, dict):
+        assert a.keys() == b.keys()
+        for k in a:
+            assert torch.equal(a[k], b[k]), k
+    elif a is not None:
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("stateful", [False, True])
+@pytest.mark.parametrize("block", ["mamba", "mlstm", "slstm"])
+def test_scan_equals_the_plain_loop_bit_for_bit(monkeypatch, block, stateful,
+                                                dtype):
+    """On real tensors ``ssm.scan`` runs every iteration: mamba's chunked
+    selective scan, mLSTM and sLSTM (outputs and, given a state, the new
+    state) equal copies of the plain Python loops they replaced, bit for
+    bit, over 4 chunks (``CHUNK`` 4, 16 positions) of the SMOKE
+    configs' widths, with inputs from NumPy seed 0."""
+    monkeypatch.setattr(TS, "CHUNK", 4)
+    rng = np.random.default_rng(0)
+
+    def rand(*shape, scale=1.0):
+        return torch.as_tensor(rng.standard_normal(shape) * scale,
+                               dtype=torch.float32).to(dtype)
+
+    B, S = 2, 16
+    if block == "mamba":
+        cfg = get_config("hymba_1_5b", smoke=True)
+        di, n = cfg.d_inner, cfg.ssm_state
+        u, dt = rand(B, S, di), rand(B, S, di, scale=0.1).abs()
+        bt, ct = rand(B, S, n), rand(B, S, n)
+        a_log, h0 = rand(di, n), rand(B, di, n).float()
+        got = TS._selective_scan_chunked(u, dt, bt, ct, a_log, h0)
+        want = _plain_selective_scan(u, dt, bt, ct, a_log, h0, 4)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        return
+    cfg = get_config("xlstm_1_3b", smoke=True)
+    D = cfg.d_model
+    gen = torch.Generator().manual_seed(0)
+    x = rand(B, S, D, scale=0.5)
+    if block == "mlstm":
+        p = TS.init_mlstm(gen, cfg, dtype, "cpu")
+        st = TS.init_mlstm_state(cfg, B, "cpu") if stateful else None
+        if st:
+            st = {k: rand(*v.shape, scale=0.1).float() for k, v in st.items()}
+        got = TS.mlstm(x, p, cfg, state=st)
+        want = _plain_mlstm(x, p, cfg, st, 4)
+    else:
+        p = TS.init_slstm(gen, cfg, dtype, "cpu")
+        st = TS.init_slstm_state(cfg, B, "cpu") if stateful else None
+        if st:
+            st = {k: rand(*v.shape, scale=0.1).float() for k, v in st.items()}
+        got = TS.slstm(x, p, cfg, state=st)
+        want = _plain_slstm(x, p, st)
+    _same(got[0], want[0])
+    _same(got[1], want[1])

@@ -41,7 +41,11 @@ than the key/value heads of qwen3-smoke (2) and gemma-smoke (1): their
 loss and every gradient against the unsharded port, and qwen3's against
 ``repro`` on an ``Auto``-axis ``(2, 4)`` mesh (the projections' outputs
 are gathered over ``model`` before a head view that would cut a head
-across ranks, ``layers.split_heads``).
+across ranks, ``layers.split_heads``).  xlstm-smoke's mLSTM cuts its
+head dim (64) over that ``model`` axis of 4: its loss and gradients
+against the unsharded port, and its serve against the unsharded serve;
+and on a ``(data=1, model=8)`` mesh its loss and gradients against the
+unsharded port and ``repro``'s ``Auto``-axis ``(1, 8)`` run.
 """
 
 import functools
@@ -68,9 +72,14 @@ SERVE_ARCHS = ("qwen3_0_6b", "llama4_scout_17b_a16e", "xlstm_1_3b")
 EP_ARCHS = ("arctic_480b", "llama4_scout_17b_a16e")
 REPRO_ARCHS = ("qwen3_0_6b", "arctic_480b", "xlstm_1_3b")
 #: the (2, 4) mesh's configs, and those also held to repro there
-WIDE_ARCHS = ("qwen3_0_6b", "gemma_2b")
+WIDE_ARCHS = ("qwen3_0_6b", "gemma_2b", "xlstm_1_3b")
 WIDE_REPRO_ARCHS = ("qwen3_0_6b",)
+#: served on the (2, 4) mesh too
+WIDE_SERVE_ARCHS = ("xlstm_1_3b",)
 WIDE = "@2x4"
+#: the (1, 8) mesh's configs, each also held to repro there
+NARROW_ARCHS = ("xlstm_1_3b",)
+NARROW = "@1x8"
 
 #: what both packages' rank scripts share: a config without dropped
 #: tokens, the weights from the npz, the batch
@@ -106,7 +115,7 @@ def nested(path):
 """
 
 #: one rank of the gloo world: prints a JSON object on its last line
-RANK_SCRIPT = COMMON + f"WIDE = {WIDE!r}\n" + r"""
+RANK_SCRIPT = COMMON + f"WIDE = {WIDE!r}\nNARROW = {NARROW!r}\n" + r"""
 import datetime, json, sys, time
 import torch
 import torch.distributed as dist
@@ -127,8 +136,8 @@ from repro_torch.tree import leaves, map_tree
 
 rank, world, store, wdir, odir = sys.argv[1:6]
 rank, world = int(rank), int(world)
-serve_archs, ep_archs, repro_archs, wide_archs, wide_repro = (
-    [x for x in a.split(",") if x] for a in sys.argv[6:11])
+(serve_archs, ep_archs, repro_archs, wide_archs, wide_repro, wide_serve,
+ narrow_archs) = ([x for x in a.split(",") if x] for a in sys.argv[6:13])
 OWN_CF = "@own_cf"
 dist.init_process_group("gloo", store=dist.FileStore(store, world),
                         rank=rank, world_size=world,
@@ -341,10 +350,13 @@ def serve_case(arch, mesh, out, steps=4):
 try:
     mesh = make_host_mesh(2, device="cpu")
     wide = make_host_mesh(4, device="cpu")
+    narrow = make_host_mesh(8, device="cpu")
     res = {"mesh": dict(zip(mesh.mesh_dim_names, mesh.mesh.shape)),
            "wide_mesh": dict(zip(wide.mesh_dim_names, wide.mesh.shape)),
+           "narrow_mesh": dict(zip(narrow.mesh_dim_names,
+                                   narrow.mesh.shape)),
            "train": {}, "wide": {}, "own_cf": {}, "attn": {}, "ep": {},
-           "serve": {}}
+           "serve": {}, "wide_serve": {}, "narrow": {}}
     for arch in ARCHS:
         t0 = time.perf_counter()
         print("train", arch, file=sys.stderr, flush=True)
@@ -353,6 +365,10 @@ try:
     for arch in wide_archs:
         print("wide", arch, file=sys.stderr, flush=True)
         train_case(arch, wide, res["wide"], saved=wide_repro, tag=WIDE)
+    for arch in narrow_archs:
+        print("narrow", arch, file=sys.stderr, flush=True)
+        train_case(arch, narrow, res["narrow"], saved=narrow_archs,
+                   tag=NARROW)
     print("attn", file=sys.stderr, flush=True)
     attn_case({2: mesh, 4: wide}, res["attn"])
     for arch in ep_archs:
@@ -362,6 +378,9 @@ try:
     for arch in serve_archs:
         print("serve", arch, file=sys.stderr, flush=True)
         serve_case(arch, mesh, res["serve"])
+    for arch in wide_serve:
+        print("wide serve", arch, file=sys.stderr, flush=True)
+        serve_case(arch, wide, res["wide_serve"])
     print(json.dumps(res))
 finally:
     dist.destroy_process_group()
@@ -382,12 +401,13 @@ from repro.train import data as JD
 from repro.train import step as JS
 
 wdir, odir = sys.argv[1:3]
-mesh42, mesh24 = (jax.make_mesh(shape, ("data", "model"),
-                                axis_types=(AxisType.Auto,) * 2)
-                  for shape in ((4, 2), (2, 4)))
+mesh42, mesh24, mesh18 = (jax.make_mesh(shape, ("data", "model"),
+                                        axis_types=(AxisType.Auto,) * 2)
+                          for shape in ((4, 2), (2, 4), (1, 8)))
 runs = [(a, no_drop, "", mesh42) for a in sys.argv[3].split(",")]
 runs += [(a, f32, "@own_cf", mesh42) for a in sys.argv[4].split(",")]
 runs += [(a, no_drop, sys.argv[6], mesh24) for a in sys.argv[5].split(",")]
+runs += [(a, no_drop, sys.argv[8], mesh18) for a in sys.argv[7].split(",")]
 for arch, as_run, tag, mesh in runs:
     cfg = as_run(get_config(arch, smoke=True))
     params = jax.tree.map(jnp.asarray, nested(f"{wdir}/{arch}.npz"))
@@ -428,13 +448,14 @@ def world(tmp_path_factory):
         [sys.executable, "-c", RANK_SCRIPT, str(r), str(WORLD),
          str(base / "store"), str(wdir), str(port_out), ",".join(SERVE_ARCHS),
          ",".join(EP_ARCHS), ",".join(REPRO_ARCHS), ",".join(WIDE_ARCHS),
-         ",".join(WIDE_REPRO_ARCHS)],
+         ",".join(WIDE_REPRO_ARCHS), ",".join(WIDE_SERVE_ARCHS),
+         ",".join(NARROW_ARCHS)],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
         for r in range(WORLD)]
     procs.append(subprocess.Popen(
         [sys.executable, "-c", REPRO_SCRIPT, str(wdir), str(repro_out),
          ",".join(REPRO_ARCHS), ",".join(EP_ARCHS),
-         ",".join(WIDE_REPRO_ARCHS), WIDE],
+         ",".join(WIDE_REPRO_ARCHS), WIDE, ",".join(NARROW_ARCHS), NARROW],
         env=jenv, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
     try:
         outs = [p.communicate(timeout=RANK_TIMEOUT_S) for p in procs]
@@ -541,6 +562,36 @@ def test_serve_under_serve_specs(world, arch):
     tokens equal to the unsharded serve's."""
     for res in world[1]:
         r = res["serve"][arch]
+        assert r["logits_excess"] <= 0, r
+        assert r["tokens_equal"], r
+        assert r["cache_dtensors"], r
+
+
+@pytest.mark.parametrize("arch", NARROW_ARCHS)
+def test_model_axis_of_eight_equals_unsharded_and_repro(world, arch):
+    """On the ``(1, 8)`` mesh, whose ``model`` axis of 8 cuts
+    xlstm-smoke's mLSTM head dim (64; the port raised in ``ssm.mlstm``
+    on such a mesh): on every rank the loss and every gradient within
+    rtol 1e-4 of the unsharded port's, and rank 0's against ``repro``'s
+    on its ``Auto``-axis ``(1, 8)`` mesh, leaf by leaf."""
+    assert world[0]["narrow_mesh"] == {"data": 1, "model": 8}
+    for res in world[1]:
+        r = res["narrow"][arch]
+        assert r["loss_excess"] <= 0, r
+        assert r["grad_excess"] <= 0, r
+        assert r["dtensor_grads"], r
+        assert r["placed"], r
+    _held_to_repro(world, arch + NARROW)
+
+
+@pytest.mark.parametrize("arch", WIDE_SERVE_ARCHS)
+def test_serve_under_serve_specs_on_the_wider_mesh(world, arch):
+    """The same serve on the ``(2, 4)`` mesh, where xlstm-smoke's mLSTM
+    cuts its head dim (64) over a ``model`` axis of 4 (the port raised
+    in ``ssm.mlstm`` there): logits within rtol 1e-4 and greedy tokens
+    equal to the unsharded serve's on every rank."""
+    for res in world[1]:
+        r = res["wide_serve"][arch]
         assert r["logits_excess"] <= 0, r
         assert r["tokens_equal"], r
         assert r["cache_dtensors"], r

@@ -164,7 +164,19 @@ def test_cache_shardings_equal_repro(arch, mesh):
     cache = TS.input_specs(get_config(arch), "decode_32k")["cache"]
     got = port_specs(TSH.cache_shardings(cache, sizes, multi_pod(sizes),
                                          get_config(arch)), CACHE_STACKED)
-    assert _norm(got) == _norm(want)
+    assert _norm(got) == _norm(_mlstm_c_by_value_dim(want))
+
+
+def _mlstm_c_by_value_dim(specs):
+    """``repro``'s cache specs with the mLSTM state C's ``model`` entry
+    on its last (value) dim: ``repro`` shards the first of C's two equal
+    head dims, the port the one ``ssm.mlstm`` cuts (a departure of the
+    layout, not of the bytes)."""
+    out = dict(specs)
+    for k, v in specs.items():
+        if k.startswith("m/") and k.endswith("/C") and v[-2] == "model":
+            out[k] = v[:-2] + (None, "model")
+    return out
 
 
 @pytest.mark.parametrize("mesh", list(SIZES))

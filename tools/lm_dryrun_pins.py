@@ -15,20 +15,28 @@ Three parts, each in processes of its own:
   leaf's shard bytes), and through the port's ``launch.dryrun.measure``
   on a fake world of 8 ranks as ``make_host_mesh``'s ``(4, 2)``;
 * ``port``: ``python -m repro_torch.launch.dryrun --arch A --shape S
-  --both-meshes --device cpu`` for every architecture and shape,
+  [--multi-pod] --device cpu`` for every architecture, shape and mesh,
   ``--jobs`` at once: every cell's ``CellReport`` at the published
-  config (full depth);
+  config (full depth); and each cell of CUT_CELLS cut in depth
+  (``cuts``);
 * ``repro``: ``repro.launch.dryrun.run_cell`` on every cell, one process
   an architecture, its ``make_production_mesh`` replaced by an
   ``Auto``-axis mesh (``jax.make_mesh``'s default ``Explicit`` axes make
   ``repro``'s ``constrain`` raise under JAX 0.9.0); ``repro`` is not
-  edited.
+  edited;
+* ``leaves``: the cells of LEAF_CELLS on both production meshes, leaf by
+  leaf: ``repro``'s ``_build_fn_and_args`` compiled on the ``Auto``-axis
+  mesh (every argument leaf's and output leaf's shard bytes, the leaves
+  ``jax.jit`` drops as unused, XLA's argument and output sizes) and the
+  port's ``measure`` on the fake world (``local_bytes_by_leaf`` of its
+  arguments and outputs).
 
 A part that does not finish within its time limit (PART_TIMEOUT_S) leaves
-its cells out, and the JSON lists them (``left_out``): the fake step runs
-op by op from Python, so a recurrence over 32k or 512k positions (sLSTM)
-takes hours.  ``--write`` stores ``tools/lm_dryrun_pins.json``; without it
-the tool prints a summary.  The grid takes about 25 minutes with 6 jobs.
+its cells out, and the JSON lists them (``left_out``).  The fake step runs
+op by op from Python, but a prefill's recurrences count a few iterations
+and scale them (``models.ssm.scan``), so no cell comes near the limit.
+``--write`` stores ``tools/lm_dryrun_pins.json``; without it the tool
+prints a summary.  The grid takes about 25 minutes with 6 jobs.
 """
 
 from __future__ import annotations
@@ -50,6 +58,18 @@ SCRIPT_CONFIG = {"arch": "qwen3_0_6b", "smoke": True, "n_layers": 2,
                  "shapes": {"train_4k": ["train", 128, 8],
                             "decode_32k": ["decode", 256, 8]}}
 PART_TIMEOUT_S = 1200
+#: the architectures whose train step differentiates a long Python loop
+#: (sLSTM's 4,096 steps): their cells start first
+RECURRENT = ("xlstm_1_3b", "hymba_1_5b")
+#: cells run cut in depth (``--layers``; the widths as published), for
+#: ``chip_smoke.py``'s phase 18: ``(arch, shape, multi_pod, layers)``
+CUT_CELLS = [["xlstm_1_3b", "train_4k", True, 8]]
+#: the cells whose bytes differed from ``repro``'s before the port's
+#: logits layout was repaired, compared leaf by leaf (``ROADMAP.md`` §3)
+LEAF_CELLS = [["phi_3_vision_4_2b", "decode_32k"],
+              ["whisper_tiny", "decode_32k"],
+              ["whisper_tiny", "prefill_32k"],
+              ["hymba_1_5b", "long_500k"]]
 
 #: ``repro``'s side of ``script``: prints one JSON object
 REPRO_SCRIPT = r"""
@@ -133,6 +153,85 @@ print(json.dumps(reports))
 """
 
 
+#: ``repro``'s side of ``leaves``: prints one JSON object, a cell each
+REPRO_LEAVES = r"""
+import json, re, sys
+import repro.launch.dryrun as DR        # sets XLA_FLAGS (512 devices) first
+import jax
+import numpy as np
+from jax.sharding import AxisType
+from repro.configs import get_config
+from repro.distributed import context as dctx, sharding as shd
+
+
+def key(path):
+    return "/".join(re.findall(r"\[['\"]?([^\]'\"]+)['\"]?\]",
+                               jax.tree_util.keystr(path)))
+
+
+def shard_bytes(tree, shardings):
+    shs = jax.tree.leaves(shardings, is_leaf=lambda x: isinstance(
+        x, jax.sharding.Sharding))
+    return [(key(path), int(np.prod(s.shard_shape(a.shape)))
+             * a.dtype.itemsize) for (path, a), s in
+            zip(jax.tree_util.tree_leaves_with_path(tree), shs)]
+
+
+out = {}
+for arch, shape in json.loads(sys.argv[1]):
+    for mp in (False, True):
+        n = (2, 16, 16) if mp else (16, 16)
+        mesh = jax.make_mesh(n, ("pod", "data", "model")[-len(n):],
+                             axis_types=(AxisType.Auto,) * len(n))
+        cfg = get_config(arch)
+        with dctx.use(shd.make_ctx(cfg, mesh, mp)):
+            fn, args, in_sh, out_sh = DR._build_fn_and_args(cfg, shape,
+                                                            mesh, mp)
+            jt = (jax.jit(fn, in_shardings=in_sh, out_shardings=out_sh)
+                  if out_sh is not None else
+                  jax.jit(fn, in_shardings=in_sh))
+            lowered = jt.lower(*args)
+            compiled = lowered.compile()
+        kept = lowered._lowering.compile_args["kept_var_idx"]
+        arg = shard_bytes(args, in_sh)
+        mem = compiled.memory_analysis()
+        out[f"{arch}/{shape}/{'2x16x16' if mp else '16x16'}"] = {
+            "arg_bytes_by_leaf": dict(arg),
+            "unused_args": [k for i, (k, _) in enumerate(arg)
+                            if i not in kept],
+            "output_bytes_by_leaf": dict(shard_bytes(
+                jax.eval_shape(fn, *args), compiled.output_shardings)),
+            "arg_bytes_per_device": int(mem.argument_size_in_bytes),
+            "output_bytes_per_device": int(mem.output_size_in_bytes)}
+print(json.dumps(out))
+"""
+
+
+def port_leaves() -> dict:
+    """The port's side of ``leaves``, in this process: each cell of
+    LEAF_CELLS on both fake production worlds."""
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as DR
+    from repro_torch.launch.mesh import make_production_mesh
+    out = {}
+    for arch, shape in LEAF_CELLS:
+        for mp in (False, True):
+            detail = {}
+            with DR.fake_world(512 if mp else 256):
+                mesh = make_production_mesh(multi_pod=mp, device="cpu")
+                got = DR.measure(get_config(arch), shape, mesh, mp, "cpu",
+                                 detail)
+            out[f"{arch}/{shape}/{'2x16x16' if mp else '16x16'}"] = {
+                "arg_bytes_by_leaf": DR.local_bytes_by_leaf(
+                    tuple(detail["args"])),
+                "output_bytes_by_leaf": DR.local_bytes_by_leaf(
+                    tuple(detail["out"])),
+                "arg_bytes_per_device": got["arg_bytes_per_device"],
+                "output_bytes_per_device": got["output_bytes_per_device"]}
+    return out
+
+
 def _env(jax: bool):
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     if jax:
@@ -194,16 +293,26 @@ def port_script() -> dict:
         SP.SHAPE_SPECS.update(saved)
 
 
-def port_cells(arch: str, shape: str, timeout: float):
+def port_cells(arch: str, shape: str, timeout: float, multi_pod: bool,
+               layers=None):
+    """The port's cell of ``arch`` x ``shape`` on one production mesh, at
+    full depth or cut to ``layers`` (the report then says so)."""
+    cut = [] if layers is None else ["--layers", str(layers)]
     with tempfile.TemporaryDirectory() as d:
         out = os.path.join(d, "cells.json")
         _, why = _run([sys.executable, "-m", "repro_torch.launch.dryrun",
-                       "--arch", arch, "--shape", shape, "--both-meshes",
-                       "--device", "cpu", "--out", out], False, timeout)
+                       "--arch", arch, "--shape", shape,
+                       *["--multi-pod"] * multi_pod, *cut, "--device",
+                       "cpu", "--out", out], False,
+                      timeout)
         if not os.path.exists(out):
             return None, why or "no report"
         with open(out) as f:
-            return json.load(f), ""
+            cells = json.load(f)
+        if layers is not None:
+            for c in cells:
+                c["layers"] = layers
+        return cells, ""
 
 
 def repro_cells(arch: str, timeout: float):
@@ -218,7 +327,8 @@ def main() -> int:
     ap.add_argument("--archs", default=None,
                     help="comma-separated architectures (default: all)")
     ap.add_argument("--skip-grid", action="store_true",
-                    help="the script part only; keep the pinned grids")
+                    help="the script and leaves parts only; keep the "
+                         "pinned grids")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import ARCHS
@@ -227,23 +337,38 @@ def main() -> int:
     archs = args.archs.split(",") if args.archs else list(ARCHS)
     old = json.loads(PINS.read_text()) if PINS.exists() else {}
     pins = {"script": {"config": SCRIPT_CONFIG}, "port": [], "repro": [],
-            "left_out": []}
+            "left_out": [], "cuts": [], "leaves": {"cells": LEAF_CELLS}}
     with cf.ThreadPoolExecutor(args.jobs) as pool:
         rep_script = pool.submit(_run, [sys.executable, "-c", REPRO_SCRIPT,
                                         json.dumps(SCRIPT_CONFIG)], True,
                                  PART_TIMEOUT_S)
-        grid = {}
+        grid = {("cuts", a, (s, mp, n)): pool.submit(
+            port_cells, a, s, PART_TIMEOUT_S, mp, n)
+            for a, s, mp, n in CUT_CELLS}
         if not args.skip_grid:
+            # a process a cell, the trained recurrences (the longest)
+            # first: each process has PART_TIMEOUT_S from its start
+            cells = sorted(((a, s, mp) for a in archs for s in SHAPES
+                            for mp in (False, True)),
+                           key=lambda c: (c[1] != "train_4k",
+                                          c[0] not in RECURRENT))
+            for arch, shape, mp in cells:
+                grid[("port", arch, (shape, mp))] = pool.submit(
+                    port_cells, arch, shape, PART_TIMEOUT_S, mp)
             for arch in archs:
                 grid[("repro", arch, None)] = pool.submit(
                     repro_cells, arch, PART_TIMEOUT_S)
-                for shape in SHAPES:
-                    grid[("port", arch, shape)] = pool.submit(
-                        port_cells, arch, shape, PART_TIMEOUT_S)
+        rep_leaves = pool.submit(_run, [sys.executable, "-c", REPRO_LEAVES,
+                                        json.dumps(LEAF_CELLS)], True,
+                                 PART_TIMEOUT_S)
         pins["script"]["port"] = port_script()
+        pins["leaves"]["port"] = port_leaves()
         pins["script"]["repro"], why = rep_script.result()
         if why:
             raise SystemExit(f"repro's script part failed: {why}")
+        pins["leaves"]["repro"], why = rep_leaves.result()
+        if why:
+            raise SystemExit(f"repro's leaves part failed: {why}")
         for (side, arch, shape), fut in grid.items():
             cells, why = fut.result()
             if cells is None:
@@ -251,9 +376,13 @@ def main() -> int:
                                          "shape": shape, "reason": why})
             else:
                 pins[side].extend(cells)
+    pins["port"].sort(key=lambda c: (c["arch"], SHAPES.index(c["shape"]),
+                                     c["mesh"]))
     if args.skip_grid:
-        for k in ("port", "repro", "left_out"):
+        for k in ("port", "repro"):
             pins[k] = old.get(k, [])
+        pins["left_out"] += [c for c in old.get("left_out", [])
+                             if c["side"] != "cuts"]
     for shape in SCRIPT_CONFIG["shapes"]:
         p, r = pins["script"]["port"][shape], pins["script"]["repro"][shape]
         print(shape, {k: (p[k], r[k]) for k in (
@@ -261,6 +390,17 @@ def main() -> int:
             "temp_bytes_per_device")},
             "coll", sum(p["collective_bytes"].values()),
             sum(r["collective_bytes"].values()))
+    for cell, p in pins["leaves"]["port"].items():
+        r = pins["leaves"]["repro"][cell]
+        print(cell, {f: (p[f], r[f]) for f in (
+            "arg_bytes_per_device", "output_bytes_per_device")},
+            "unused", r["unused_args"], "outputs differing", {
+                k: (v, r["output_bytes_by_leaf"].get(k))
+                for k, v in p["output_bytes_by_leaf"].items()
+                if v != r["output_bytes_by_leaf"].get(k)})
+    for c in pins["cuts"]:
+        print("cut", c["arch"], c["shape"], c["mesh"], c["layers"],
+              c["status"], c["compile_seconds"])
     for side in ("port", "repro"):
         cells = pins[side]
         print(side, len(cells), "cells:",
