@@ -24,8 +24,11 @@ Phases, one JSON line each:
               ``spmv_ell`` (the row-major entry point at narrow and wide
               k; the sliced-ELL pull at three heavy thresholds) on seeded
               cases with out-of-range ids, to the stated tolerances;
-              ``cache_lookup`` on seeded set-sorted streams (1, 16 and 64
-              ways, a hot set, tags past 2**31), bit for bit;
+              ``cache_lookup`` on seeded set-sorted streams (1, 16, 32
+              ways on the thread path, 33 and 64 on the warp path, a hot
+              set; tags past 2**31, rows and reads handed to the warp
+              path; a stream shaped like the default cache's), each also
+              through the warp path alone, bit for bit;
               ``dram_serve_batch`` and its pre-pass's records on seeded
               programs, one shared by every case and M stacked ones whose
               phase boundaries fall on different steps (M = 1, 3, 5; C =
@@ -69,7 +72,8 @@ Phases, one JSON line each:
               reads (4 of 5 iterations hit); launch and route counts
               zeroed around each case; the ``cache_lookup`` launches are
               kept and held bit for bit to the plain version on the card
-              and timed against their byte bound; counters and runtimes
+              and timed against their byte bound, by the thread path and
+              by the warp path; counters and runtimes
               pinned.  Then a cached
               AccuGraph ``pa-growth`` dynamic run (2 epochs,
               ``verify=True``) with the lines each epoch invalidates.
@@ -1778,40 +1782,78 @@ def check_serve_batch(dev) -> dict:
             "dram_serve_batch_max_abs_diff": worst}
 
 
+def lookup_case(rng, U, W, n, hot=0.0, big=False, invalid=0.5,
+                unsorted=0.0, negative=0.0, twice=0.0):
+    """A set-sorted stream through a warm state: ``hot`` of the reads on
+    set 0, tags from 3W values (half of them past 2**31 with ``big``),
+    ``invalid`` of the ways holding -1; then what the thread path hands
+    to the warp path: ``unsorted`` of the rows with ages that are not a
+    permutation, ``twice`` of the rows holding a line in two ways,
+    ``negative`` of the reads with tag -1 (and with ``big`` the tags past
+    2**31).  Returns ``(seg_ptr, tag, pos, tags, age)`` as NumPy arrays."""
+    row = np.where(rng.random(n) < hot, 0, rng.integers(0, U, n))
+    base = 2**31 - int(1.5 * W) if big else 7
+    tag = base + rng.integers(0, 3 * W, n)
+    tag[rng.random(n) < negative] = -1
+    order = np.argsort(row, kind="stable")
+    seg_ptr = np.concatenate([[0], np.cumsum(np.bincount(row,
+                                                         minlength=U))])
+    tags = np.stack([base + rng.permutation(3 * W)[:W] for _ in range(U)])
+    tags[rng.random((U, W)) < invalid] = -1
+    if W > 1:
+        dup = rng.random(U) < twice
+        tags[dup, 1] = tags[dup, 0] = base
+    age = np.argsort(rng.random((U, W)), axis=1)
+    odd = rng.random(U) < unsorted
+    age[odd] = rng.integers(-2, W + 2, (int(odd.sum()), W))
+    return (seg_ptr.astype(np.int64), tag[order].astype(np.int64),
+            order.astype(np.int32), tags.astype(np.int64),
+            age.astype(np.int64))
+
+
 def check_cache_lookup(dev) -> dict:
     """``cache_lookup`` against its plain version on seeded set-sorted
-    streams: 1, 16 and 64 ways (one and two register slots a lane), one
-    hot set taking most reads, a warm state, tags past 2**31; hits and
-    the updated state bit for bit."""
-    from repro_torch.kernels.cache_lookup.ops import cache_lookup
+    streams (:func:`lookup_case`), hits and the updated state bit for
+    bit: 1, 16, 32 ways (the thread path) and 33, 64 (the warp path, one
+    and two register slots a lane), even and with one hot set; tags past
+    2**31 and rows and reads the thread path hands to the warp path (16,
+    32 and 64 ways); a stream shaped like the default cache's (2,048 sets
+    of ~2,265 reads, 16 ways).  Each stream also through the warp path
+    alone."""
+    from repro_torch.kernels.cache_lookup import ops
     from repro_torch.kernels.cache_lookup.ref import cache_lookup_ref
-    worst, cases = 0, 0
-    for W in (1, 16, 64):
+    streams = {}
+    for W in (1, 16, 32, 33, 64):
         for hot in (0.0, 0.9):
             rng = np.random.default_rng(W * 10 + int(hot * 10))
-            U, n = 61, 4000
-            row = np.where(rng.random(n) < hot, 0, rng.integers(0, U, n))
-            base = 2**31 + 7
-            tag = base + rng.integers(0, 3 * W, n)
-            order = np.argsort(row, kind="stable")
-            seg_ptr = np.concatenate(
-                [[0], np.cumsum(np.bincount(row, minlength=U))])
-            tags = np.where(rng.random((U, W)) < 0.5, -1,
-                            base + rng.permutation(3 * W)[:W][None, :])
-            age = np.argsort(rng.random((U, W)), axis=1)
-            args = [torch.as_tensor(a, device=dev) for a in (
-                seg_ptr.astype(np.int64), tag[order].astype(np.int64),
-                order.astype(np.int32))]
-            t_k, a_k, t_p, a_p = (torch.as_tensor(a.astype(np.int64),
-                                                  device=dev)
-                                  for a in (tags, age, tags, age))
-            hit = cache_lookup(*args, t_k, a_k)
-            hit_p = cache_lookup_ref(*args, t_p, a_p)
+            streams[f"W{W}/hot{hot}"] = lookup_case(rng, 61, W, 4000, hot)
+    for W in (16, 32, 64):
+        rng = np.random.default_rng(500 + W)
+        streams[f"W{W}/big"] = lookup_case(rng, 61, W, 4000, 0.5, big=True)
+        rng = np.random.default_rng(700 + W)
+        streams[f"W{W}/handed"] = lookup_case(
+            rng, 61, W, 4000, 0.5, unsorted=0.3, negative=0.05, twice=0.3)
+    rng = np.random.default_rng(2048)
+    streams["default-like"] = lookup_case(rng, 2048, 16, 2048 * 2265)
+    worst, cases = 0, {}
+    for name, arrays in streams.items():
+        seg_ptr, tag, pos, tags0, age0 = (torch.as_tensor(a, device=dev)
+                                          for a in arrays)
+        t_p, a_p = tags0.clone(), age0.clone()
+        hit_p = cache_lookup_ref(seg_ptr, tag, pos, t_p, a_p)
+        diffs = []
+        for run in (ops.cache_lookup,
+                    lambda *a: ops.launch(*a, warp=True)):
+            t_k, a_k = tags0.clone(), age0.clone()
+            hit = run(seg_ptr, tag, pos, t_k, a_k)
             torch.cuda.synchronize()
-            worst = max(worst, max_abs_diff(hit.int(), hit_p.int()),
-                        max_abs_diff(t_k, t_p), max_abs_diff(a_k, a_p))
-            cases += 1
-    assert worst == 0, f"cache_lookup differs from its plain version: {worst}"
+            diffs.append(max(max_abs_diff(hit.int(), hit_p.int()),
+                             max_abs_diff(t_k, t_p), max_abs_diff(a_k, a_p)))
+        cases[name] = {"ways": int(tags0.shape[1]), "reads": int(tag.numel()),
+                       "max_abs_err": diffs[0], "warp_path_max_abs_err":
+                       diffs[1]}
+        worst = max(worst, *diffs)
+    assert worst == 0, f"cache_lookup differs from its plain version: {cases}"
     return {"cache_lookup_cases": cases, "cache_lookup_max_abs_diff": worst}
 
 
@@ -1892,11 +1934,13 @@ def run_cache_path(sessions, card, dev):
     counts are zeroed just before each case and read just after.  Every
     ``cache_lookup`` launch is kept (its inputs, the state before it) and
     afterwards held exactly to the plain version on the card and timed
-    alone.  Returns the launches by kernel over all cases and the
-    lookup's numbers for the kernel table."""
+    alone, by the path the wrapper takes and by the warp path (the
+    warp-a-set design the thread path replaced for W <= 32).  Returns the
+    launches by kernel over all cases and the lookup's numbers for the
+    kernel table."""
     from repro_torch.core import accel
     from repro_torch.core.cache import CacheConfig
-    from repro_torch.kernels import launch_counts, zero_launch_counts
+    from repro_torch.kernels import build, launch_counts, zero_launch_counts
     from repro_torch.kernels.cache_lookup import ops as lookup_ops
     from repro_torch.kernels.cache_lookup.ref import cache_lookup_ref
     big = CacheConfig(lines=BIG_BRAM_LINES, ways=16, name="vertex-64m")
@@ -1970,18 +2014,32 @@ def run_cache_path(sessions, card, dev):
                    max_abs_diff(t_k, t_p), max_abs_diff(a_k, a_p))
         worst = max(worst, diff)
 
+        # the warp path alone on the same stream (the warp-a-set design,
+        # which the thread path replaced for W <= 32)
+        t_w, a_w = tags0.clone(), age0.clone()
+        hit_w = lookup_ops.launch(seg_ptr, tag, pos, t_w, a_w, warp=True)
+        torch.cuda.synchronize()
+        warp_diff = max(max_abs_diff(hit_w.int(), hit_p.int()),
+                        max_abs_diff(t_w, t_p), max_abs_diff(a_w, a_p))
+        worst = max(worst, warp_diff)
+
         def prep():
             t_k.copy_(tags0)
             a_k.copy_(age0)
 
         U, W = tags0.shape
         counts = seg_ptr[1:] - seg_ptr[:-1]
+        thread_max = build.library().repro_cache_lookup_thread_max_ways()
         calls.append({
             "case": name, "reads": int(tag.numel()), "touched_sets": U,
             "ways": W, "hottest_set_reads": int(counts.max()),
             "hits": int(hit.sum()), "max_abs_err": diff,
+            "path": "thread" if W <= thread_max else "warp",
             "ms": launch_ms(prep, lambda: lookup(seg_ptr, tag, pos, t_k,
                                                  a_k), reps=5),
+            "warp_path_ms": launch_ms(prep, lambda: lookup_ops.launch(
+                seg_ptr, tag, pos, t_k, a_k, warp=True), reps=5),
+            "warp_path_max_abs_err": warp_diff,
             "plain_ms": plain_ms,
             "bound_ms": lookup_bytes(int(tag.numel()), U, W)
             / HBM_BYTES_PER_S * 1e3})
@@ -6120,7 +6178,7 @@ def main() -> int:
     table.append({
         "name": "cache_lookup", "route": "cuda",
         "source": "src/repro_torch/csrc/cache_lookup.cu",
-        "replaces": "src/repro/core/cache.py:257",
+        "replaces": "src/repro/core/cache.py:258",
         "launches": launches["cache"]["cache_lookup"],
         "launches_by_path": by_path["cache_lookup"],
         "max_abs_err": max(c["max_abs_err"] for c in lookup_calls),

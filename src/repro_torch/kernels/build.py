@@ -68,9 +68,10 @@ SIGNATURES = {
     # cols, vals, x, y, slice_ptr, slice_rows, n_slices, chunk_ptr,
     # chunk_rows, n_chunks, ny, k, nx, stream
     "repro_spmv_ell": ([_P] * 6 + [_L, _P, _P, _I, _L, _I, _I, _P], _I),
-    # seg_ptr, tag, pos, tags, age, hit, U, W, stream
-    "repro_cache_lookup": ([_P] * 6 + [_I, _I, _P], _I),
+    # seg_ptr, tag, pos, tags, age, hit, U, W, N, warp, stream
+    "repro_cache_lookup": ([_P] * 6 + [_I, _I, _L, _I, _P], _I),
     "repro_cache_lookup_max_ways": ([], _I),
+    "repro_cache_lookup_thread_max_ways": ([], _I),
     "repro_cuda_error_string": ([_I], ctypes.c_char_p),
 }
 

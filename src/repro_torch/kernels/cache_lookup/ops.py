@@ -5,8 +5,11 @@ stably by set (CSR segments ``seg_ptr``, int64[U + 1]; each read's tag,
 int64[N], and its program-order position, int32[N]) through the touched
 sets' state rows (``tags``, ``age``: int64[U, W], updated in place) and
 returns each read's hit flag, bool[N], in program order.  On the card it
-is one launch of ``csrc/cache_lookup.cu`` (one warp a set), counted in
-``cache_lookup.launches``; for CPU tensors the plain version
+is one launch of ``csrc/cache_lookup.cu``, counted in
+``cache_lookup.launches``: a thread a set for up to 32 ways (the ways in
+recency order in registers, the reads staged into shared memory by
+asynchronous copies), a warp a set above that and for the sets the
+thread path hands over.  For CPU tensors the plain version
 (:func:`~.ref.cache_lookup_ref`) runs.  No fallback: a CUDA tensor goes
 to the kernel or the call raises.
 """
@@ -53,6 +56,15 @@ def cache_lookup(seg_ptr: torch.Tensor, tag: torch.Tensor,
     if tag.device.type != "cuda":
         raise ValueError(f"cache_lookup runs on CUDA or CPU, not "
                          f"{tag.device}")
+    hit = launch(seg_ptr, tag, pos, tags, age)
+    count_launch(cache_lookup)
+    return hit
+
+
+def launch(seg_ptr, tag, pos, tags, age, warp: bool = False):
+    """One launch of the kernel on checked CUDA tensors: the path that
+    ``W`` picks, or with ``warp`` the warp path for every set (to time the
+    two paths on one stream).  Counts nothing."""
     U, W = tags.shape
     lib = library()
     if W > lib.repro_cache_lookup_max_ways():
@@ -64,9 +76,8 @@ def cache_lookup(seg_ptr: torch.Tensor, tag: torch.Tensor,
         code = lib.repro_cache_lookup(seg_ptr.data_ptr(), tag.data_ptr(),
                                       pos.data_ptr(), tags.data_ptr(),
                                       age.data_ptr(), hit.data_ptr(), U, W,
-                                      stream)
+                                      tag.shape[0], int(warp), stream)
     check_launch(code, "cache_lookup")
-    count_launch(cache_lookup)
     return hit
 
 

@@ -5,7 +5,9 @@ A port of ``repro.models.ssm``.  All recurrences are chunked as there:
 within a chunk Mamba's recurrence runs as a log-depth inclusive scan
 (``repro`` uses ``jax.lax.associative_scan``; the two differ only by
 float32 rounding) and mLSTM's in matmul form; chunks chain through
-:func:`scan`, ``jax.lax.scan``'s counterpart, carrying O(state) memory.
+:func:`scan`, ``jax.lax.scan``'s counterpart, carrying O(state) memory,
+and both chunk bodies are rematerialized in the backward pass
+(:func:`remat`), as ``repro`` wraps them in ``jax.checkpoint``.
 sLSTM steps through time.  As in ``layers``, the port follows XLA's
 float32 where ``repro``'s results depend on it: mLSTM's exp of the input
 gate stays float32 for its float32 product, and its gate cumsum sums in
@@ -19,6 +21,7 @@ from typing import Dict, Optional
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.distributed import context as dctx
 from repro_torch.distributed.context import PartitionSpec as P
@@ -85,6 +88,25 @@ def scan(step, carry, xs, size: Optional[int] = None):
     return carry, out
 
 
+def remat(step):
+    """``jax.checkpoint(step)`` for :func:`scan`: where autograd records,
+    ``step(carry, x)`` keeps only its inputs for the backward pass, which
+    runs it again to rebuild its intermediates (``torch.utils.checkpoint``,
+    non-reentrant, given the carry's and ``x``'s tensors one by one, so
+    that each is saved as itself); with autograd off it is ``step``."""
+    def run(carry, x):
+        if not torch.is_grad_enabled():
+            return step(carry, x)
+        one = not isinstance(carry, tuple)
+        c = (carry,) if one else carry
+
+        def body(*a):
+            return step(a[0] if one else a[:len(c)], a[len(c):])
+        return checkpoint(body, *c, *x, use_reentrant=False,
+                          preserve_rng_state=False)
+    return run
+
+
 # ---------------------------------------------------------------------------
 # Mamba (selective SSM), simplified but structurally faithful
 # ---------------------------------------------------------------------------
@@ -124,7 +146,9 @@ def _selective_scan_chunked(u, dt, B_t, C_t, a_log, h0):
     y_t = (h_t * C_t).sum(N)
     Chunked scan carrying h between chunks; the (c, Di, N) decay/input
     tensors are formed inside each chunk, so the live working set is
-    O(B*c*Di*N), never O(B*S*Di*N).
+    O(B*c*Di*N), never O(B*S*Di*N).  The chunk body is rematerialized
+    (:func:`remat`, as ``repro`` checkpoints it): a differentiated scan
+    keeps each chunk's inputs and carry, not its (B, c, Di, N) tensors.
     """
     Bsz, S, Di = u.shape
     c = min(CHUNK, S)
@@ -138,9 +162,12 @@ def _selective_scan_chunked(u, dt, B_t, C_t, a_log, h0):
         a_scan, b_scan = _inclusive_scan(dec, xin)
         hs = a_scan * h[:, None] + b_scan                # (B,c,Di,N)
         y = torch.einsum("bcdn,bcn->bcd", hs, cc.float())
-        return hs[:, -1], y.to(u.dtype)
+        # the carry as a tensor of its own (hs's last row, by the same
+        # ops): a view would keep all of hs alive as the next chunk's
+        # saved input
+        return a_scan[:, -1] * h + b_scan[:, -1], y.to(u.dtype)
 
-    h, y = scan(chunk, h0.float(), (u, dt, B_t, C_t), size=c)
+    h, y = scan(remat(chunk), h0.float(), (u, dt, B_t, C_t), size=c)
     return y.to(u.dtype), h
 
 
@@ -235,8 +262,10 @@ def _mlstm_chunks(q, k, v, i_gate, f_gate, C_st, n_st, c: int, dtype):
     """The chunk loop of :func:`mlstm`: q, k ``(B,S,H,dh)``, v ``(B,S,H,
     dv)``, the gates ``(B,S,H)``, the state C ``(B,H,dh,dv)`` and n
     ``(B,H,dh)``.  ``dv`` is ``dh`` or a shard of it: every product keeps
-    v's last dim as its own.  Returns h ``(B,S,H,dv)`` in ``dtype``, C
-    and n."""
+    v's last dim as its own.  The chunk body is rematerialized
+    (:func:`remat`, as ``repro`` checkpoints it), so that a differentiated
+    loop keeps no chunk's (B, c, c, H) weights.  Returns h ``(B,S,H,dv)``
+    in ``dtype``, C and n."""
     mask = (torch.arange(c, device=q.device)[:, None]
             >= torch.arange(c, device=q.device)[None, :])[None, :, :, None]
 
@@ -274,8 +303,8 @@ def _mlstm_chunks(q, k, v, i_gate, f_gate, C_st, n_st, c: int, dtype):
             "bshd,bsh->bhd", kf, wk)
         return (C_st, n_st), h.to(dtype)
 
-    (C_st, n_st), h = scan(chunk, (C_st, n_st), (q, k, v, i_gate, f_gate),
-                           size=c)
+    (C_st, n_st), h = scan(remat(chunk), (C_st, n_st),
+                           (q, k, v, i_gate, f_gate), size=c)
     return h, C_st, n_st
 
 

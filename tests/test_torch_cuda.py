@@ -634,12 +634,14 @@ def _lookup_inputs(seed, U, W, n, big_tags, hot, device):
         age.astype(np.int64))]
 
 
-@pytest.mark.parametrize("W", [1, 16, 64])
+@pytest.mark.parametrize("W", [1, 16, 32, 33, 64])
 @pytest.mark.parametrize("big_tags", [False, True])
 @pytest.mark.parametrize("hot", [0.0, 0.9])
 def test_cache_lookup_kernel_equals_plain(cuda, W, big_tags, hot):
-    """Hits and the updated state exact, at 1, 16 and 64 ways (one and
-    two register slots a lane), with one hot set and tags >= 2**31."""
+    """Hits and the updated state exact, at 1, 16 and 32 ways (a thread
+    a set; with tags >= 2**31 each set goes to the warp path) and 33 and
+    64 (a warp a set, one and two register slots a lane), with one hot
+    set."""
     from repro_torch.kernels.cache_lookup.ops import cache_lookup
     from repro_torch.kernels.cache_lookup.ref import cache_lookup_ref
     seg_ptr, tag, pos, tags, age = _lookup_inputs(W + int(big_tags), 37, W,
@@ -654,6 +656,34 @@ def test_cache_lookup_kernel_equals_plain(cuda, W, big_tags, hot):
     assert torch.equal(hit.cpu(), want)
     assert torch.equal(tags.cpu(), tags_p) and torch.equal(age.cpu(), age_p)
     assert 0 < int(want.sum()) < len(want)
+
+
+@pytest.mark.parametrize("W", [2, 16, 32])
+def test_cache_lookup_hands_odd_sets_to_the_warp_path(cuda, W):
+    """What the thread path hands to the warp path: rows whose ages are
+    not a permutation or that hold a line in two ways (from their first
+    read), reads of tag -1 or past 2**31 (from that read); and every set
+    through the warp path alone: exact."""
+    from repro_torch.kernels.cache_lookup import ops
+    from repro_torch.kernels.cache_lookup.ref import cache_lookup_ref
+    seg_ptr, tag, pos, tags, age = _lookup_inputs(W, 37, W, 3000, False,
+                                                  0.5, "cpu")
+    rng = np.random.default_rng(W)
+    age[rng.random(37) < 0.3] = torch.as_tensor(
+        rng.integers(-2, W + 2, W))
+    tags[torch.as_tensor(rng.random(37) < 0.2), :2] = 5
+    tag[torch.as_tensor(rng.random(len(tag)) < 0.05)] = -1
+    tag[torch.as_tensor(rng.random(len(tag)) < 0.02)] = 2**31 + 1
+    want_t, want_a = tags.clone(), age.clone()
+    want = cache_lookup_ref(seg_ptr, tag, pos, want_t, want_a)
+    args = [t.to(cuda) for t in (seg_ptr, tag, pos)]
+    for warp in (False, True):
+        t_k, a_k = tags.to(cuda), age.to(cuda)
+        hit = ops.launch(*args, t_k, a_k, warp=warp)
+        torch.cuda.synchronize()
+        assert torch.equal(hit.cpu(), want), warp
+        assert torch.equal(t_k.cpu(), want_t), warp
+        assert torch.equal(a_k.cpu(), want_a), warp
 
 
 def test_cache_filter_on_card_equals_cpu(cuda):

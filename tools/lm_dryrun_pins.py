@@ -4,6 +4,7 @@
 
     PYTHONPATH=src JAX_PLATFORMS=cpu python tools/lm_dryrun_pins.py \\
         [--write] [--jobs N] [--archs a,b] [--skip-grid]
+        [--cells arch/shape,...]
 
 Three parts, each in processes of its own:
 
@@ -57,7 +58,7 @@ SCRIPT_CONFIG = {"arch": "qwen3_0_6b", "smoke": True, "n_layers": 2,
                  "vocab": 512, "mesh": [4, 2],
                  "shapes": {"train_4k": ["train", 128, 8],
                             "decode_32k": ["decode", 256, 8]}}
-PART_TIMEOUT_S = 1200
+PART_TIMEOUT_S = 1800
 #: the architectures whose train step differentiates a long Python loop
 #: (sLSTM's 4,096 steps): their cells start first
 RECURRENT = ("xlstm_1_3b", "hymba_1_5b")
@@ -329,6 +330,11 @@ def main() -> int:
     ap.add_argument("--skip-grid", action="store_true",
                     help="the script and leaves parts only; keep the "
                          "pinned grids")
+    ap.add_argument("--cells", default=None,
+                    help="comma-separated arch/shape: the port's cells "
+                         "to remake (both meshes) beside the script, "
+                         "leaves and cuts parts; keep the other pinned "
+                         "cells")
     args = ap.parse_args()
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.configs import ARCHS
@@ -345,17 +351,20 @@ def main() -> int:
         grid = {("cuts", a, (s, mp, n)): pool.submit(
             port_cells, a, s, PART_TIMEOUT_S, mp, n)
             for a, s, mp, n in CUT_CELLS}
+        chosen = ([tuple(c.split("/")) for c in args.cells.split(",")]
+                  if args.cells else [])
         if not args.skip_grid:
             # a process a cell, the trained recurrences (the longest)
             # first: each process has PART_TIMEOUT_S from its start
             cells = sorted(((a, s, mp) for a in archs for s in SHAPES
-                            for mp in (False, True)),
+                            for mp in (False, True)
+                            if not chosen or (a, s) in chosen),
                            key=lambda c: (c[1] != "train_4k",
                                           c[0] not in RECURRENT))
             for arch, shape, mp in cells:
                 grid[("port", arch, (shape, mp))] = pool.submit(
                     port_cells, arch, shape, PART_TIMEOUT_S, mp)
-            for arch in archs:
+            for arch in [] if chosen else archs:
                 grid[("repro", arch, None)] = pool.submit(
                     repro_cells, arch, PART_TIMEOUT_S)
         rep_leaves = pool.submit(_run, [sys.executable, "-c", REPRO_LEAVES,
@@ -383,6 +392,17 @@ def main() -> int:
             pins[k] = old.get(k, [])
         pins["left_out"] += [c for c in old.get("left_out", [])
                              if c["side"] != "cuts"]
+    elif chosen:
+        pins["port"] += [c for c in old.get("port", [])
+                         if (c["arch"], c["shape"]) not in chosen]
+        pins["port"].sort(key=lambda c: (c["arch"],
+                                         SHAPES.index(c["shape"]),
+                                         c["mesh"]))
+        pins["repro"] = old.get("repro", [])
+        pins["left_out"] += [
+            c for c in old.get("left_out", []) if c["side"] == "repro"
+            or (c["side"] == "port"
+                and (c["arch"], c["shape"][0]) not in chosen)]
     for shape in SCRIPT_CONFIG["shapes"]:
         p, r = pins["script"]["port"][shape], pins["script"]["repro"][shape]
         print(shape, {k: (p[k], r[k]) for k in (
