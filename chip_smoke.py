@@ -49,8 +49,8 @@ Phases, one JSON line each:
               runtimes as the serve's first design gave them.
 6. dynamic  — the dynamic-graph path at full size on the same graph,
               through ``run_dynamic(..., verify=True)``: HitGraph WCC under
-              ``uniform-churn`` (3 epochs, inserts and deletes) and
-              AccuGraph WCC under ``pa-growth`` (3 epochs), sharing the
+              ``uniform-churn`` (1 epoch of updates, inserts and deletes)
+              and AccuGraph WCC under ``pa-growth`` (1 epoch), sharing the
               main path's sessions, with the launch counts zeroed just
               before and read just after (one chunked ``dram_timing`` a
               rewrite phase, no serial one); one row per epoch.  The
@@ -75,7 +75,7 @@ Phases, one JSON line each:
               and timed against their byte bound, by the thread path and
               by the warp path; counters and runtimes
               pinned.  Then a cached
-              AccuGraph ``pa-growth`` dynamic run (2 epochs,
+              AccuGraph ``pa-growth`` dynamic run (1 epoch of updates,
               ``verify=True``) with the lines each epoch invalidates.
               Every run of phases 5-7b packs on the card: the route
               counters show no host pack.
@@ -151,7 +151,8 @@ Phases, one JSON line each:
               AccuGraph case on ``instantiate("wt", 0.1)`` equal to
               ``run_dynamic`` epoch
               for epoch (``sweep_paths``).
-11. corpus  — the corpus at each preset's own size, every graph built
+11. corpus  — the corpus at half of each preset's own size
+              (``CORPUS_SCALE``), every graph built
               by the port into a fresh, empty store: the grid of
               ``benchmarks/corpus_sweep.py`` (6 presets x WCC, PR x both
               accelerators x default memory, HBM2: 48 rows) through
@@ -186,7 +187,7 @@ Phases, one JSON line each:
 13. lock_witness — the port's threads on the card under the lock witness
               (``REPRO_ANALYSIS_LOCKS=1`` for this phase only), counts and
               the witness's record zeroed around each part: a cold
-              ``SimSession`` on the full-size wiki-talk stand-in taking 16
+              ``SimSession`` on the full-size wiki-talk stand-in taking 8
               WCC runs (HitGraph and AccuGraph, mixed order) from 8
               threads, every report equal to the main path's field for
               field, one algorithm run an engine and one serve a run; a
@@ -253,7 +254,7 @@ Phases, one JSON line each:
               gemma and the two MoE ones) held the same way, every
               gradient finite; ``train_full``, qwen3-0.6b as published
               (28 layers, bf16 compute, float32 state) through
-              ``launch.train.main``: 20 steps of 8 x 512 tokens (the loss
+              ``launch.train.main``: 10 steps of 8 x 512 tokens (the loss
               falls by at least 1 nat), 4 with ``--grad-accum 2``, one
               step with ``remat`` off, step ms, tokens/s, the profiler's
               busy ms and kernel count of a step, peak memory;
@@ -291,8 +292,9 @@ Phases, one JSON line each:
               port's kernel launch counts zeroed before and all zero
               after: ``lm_dryrun``, ``python -m repro_torch.launch.dryrun
               --arch qwen3-0.6b`` over both production meshes, one process
-              a cell (``long_500k``'s two in one), all started at once at
-              the phase's start and read at its end: every cell on fake
+              a cell (``long_500k``'s two in one), all started at once
+              before phase 9, so that they run beside phases 9-17, and
+              read at this phase's end: every cell on fake
               tensors on the card and a ``cuda`` mesh over a fake world of
               256 (512) ranks, every admitted cell ``ok``, its argument
               and output bytes equal to the CPU pins exactly, its
@@ -301,19 +303,35 @@ Phases, one JSON line each:
               16x16 (their recurrences counted by a few iterations) and
               xlstm-1.3b's ``train_4k`` on 2x16x16 cut to 8 of its 48
               layers (one group of 7 mLSTM blocks and an sLSTM block,
-              the widths as published), started with phase 15 so that
-              they run beside phases 15-17, each ``ok`` with argument and
+              the widths as published), started with phase 11 so that
+              they run beside phases 11-17, each ``ok`` with argument and
               output bytes equal to the CPU pins; every cell's temp bytes
               equal the pins' where its collectives do;
-              ``lm_train_mesh``, meanwhile, qwen3-0.6b as published (28
-              layers, bf16 compute) through ``launch.train.main``, 4 steps
-              of 2 x 256 tokens saving every 2, on a one-rank NCCL group
-              (the mesh path, ``(1, 1)``) and with no group (unsharded):
-              every loss within 1e-6 relative of the other's; then each
-              resumed from its step-2 checkpoint, steps 3-4 equal to the
-              uninterrupted run's exactly; each step's ms both ways.  The
+              ``lm_train_mesh``, meanwhile, qwen3-0.6b at its published
+              widths cut to 8 of its 28 layers (bf16 compute) through
+              ``launch.train.main``, 4 steps
+              of 2 x 256 tokens saving at steps 2 and 4, on a one-rank
+              NCCL group (the mesh path, ``(1, 1)``) and with no group
+              (unsharded): every loss within 1e-6 relative of the other's;
+              then each resumed from its step-2 checkpoint with the same
+              arguments, steps 3-4 equal to the uninterrupted run's
+              exactly (step 4 after an update from the restored
+              optimizer state); each step's ms both ways.  The
               pins are ``tools/lm_dryrun_pins.json``, made by
-              ``tools/lm_dryrun_pins.py``.  Then the script's wall time.
+              ``tools/lm_dryrun_pins.py``.
+19. examples — ``examples/torch_quickstart.py`` on the card at its own
+              size (WCC on rmat(13, 8) on both accelerators, the four
+              §5 variants in one ``sweep``, the event-driven cross-check
+              on rmat(9, 4)), counts zeroed just before and read just
+              after: its printed reports equal to the JAX package's
+              (``tools/example_pins.json``, made by
+              ``tools/example_pins.py``).  Then the seconds of every
+              phase and the script's total (``phase_seconds``).
+
+While phase 18's dry-run processes run (from phase 9 on), each takes a
+host core: every line printed meanwhile carries
+``concurrent_dryrun_jobs``, how many ran since the line before, and its
+host-clock numbers were taken beside them.
 
 Then the kernel table, the card's name and power limit, and last
 ``{"ok": true, "device": {...}}``.  Any failure raises: the script exits
@@ -323,8 +341,10 @@ CUDA device.
 
 from __future__ import annotations
 
+import atexit
 import dataclasses
 import hashlib
+import importlib.util
 import json
 import os
 import shutil
@@ -354,14 +374,16 @@ MAIN_EXPECT = {"hitgraph": (8, 743_776), "accugraph": (5, 859_351)}
 #: and, for the stationary path, the problem.
 PINNED_RUNTIME_NS = {
     ("main", "hitgraph"): 22798622.5, ("main", "accugraph"): 18188865.0,
-    ("dynamic", "hitgraph"): 117134917.5,
-    ("dynamic", "accugraph"): 75154640.83333334,
+    ("dynamic", "hitgraph"): 52371295.0,
+    ("dynamic", "accugraph"): 42746426 / 1.2,
     ("stationary", "hitgraph"): 11096311.25,
     ("stationary", "accugraph"): 10913661.666666668,
 }
 
-#: the dynamic path: accelerator -> update stream (3 epochs each)
+#: the dynamic path: accelerator -> update stream, cut to DYNAMIC_EPOCHS
+#: epochs of updates after epoch 0 (the presets have 3)
 DYNAMIC_CASES = {"hitgraph": "uniform-churn", "accugraph": "pa-growth"}
+DYNAMIC_EPOCHS = 1
 
 #: per-epoch (iterations, total_requests) of the dynamic path, pinned from
 #: this script's first H100 run (the port's own numbers: no JAX run of the
@@ -369,10 +391,8 @@ DYNAMIC_CASES = {"hitgraph": "uniform-churn", "accugraph": "pa-growth"}
 #: main path (MAIN_EXPECT); every epoch's labelling is also checked
 #: against a static recompute (``verify=True``).
 DYNAMIC_PINNED = {
-    "hitgraph": [(8, 12_306_821), (9, 15_517_544), (10, 16_791_707),
-                 (11, 18_799_090)],
-    "accugraph": [(5, 4_958_483), (4, 4_565_454), (5, 5_582_023),
-                  (4, 4_695_464)],
+    "hitgraph": [(8, 12_306_821), (9, 15_517_544)],
+    "accugraph": [(5, 4_958_483), (4, 4_565_454)],
 }
 KERNELS = ("dram_serve", "serve_prepass", "dram_serve_batch",
            "serve_prepass_batch", "dram_timing", "dram_timing_serial",
@@ -397,12 +417,13 @@ PINNED_CACHE = {
                                   13047101.666666668),
 }
 
-#: the cached dynamic run: AccuGraph WCC under ``pa-growth``, 2 epochs,
-#: ``cache="default"``; per epoch (iterations, total_requests, cache_hits,
-#: cache_lines_invalidated), pinned from the first H100 run
-CACHED_DYNAMIC_EPOCHS = 2
-PINNED_CACHED_DYNAMIC = ([(5, 4_958_483, 0, 0), (4, 4_565_454, 0, 32_768),
-                          (5, 5_582_023, 0, 32_768)], 57117990.833333336)
+#: the cached dynamic run: AccuGraph WCC under ``pa-growth``, 1 epoch of
+#: updates, ``cache="default"``; per epoch (iterations,
+#: total_requests, cache_hits, cache_lines_invalidated), pinned from the
+#: first H100 run, and the run's runtime (its cycles over the clock)
+CACHED_DYNAMIC_EPOCHS = 1
+PINNED_CACHED_DYNAMIC = ([(5, 4_958_483, 0, 0), (4, 4_565_454, 0, 32_768)],
+                         42746426 / 1.2)
 
 #: the carry scan's group lengths timed on the full rewrite phases (1: one
 #: serial walk over the chunks)
@@ -432,19 +453,20 @@ TRACE_CASES = (("ddr3-1600k-4ch-2rank", "hitgraph", 1 << 18, False),
                ("ddr4-2400r-faw", "accugraph", 1 << 18, True))
 
 #: the reference machine's graph, ``instantiate("wt", REFERENCE_SCALE)``:
-#: the largest step of the ladder 0.01, 0.02, 0.05, 0.1, 0.2 whose WCC
-#: and BFS runs stay within REFERENCE_BUDGET_S on the card's host in this
-#: script (``tools/event_scales.py`` times the ladders alone; the host's
-#: speed varies by about 1.4x between machines, and 0.2 took 41-77 s; the
-#: element replay's cost grows with edges x iterations, so full size is
-#: out of reach).  BFS starts at the vertex of highest degree.
-REFERENCE_SCALE = 0.1
+#: a step of the ladder 0.01, 0.02, 0.05, 0.1, 0.2 whose WCC and BFS runs
+#: stay well within REFERENCE_BUDGET_S on the card's host in this script
+#: (``tools/event_scales.py`` times the ladders alone; the host's speed
+#: varies by about 1.4x between machines; 0.2 took 41-77 s, 0.1 26 s;
+#: the element replay's cost grows with edges x
+#: iterations, so full size is out of reach).  BFS starts at the vertex of
+#: highest degree.
+REFERENCE_SCALE = 0.02
 REFERENCE_BUDGET_S = 60.0
 #: ``run_study``'s graph, ``instantiate("wt", STUDY_SCALE)``, at the Fig. 13
-#: partition size (q = 1,024,000 at full size, scaled): the largest step of
-#: the ladder 0.1, 0.2, 0.5, 1.0 whose five variants stay within
-#: STUDY_BUDGET_S in this script (full size took 43-64 s)
-STUDY_SCALE = 0.5
+#: partition size (q = 1,024,000 at full size, scaled), a tenth of the
+#: graph, whose five variants stay well within STUDY_BUDGET_S in this
+#: script (full size took 43-64 s, 0.5 27 s)
+STUDY_SCALE = 0.1
 STUDY_BUDGET_S = 60.0
 #: the event replay may take this long a run before the event_main line
 #: would need a cut graph
@@ -464,8 +486,11 @@ SWEEP_WINDOW = 1024
 SWEEP_DYNAMIC_SCALE = 0.1
 
 #: phase 11, the corpus: the grid, the ordering arms and the BRAM cases of
-#: benchmarks/corpus_sweep.py at each preset's own size (graph_scale=1.0,
-#: no cut), then two scenarios in the ScenarioSpec form
+#: benchmarks/corpus_sweep.py at CORPUS_SCALE of each preset's own size
+#: (R-MAT and Kronecker presets one scale step down, the others half their
+#: vertices and edges, karate whole), then two scenarios in the
+#: ScenarioSpec form
+CORPUS_SCALE = 0.5
 CORPUS = ("karate", "rmat-16", "kron-social", "powerlaw-social",
           "road-grid", "lj-sample")
 CORPUS_PROBLEMS = ("wcc", "pr")
@@ -494,25 +519,25 @@ CORPUS_KERNELS = ("dram_serve", "serve_prepass", "dram_serve_batch",
 #: the JAX package's numbers for phase 11, made on the CPU by the same calls
 CORPUS_GRAPHS = {
     'karate': ('karate', 34, 156, '0469df9766907f391dec291af8a2306b'),
-    'rmat-16': ('rmat-16', 65536, 1048576, 'a305eb5a5c3a2e8720f8a14bb32db287'),
+    'rmat-16': ('rmat-16', 32768, 524288, '080b24d73f637a535e089e04a3335b6b'),
     'kron-social':
-        ('kron-social', 65536, 786432, '2418ebcfdc1fe1aed5f5101dbc7b9cbe'),
+        ('kron-social', 32768, 393216, '7ed33bb5ab795063794024ee13397ff7'),
     'powerlaw-social':
-        ('powerlaw-social', 65536, 1048576, '7296b431a2d5cac0f626545f5caa0c8a'),
+        ('powerlaw-social', 32768, 524288, '7d9ed2a49e4ae08eae881a16abcdb5e3'),
     'road-grid':
-        ('road-grid', 65536, 261120, 'b48e698f188af1a7d6b087a65218a82b'),
+        ('road-grid', 32761, 130320, '3f18aebc1216e295499c98fc6cc10b7d'),
     'lj-sample':
-        ('lj-sample', 24237, 344968, 'bf569d436e52388cd6c08d3c292a4b5b'),
+        ('lj-sample', 12118, 172484, 'ece64216e818ea6051b335d94766a93d'),
     'powerlaw-social:degree':
-        ('powerlaw-social+degsort', 65536, 1048576, 'be214a8193036b6136bd2a9531434e96'),
+        ('powerlaw-social+degsort', 32768, 524288, 'ab88729446f54035ec27287d4dc643f9'),
     'powerlaw-social:bfs':
-        ('powerlaw-social+bfsorder', 65536, 1048576, '76ca63441327faa59e3b393ae2ec2565'),
+        ('powerlaw-social+bfsorder', 32768, 524288, 'ea52a1f60f8429af86c2b6aa0700922c'),
     'powerlaw-social:shuffle':
-        ('powerlaw-social+shuffle', 65536, 1048576, '4cd39aec5b8543f2f48c037b834f3c0f'),
+        ('powerlaw-social+shuffle', 32768, 524288, '7810d3ac9e1feff16a824abf2cbc4409'),
     'road-grid:bfs':
-        ('road-grid+bfsorder', 65536, 261120, 'fb071193d9228710283d42e53be95735'),
+        ('road-grid+bfsorder', 32761, 130320, '38eb6b03196272f1f127510093856258'),
     'road-grid:shuffle':
-        ('road-grid+shuffle', 65536, 261120, '911452fe73280d0f3a78c9f83c249f9d'),
+        ('road-grid+shuffle', 32761, 130320, '8d0a0d7e87192af01ab8338f38d05022'),
 }
 CORPUS_PINS = {
     ('karate', 'wcc', 'hitgraph', 'default', 'none'):
@@ -532,117 +557,117 @@ CORPUS_PINS = {
     ('karate', 'pr', 'accugraph', 'hbm2', 'none'):
         (91.0, 19, 1, 11, 0, 0, '6f7a2eaf5a6c6292'),
     ('rmat-16', 'wcc', 'hitgraph', 'default', 'none'):
-        (5168218.75, 1033531, 7, 1019542, 0, 0, '0c7d7825aa951583'),
+        (2277996.25, 445756, 6, 436539, 0, 0, '81c96c10ab0f220f'),
     ('rmat-16', 'wcc', 'hitgraph', 'hbm2', 'none'):
-        (4695053.0, 1033531, 7, 992755, 0, 0, '742561a80a4e4fcd'),
+        (2017565.0, 445756, 6, 430302, 0, 0, 'd8be59d734d7808b'),
     ('rmat-16', 'wcc', 'accugraph', 'default', 'none'):
-        (1366136.6666666667, 303261, 4, 297592, 0, 0, '81259d95963e3859'),
+        (854290.8333333334, 188406, 5, 185043, 0, 0, '1876e4b0fadf124e'),
     ('rmat-16', 'wcc', 'accugraph', 'hbm2', 'none'):
-        (1315138.0, 303261, 4, 290263, 0, 0, 'f5d7ea1516744a4c'),
+        (822167.0, 188406, 5, 180556, 0, 0, '2dea40b3273faa9c'),
     ('rmat-16', 'pr', 'hitgraph', 'default', 'none'):
-        (767398.75, 153466, 1, 151031, 0, 0, 'f39cd7767ee43bfb'),
+        (386122.5, 76930, 1, 75470, 0, 0, '40e720bfb04e1e20'),
     ('rmat-16', 'pr', 'hitgraph', 'hbm2', 'none'):
-        (680647.0, 153466, 1, 146764, 0, 0, '4aea6f547cfe44d1'),
+        (340827.0, 76930, 1, 74089, 0, 0, '5f0e059b1a3cfba7'),
     ('rmat-16', 'pr', 'accugraph', 'default', 'none'):
-        (341724.1666666667, 77825, 1, 76120, 0, 0, '41c5bf4fd50f4e1b'),
+        (171057.5, 38913, 1, 38068, 0, 0, '0f107e06b57e2cdf'),
     ('rmat-16', 'pr', 'accugraph', 'hbm2', 'none'):
-        (328771.0, 77825, 1, 74232, 0, 0, '2b7f8a5ceb6c48b9'),
+        (164419.0, 38913, 1, 37133, 0, 0, 'adfd64ad113fa4e3'),
     ('kron-social', 'wcc', 'hitgraph', 'default', 'none'):
-        (4689331.25, 937737, 8, 923398, 0, 0, '490a97f37fcd9327'),
+        (2075118.75, 414911, 7, 408349, 0, 0, '5f44fb8807876055'),
     ('kron-social', 'wcc', 'hitgraph', 'hbm2', 'none'):
-        (4102804.0, 937737, 8, 901473, 0, 0, 'fb660e08bdd25ff4'),
+        (1804439.0, 414911, 7, 399642, 0, 0, '44365d6733917eb2'),
     ('kron-social', 'wcc', 'accugraph', 'default', 'none'):
-        (1038866.6666666667, 237772, 4, 232585, 0, 0, '5c80e1b0ebaa58c5'),
+        (519970.0, 118577, 4, 116039, 0, 0, '23045b71580f1669'),
     ('kron-social', 'wcc', 'accugraph', 'hbm2', 'none'):
-        (987458.0, 237772, 4, 226843, 0, 0, '738ecbfb2be99e35'),
+        (493890.0, 118577, 4, 113248, 0, 0, '8d52ade5367efbad'),
     ('kron-social', 'pr', 'hitgraph', 'default', 'none'):
-        (623808.75, 124748, 1, 122289, 0, 0, 'a8b8276265d40a75'),
+        (312718.75, 62530, 1, 61376, 0, 0, 'f650ecedf9d5e1a6'),
     ('kron-social', 'pr', 'hitgraph', 'hbm2', 'none'):
-        (526932.0, 124748, 1, 119444, 0, 0, '9757a18963d07864'),
+        (263867.0, 62530, 1, 60067, 0, 0, '4c499e3d93f53833'),
     ('kron-social', 'pr', 'accugraph', 'default', 'none'):
-        (259930.83333333334, 61441, 1, 59856, 0, 0, '9cae4b72ec7ba44b'),
+        (130224.16666666667, 30721, 1, 29938, 0, 0, '0fa22c8004859622'),
     ('kron-social', 'pr', 'accugraph', 'hbm2', 'none'):
-        (246851.0, 61441, 1, 58399, 0, 0, '1636adac042e0f11'),
+        (123459.0, 30721, 1, 29217, 0, 0, '6c60e43705bf6864'),
     ('powerlaw-social', 'wcc', 'hitgraph', 'default', 'none'):
-        (5262778.75, 1052443, 7, 1038376, 0, 0, '686b5b6e3b7f5919'),
+        (2293911.25, 458686, 6, 452111, 0, 0, 'da7459b2aaf9c181'),
     ('powerlaw-social', 'wcc', 'hitgraph', 'hbm2', 'none'):
-        (4748886.0, 1052443, 7, 1013283, 0, 0, 'cc1675aa0daf9a10'),
+        (2050553.0, 458686, 6, 441424, 0, 0, 'e6887f3c6d4babfa'),
     ('powerlaw-social', 'wcc', 'accugraph', 'default', 'none'):
-        (1707483.3333333335, 376214, 5, 369585, 0, 0, '039fd88973b499fb'),
+        (683480.0, 151331, 4, 148555, 0, 0, '854e06670b44fee5'),
     ('powerlaw-social', 'wcc', 'accugraph', 'hbm2', 'none'):
-        (1643927.0, 376214, 5, 360593, 0, 0, 'f2355cbe94deb075'),
+        (657730.0, 151331, 4, 144968, 0, 0, 'b29a86159fa8114d'),
     ('powerlaw-social', 'pr', 'hitgraph', 'default', 'none'):
-        (797708.75, 159528, 1, 156791, 0, 0, 'ad75af4132130d03'),
+        (398968.75, 79780, 1, 78405, 0, 0, '653d0077b8477c87'),
     ('powerlaw-social', 'pr', 'hitgraph', 'hbm2', 'none'):
-        (695977.0, 159528, 1, 152920, 0, 0, 'f028ae71b48e2182'),
+        (348210.0, 79780, 1, 76534, 0, 0, '8ae8cda3afe6ac93'),
     ('powerlaw-social', 'pr', 'accugraph', 'default', 'none'):
-        (341724.1666666667, 77825, 1, 76120, 0, 0, '6e0d0353bd2620dc'),
+        (171057.5, 38913, 1, 38068, 0, 0, '4a842989c67416c6'),
     ('powerlaw-social', 'pr', 'accugraph', 'hbm2', 'none'):
-        (328771.0, 77825, 1, 74232, 0, 0, '4354416c12c67185'),
+        (164419.0, 38913, 1, 37133, 0, 0, 'a358260f9f4924b9'),
     ('road-grid', 'wcc', 'hitgraph', 'default', 'none'):
-        (130799573.75, 26151486, 511, 25525151, 0, 0, 'ee3eb93c2856c947'),
+        (46269773.75, 9248199, 361, 9025559, 0, 0, '85a8b4cbedb8be96'),
     ('road-grid', 'wcc', 'hitgraph', 'hbm2', 'none'):
-        (93989416.0, 26151486, 511, 24925927, 0, 0, '209dd6c9e70de949'),
+        (33169112.0, 9248199, 361, 8881209, 0, 0, '4ed74c496c8fc910'),
     ('road-grid', 'wcc', 'accugraph', 'default', 'none'):
-        (198643.33333333334, 53122, 2, 51081, 0, 0, 'e590d5237f5ee32d'),
+        (103090.83333333334, 26530, 2, 25525, 0, 0, '2c48fa994698eafb'),
     ('road-grid', 'wcc', 'accugraph', 'hbm2', 'none'):
-        (165401.0, 53122, 2, 49849, 0, 0, '7e50a99067effc1c'),
+        (82566.0, 26530, 2, 24950, 0, 0, '191b9558cab83d93'),
     ('road-grid', 'pr', 'hitgraph', 'default', 'none'):
-        (306628.75, 61312, 1, 59310, 0, 0, '7268cf7c0052a032'),
+        (153198.75, 30626, 1, 29675, 0, 0, '8b1ed8c4af08a315'),
     ('road-grid', 'pr', 'hitgraph', 'hbm2', 'none'):
-        (204439.0, 61312, 1, 57908, 0, 0, '97d36bc7ac0e3efe'),
+        (102221.0, 30626, 1, 29096, 0, 0, '677ac31d60bf7b39'),
     ('road-grid', 'pr', 'accugraph', 'default', 'none'):
-        (103339.16666666667, 28609, 1, 27267, 0, 0, '3f05559d4ef79855'),
+        (55488.333333333336, 14289, 1, 13633, 0, 0, '22920fe233474882'),
     ('road-grid', 'pr', 'accugraph', 'hbm2', 'none'):
-        (82724.0, 28609, 1, 26612, 0, 0, '68e8c661b36f587a'),
+        (41276.0, 14289, 1, 13323, 0, 0, '435b16293d195d24'),
     ('lj-sample', 'wcc', 'hitgraph', 'default', 'none'):
-        (2014366.25, 402755, 8, 396729, 0, 0, '96b8b8bbfcd41106'),
+        (895245.0, 178345, 7, 174975, 0, 0, 'e790e10f23a520d9'),
     ('lj-sample', 'wcc', 'hitgraph', 'hbm2', 'none'):
-        (1794009.0, 402755, 8, 386279, 0, 0, '41c8922c7a1e456a'),
+        (789195.0, 178345, 7, 171979, 0, 0, '4063e4fbcf13158d'),
     ('lj-sample', 'wcc', 'accugraph', 'default', 'none'):
-        (564539.1666666667, 126786, 5, 123997, 0, 0, '9c6e2959b5b11b0a'),
+        (225970.0, 50898, 4, 50278, 0, 0, 'dc95c5a6cb215214'),
     ('lj-sample', 'wcc', 'accugraph', 'hbm2', 'none'):
-        (541176.0, 126786, 5, 122239, 0, 0, '87b84fb4d3f3f340'),
+        (216676.0, 50898, 4, 49078, 0, 0, 'e93c79f4799dea46'),
     ('lj-sample', 'pr', 'hitgraph', 'default', 'none'):
-        (268188.75, 53624, 1, 52535, 0, 0, '2e90f02ff91009a4'),
+        (134900.0, 26813, 1, 26136, 0, 0, '04947d90e3112967'),
     ('lj-sample', 'pr', 'hitgraph', 'hbm2', 'none'):
-        (230522.0, 53624, 1, 50997, 0, 0, '762d210dfec4f9c2'),
+        (115272.0, 26813, 1, 25789, 0, 0, '8e3069c0194d262a'),
     ('lj-sample', 'pr', 'accugraph', 'default', 'none'):
-        (112899.16666666667, 26106, 1, 25441, 0, 0, 'fca9fe499d84b675'),
+        (56482.5, 13055, 1, 12852, 0, 0, 'e6097ee54de8f1fe'),
     ('lj-sample', 'pr', 'accugraph', 'hbm2', 'none'):
-        (108224.0, 26106, 1, 25072, 0, 0, '2083412d27d247c9'),
+        (54157.0, 13055, 1, 12538, 0, 0, 'bd1af898ca458c20'),
     ('powerlaw-social:degree', 'wcc', 'hitgraph', 'default', 'none'):
-        (4459081.25, 891720, 6, 880434, 0, 0, '7cbfa0eaa9f01045'),
+        (1880818.75, 376084, 5, 371008, 0, 0, '2a91cbb41fdba8fa'),
     ('powerlaw-social:degree', 'wcc', 'accugraph', 'default', 'none'):
-        (1024549.1666666667, 225336, 3, 221420, 0, 0, '5f44425808ab7bde'),
+        (683293.3333333334, 149538, 4, 147045, 0, 0, '9b5ac5efb5f37fb3'),
     ('powerlaw-social:bfs', 'wcc', 'hitgraph', 'default', 'none'):
-        (5249663.75, 1049820, 7, 1036204, 0, 0, '637689e06789f09f'),
+        (2286226.25, 457149, 6, 450596, 0, 0, '05792ff3e3827355'),
     ('powerlaw-social:bfs', 'wcc', 'accugraph', 'default', 'none'):
-        (683061.6666666667, 151504, 2, 148721, 0, 0, '6f03029314de5256'),
+        (341729.1666666667, 75756, 2, 74375, 0, 0, 'f19492f7dc3ab344'),
     ('powerlaw-social:shuffle', 'wcc', 'hitgraph', 'default', 'none'):
-        (6019466.25, 1203764, 8, 1187261, 0, 0, 'fdaf3ac5c960d39c'),
+        (2279141.25, 455732, 6, 449337, 0, 0, 'dd4b52a77e1ab130'),
     ('powerlaw-social:shuffle', 'wcc', 'accugraph', 'default', 'none'):
-        (1707482.5, 376327, 5, 369670, 0, 0, 'ca24edd9ee389560'),
+        (683546.6666666667, 151694, 4, 148781, 0, 0, 'f744e43d4926e09c'),
     ('road-grid:bfs', 'wcc', 'hitgraph', 'default', 'none'):
-        (130647173.75, 26121006, 511, 25521358, 0, 0, '94ef49815891d096'),
+        (46124658.75, 9219176, 361, 9011439, 0, 0, '4d481c19850ec241'),
     ('road-grid:bfs', 'wcc', 'accugraph', 'default', 'none'):
-        (198643.33333333334, 53122, 2, 51081, 0, 0, 'baa64774a434ef05'),
+        (103090.83333333334, 26530, 2, 25525, 0, 0, 'bcb797920f292d01'),
     ('road-grid:shuffle', 'wcc', 'hitgraph', 'default', 'none'):
-        (86771832.5, 17344703, 410, 17161242, 0, 0, '21a985ac421cb09b'),
+        (29957375.0, 5982450, 280, 5924751, 0, 0, 'd8471e52d458cee3'),
     ('road-grid:shuffle', 'wcc', 'accugraph', 'default', 'none'):
-        (10306110.833333334, 2780527, 106, 2674296, 0, 0, '33f3579b57b66e35'),
+        (3910427.5, 1019113, 77, 979154, 0, 0, 'f8bd25d2b3cb12ab'),
     ('karate', 'wcc', 'accugraph', 'default', 'default'):
         (144.16666666666669, 21, 3, 20, 48, 32, 'b137f51bcaec23b5'),
     ('rmat-16', 'wcc', 'accugraph', 'default', 'default'):
-        (1366136.6666666667, 303261, 4, 297592, 294916, 0, 'fe136877873644d6'),
+        (854290.8333333334, 188406, 5, 185043, 184325, 0, 'f1a11b8f330f07fb'),
     ('kron-social', 'wcc', 'accugraph', 'default', 'default'):
-        (1038866.6666666667, 237772, 4, 232585, 229380, 0, '2fe75c1b41c1aa26'),
+        (374875.0, 32558, 4, 31741, 114692, 86019, 'a67dd4a9c6ee59c6'),
     ('powerlaw-social', 'wcc', 'accugraph', 'default', 'default'):
-        (1707483.3333333335, 376214, 5, 369585, 368645, 0, '79bb519033a7c27d'),
+        (683480.0, 151331, 4, 148555, 147460, 0, '27ba56f37435fbff'),
     ('road-grid', 'wcc', 'accugraph', 'default', 'default'):
-        (103339.16666666667, 28609, 2, 27267, 49026, 24513, '4ee2acd3eff63fef'),
+        (55488.333333333336, 14289, 2, 13633, 24482, 12241, '174910803cd6f415'),
     ('lj-sample', 'wcc', 'accugraph', 'default', 'default'):
-        (424177.5, 28422, 5, 27753, 122955, 98364, '46f0bf696e235074'),
+        (163992.5, 14007, 4, 13797, 49188, 36891, 'b1806738f156c421'),
 }
 CORPUS_STATS = {
     'grid': {
@@ -661,7 +686,7 @@ CORPUS_STATS = {
         'pack_cache_hits': 0,
         'pack_cache_misses': 10,
         'batched_cases': 10,
-        'batch_dispatches': 10,
+        'batch_dispatches': 8,
     },
     'bram': {
         'cases': 60,
@@ -676,8 +701,8 @@ CORPUS_STATS = {
 CORPUS_CONTRACTS = {
     'powerlaw-social:degree runtime <= shuffle, hitgraph': True,
     'powerlaw-social:degree requests <= shuffle, hitgraph': True,
-    'powerlaw-social:bfs runtime <= shuffle, hitgraph': True,
-    'powerlaw-social:bfs requests <= shuffle, hitgraph': True,
+    'powerlaw-social:bfs runtime <= shuffle, hitgraph': False,
+    'powerlaw-social:bfs requests <= shuffle, hitgraph': False,
     'road-grid bfs runtime != shuffle, hitgraph': True,
     'powerlaw-social:degree runtime <= shuffle, accugraph': True,
     'powerlaw-social:degree requests <= shuffle, accugraph': True,
@@ -691,7 +716,7 @@ CORPUS_CONTRACTS = {
     'rmat-16 bram hit rate > 0': False,
     'rmat-16 bram runtime <= uncached': True,
     'kron-social bram lookups > 0': True,
-    'kron-social bram hit rate > 0': False,
+    'kron-social bram hit rate > 0': True,
     'kron-social bram runtime <= uncached': True,
     'powerlaw-social bram lookups > 0': True,
     'powerlaw-social bram hit rate > 0': False,
@@ -703,16 +728,16 @@ CORPUS_CONTRACTS = {
     'lj-sample bram hit rate > 0': True,
     'lj-sample bram runtime <= uncached': True,
 }
-CORPUS_SPEC_PIN = (986349.0, 225336, 3, 216067, 221187, 0, 'b75705ae2e266045')
+CORPUS_SPEC_PIN = (657730.0, 149538, 4, 143524, 147460, 0, '8da56c4f8fdba1de')
 CORPUS_SPEC_WARNINGS = [
     'simulate(graph, problem, accelerator=..., cache=..., memory=...) with per-axis keywords is deprecated; migrate to simulate(ScenarioSpec(graph, problem, accelerator=..., cache=..., memory=...))',
 ]
-CORPUS_DYNAMIC_PIN = (4906457.5, 1126494, 12, 1110391, 0, 0, 'aaea0cd56eaacaab')
+CORPUS_DYNAMIC_PIN = (2109221.666666667, 488941, 10, 481985, 0, 0, '241fac8b81e02e06')
 CORPUS_EPOCH_PINS = [
-    (0, 5, 0, 0, 0, 1707483.3333333335, 376214, '57d8a5824c33a87c'),
-    (1, 3, 20972, 0, 0, 1280337.5, 296087, 'b9d65d3ae4bcac16'),
-    (2, 2, 21391, 0, 0, 950225.0, 225053, 'd763bbc680a77c1d'),
-    (3, 2, 21819, 0, 0, 968411.6666666667, 229140, '5c70bf5c98913445'),
+    (0, 4, 0, 0, 0, 683480.0, 151331, 'e7102fd63e97e6c1'),
+    (1, 2, 10486, 0, 0, 466278.3333333334, 110518, '0a66ca72336c5d3c'),
+    (2, 2, 10695, 0, 0, 475185.0, 112524, 'd1c52ea4d283743e'),
+    (3, 2, 10909, 0, 0, 484278.3333333334, 114568, '3dbb487bee717173'),
 ]
 # ---- end of corpus pins ----
 
@@ -723,12 +748,13 @@ CORPUS_EPOCH_PINS = [
 #: preparing threads, its retry policy, admission budget and deadlines,
 #: clean and under DEFAULT_FAULT_MIX at chaos seed 0 (site: rate,
 #: max_attempts, crash).  SERVICE_SCALE cuts the stand-ins from 1.0 to
-#: 0.1 (lj: 484,757 vertices, 13.8 M undirected edges), the largest size
-#: at which the JAX package makes the pins on a CPU in minutes.  Then a
+#: 0.05 (0.1, lj's 484,757 vertices and 13.8 M undirected edges, is the
+#: largest size at which the JAX package makes the pins on a CPU in
+#: minutes).  Then a
 #: resident graph (phase 11's dynamic spec) taking SERVICE_UPDATES update
 #: jobs, and benchmarks/autotune.py's search at each preset's own size
 #: (its default graph_scale is 0.02).
-SERVICE_SCALE = 0.1
+SERVICE_SCALE = 0.05
 SERVICE_ABBRS = ("lj", "yt")
 SERVICE_CLIENTS = 4
 SERVICE_JOBS_PER_CLIENT = 3
@@ -765,61 +791,60 @@ SERVICE_KERNELS = {
 #: the JAX package's numbers for phase 12, made on the CPU by the same calls
 SERVICE_GRAPHS = {
     'lj':
-        ('live-journal_undir', 484757, 13798754, '6f9cd0727cd63b55032dc40c46e3a65d'),
-    'yt':
-        ('youtube_undir', 115782, 597524, 'eb042eca96d3befac5e8bd734ab50c03'),
+        ('live-journal_undir', 242378, 6899376, '6f493ad473d00872801ef3addd95a691'),
+    'yt': ('youtube_undir', 57891, 298762, 'e8a6973f6f56353e71680a6c4be49797'),
 }
 SERVICE_PLANS = {
-    '6f9cd0727cd63b55032dc40c46e3a65d|pr|hitgraph|default|none|baseline|0|2|static':
-        (('transient', 1), None, None, None),
-    'eb042eca96d3befac5e8bd734ab50c03|bfs|hitgraph|default|none|baseline|1|3|static':
-        (None, ('transient', 1), None, None),
-    '6f9cd0727cd63b55032dc40c46e3a65d|wcc|hitgraph|default|none|baseline|2|4|static':
-        (None, None, None, None),
-    'eb042eca96d3befac5e8bd734ab50c03|pr|hitgraph|default|none|baseline|3|2|static':
-        (('transient', 2), None, ('transient', 1), None),
-    '6f9cd0727cd63b55032dc40c46e3a65d|bfs|hitgraph|default|none|baseline|0|3|static':
-        (None, None, None, None),
-    'eb042eca96d3befac5e8bd734ab50c03|wcc|hitgraph|default|none|baseline|1|4|static':
+    '6f493ad473d00872801ef3addd95a691|pr|hitgraph|default|none|baseline|0|2|static':
+        (None, None, ('transient', 1), None),
+    'e8a6973f6f56353e71680a6c4be49797|bfs|hitgraph|default|none|baseline|1|3|static':
         (('transient', 1), None, ('transient', 1), None),
-    '6f9cd0727cd63b55032dc40c46e3a65d|pr|hitgraph|default|none|baseline|2|2|static':
-        (None, None, None, None),
-    'eb042eca96d3befac5e8bd734ab50c03|bfs|hitgraph|default|none|baseline|3|3|static':
-        (('transient', 2), ('transient', 1), ('transient', 1), None),
-    '6f9cd0727cd63b55032dc40c46e3a65d|wcc|hitgraph|default|none|baseline|0|4|static':
-        (None, ('transient', 1), None, None),
-    'eb042eca96d3befac5e8bd734ab50c03|pr|hitgraph|default|none|baseline|1|2|static':
-        (('transient', 2), None, None, None),
-    '6f9cd0727cd63b55032dc40c46e3a65d|bfs|hitgraph|default|none|baseline|2|3|static':
+    '6f493ad473d00872801ef3addd95a691|wcc|hitgraph|default|none|baseline|2|4|static':
+        (None, ('transient', 1), ('transient', 1), None),
+    'e8a6973f6f56353e71680a6c4be49797|pr|hitgraph|default|none|baseline|3|2|static':
         (('transient', 2), None, ('transient', 1), None),
-    'eb042eca96d3befac5e8bd734ab50c03|wcc|hitgraph|default|none|baseline|3|4|static':
+    '6f493ad473d00872801ef3addd95a691|bfs|hitgraph|default|none|baseline|0|3|static':
+        (None, None, ('transient', 1), None),
+    'e8a6973f6f56353e71680a6c4be49797|wcc|hitgraph|default|none|baseline|1|4|static':
+        (None, None, ('transient', 1), None),
+    '6f493ad473d00872801ef3addd95a691|pr|hitgraph|default|none|baseline|2|2|static':
+        (None, None, ('transient', 1), None),
+    'e8a6973f6f56353e71680a6c4be49797|bfs|hitgraph|default|none|baseline|3|3|static':
         (None, None, None, None),
+    '6f493ad473d00872801ef3addd95a691|wcc|hitgraph|default|none|baseline|0|4|static':
+        (('transient', 2), None, ('transient', 1), ('transient', 1)),
+    'e8a6973f6f56353e71680a6c4be49797|pr|hitgraph|default|none|baseline|1|2|static':
+        (('transient', 1), None, ('transient', 1), None),
+    '6f493ad473d00872801ef3addd95a691|bfs|hitgraph|default|none|baseline|2|3|static':
+        (('transient', 1), None, None, None),
+    'e8a6973f6f56353e71680a6c4be49797|wcc|hitgraph|default|none|baseline|3|4|static':
+        (None, ('transient', 1), ('transient', 1), None),
 }
 SERVICE_PINS = {
-    '6f9cd0727cd63b55032dc40c46e3a65d|bfs|hitgraph|default|none|baseline|0|3|static':
-        (30093870.0, 9028021, 6, 8760805, 0, 0, 'b3bb1605eb22398a'),
-    '6f9cd0727cd63b55032dc40c46e3a65d|bfs|hitgraph|default|none|baseline|2|3|static':
-        (30120174.166666668, 9029489, 6, 8760324, 0, 0, 'c9f34705a4656e28'),
-    '6f9cd0727cd63b55032dc40c46e3a65d|pr|hitgraph|default|none|baseline|0|2|static':
-        (15453746.666666668, 4636080, 2, 4348888, 0, 0, '871cd3b7f7f1d193'),
-    '6f9cd0727cd63b55032dc40c46e3a65d|pr|hitgraph|default|none|baseline|2|2|static':
-        (15453746.666666668, 4636080, 2, 4348888, 0, 0, '871cd3b7f7f1d193'),
-    '6f9cd0727cd63b55032dc40c46e3a65d|wcc|hitgraph|default|none|baseline|0|4|static':
-        (38178016.66666667, 11453265, 6, 10982181, 0, 0, '1b37b4bea91f18b6'),
-    '6f9cd0727cd63b55032dc40c46e3a65d|wcc|hitgraph|default|none|baseline|2|4|static':
-        (38178016.66666667, 11453265, 6, 10982181, 0, 0, '1b37b4bea91f18b6'),
-    'eb042eca96d3befac5e8bd734ab50c03|bfs|hitgraph|default|none|baseline|1|3|static':
-        (242330.0, 72691, 1, 72123, 0, 0, 'ecf8e5cac7d3aff8'),
-    'eb042eca96d3befac5e8bd734ab50c03|bfs|hitgraph|default|none|baseline|3|3|static':
-        (2786466.666666667, 835728, 9, 824737, 0, 0, '037246efcc70e751'),
-    'eb042eca96d3befac5e8bd734ab50c03|pr|hitgraph|default|none|baseline|1|2|static':
-        (826860.0, 248014, 2, 240282, 0, 0, '79b31d3c591f93d2'),
-    'eb042eca96d3befac5e8bd734ab50c03|pr|hitgraph|default|none|baseline|3|2|static':
-        (826860.0, 248014, 2, 240282, 0, 0, '79b31d3c591f93d2'),
-    'eb042eca96d3befac5e8bd734ab50c03|wcc|hitgraph|default|none|baseline|1|4|static':
-        (3151223.3333333335, 945155, 9, 925006, 0, 0, '870a437d415a224a'),
-    'eb042eca96d3befac5e8bd734ab50c03|wcc|hitgraph|default|none|baseline|3|4|static':
-        (3151223.3333333335, 945155, 9, 925006, 0, 0, '870a437d415a224a'),
+    '6f493ad473d00872801ef3addd95a691|bfs|hitgraph|default|none|baseline|0|3|static':
+        (16322013.333333334, 4896464, 6, 4810859, 0, 0, 'f18c77eeec4789d4'),
+    '6f493ad473d00872801ef3addd95a691|bfs|hitgraph|default|none|baseline|2|3|static':
+        (16389013.333333334, 4916564, 6, 4831076, 0, 0, '9b4bdc39185f8672'),
+    '6f493ad473d00872801ef3addd95a691|pr|hitgraph|default|none|baseline|0|2|static':
+        (7728780.0, 2318590, 2, 2244612, 0, 0, '738c7db1e4ab4abd'),
+    '6f493ad473d00872801ef3addd95a691|pr|hitgraph|default|none|baseline|2|2|static':
+        (7728780.0, 2318590, 2, 2244612, 0, 0, '738c7db1e4ab4abd'),
+    '6f493ad473d00872801ef3addd95a691|wcc|hitgraph|default|none|baseline|0|4|static':
+        (21214000.0, 6364060, 6, 6205586, 0, 0, 'aabb153aa9d59927'),
+    '6f493ad473d00872801ef3addd95a691|wcc|hitgraph|default|none|baseline|2|4|static':
+        (21214000.0, 6364060, 6, 6205586, 0, 0, 'aabb153aa9d59927'),
+    'e8a6973f6f56353e71680a6c4be49797|bfs|hitgraph|default|none|baseline|1|3|static':
+        (119780.0, 35926, 1, 35645, 0, 0, '0d7d1b5a80c51a51'),
+    'e8a6973f6f56353e71680a6c4be49797|bfs|hitgraph|default|none|baseline|3|3|static':
+        (119780.0, 35926, 1, 35645, 0, 0, '0d7d1b5a80c51a51'),
+    'e8a6973f6f56353e71680a6c4be49797|pr|hitgraph|default|none|baseline|1|2|static':
+        (415646.6666666667, 124650, 2, 120830, 0, 0, '264c6b5ab5d512f0'),
+    'e8a6973f6f56353e71680a6c4be49797|pr|hitgraph|default|none|baseline|3|2|static':
+        (415646.6666666667, 124650, 2, 120830, 0, 0, '264c6b5ab5d512f0'),
+    'e8a6973f6f56353e71680a6c4be49797|wcc|hitgraph|default|none|baseline|1|4|static':
+        (1563003.3333333335, 468689, 9, 459344, 0, 0, '7ee5f033e191855b'),
+    'e8a6973f6f56353e71680a6c4be49797|wcc|hitgraph|default|none|baseline|3|4|static':
+        (1563003.3333333335, 468689, 9, 459344, 0, 0, '7ee5f033e191855b'),
 }
 SERVICE_EPOCH_PINS = [
     (0, 5, 0, 0, 0, 1707483.3333333335, 376214, 'b230681ae5a796a3'),
@@ -926,7 +951,7 @@ STATIONARY_RTOL = 1e-3
 #: these kinds: 4 cases an accelerator sharing one pack) and threads; the
 #: service's submitting threads; the store's saving threads and the saves
 #: each makes
-LOCK_RUNS = 16
+LOCK_RUNS = 8
 LOCK_THREADS = 8
 LOCK_SEED = 13
 LOCK_GRAPH = "powerlaw-social"
@@ -935,7 +960,22 @@ LOCK_SUBMITTERS = 4
 LOCK_SAVES = 3
 
 
+#: :func:`lm_dryrun_start`'s processes, each ``(name, process, report
+#: path, log, end, layers)``; and when the last line was printed
+DRYRUN_JOBS: list = []
+_LAST_EMIT = [0.0]
+
+
 def emit(**kw) -> None:
+    """Print ``kw`` as a JSON line; with ``concurrent_dryrun_jobs``, the
+    dry-run processes that ran since the line before (a host core each),
+    where any did."""
+    now = time.perf_counter()
+    beside = sum(job[4].get("at", now) >= _LAST_EMIT[0]
+                 for job in DRYRUN_JOBS)
+    _LAST_EMIT[0] = now
+    if beside:
+        kw["concurrent_dryrun_jobs"] = beside
     print(json.dumps(kw), flush=True)
 
 
@@ -1100,7 +1140,8 @@ def timing_diff(got, want) -> int:
 def timing_both(streams, timing, carry, split):
     """Kernel (two chained calls split at slot ``split``) and plain
     version (one call) on per-channel streams from ``carry``; returns the
-    max absolute difference over finishes, kinds and carry."""
+    max absolute difference over finishes, kinds and carry, the plain
+    version's result and its ms (host clock)."""
     from repro_torch.kernels.dram_timing.ops import dram_timing
     from repro_torch.kernels.dram_timing.ref import dram_timing_ref
     st, fins, kinds = carry, [], []
@@ -1109,9 +1150,13 @@ def timing_both(streams, timing, carry, split):
                                timing, st)
         fins.append(f)
         kinds.append(k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     want = dram_timing_ref(*streams, timing, carry)
     torch.cuda.synchronize()
-    return timing_diff((torch.cat(fins, 1), torch.cat(kinds, 1), st), want)
+    plain_ms = (time.perf_counter() - t0) * 1e3
+    return (timing_diff((torch.cat(fins, 1), torch.cat(kinds, 1), st), want),
+            want, plain_ms)
 
 
 def check_dram_timing(dev) -> dict:
@@ -1140,9 +1185,9 @@ def check_dram_timing(dev) -> dict:
         timing = torch.as_tensor(t_np, device=dev)
         carry = vec.init_channel_carry(cfg.channels, cfg.banks_per_channel,
                                        cfg.org.banks, dev)
-        worst = max(worst, timing_both(streams, timing, carry,
-                                       packed.issue.shape[1] // 2 + 1))
-        want = dram_timing_ref(*streams, timing, carry)
+        diff, want, _ = timing_both(streams, timing, carry,
+                                    packed.issue.shape[1] // 2 + 1)
+        worst = max(worst, diff)
         for got in (dram_timing_chunks(*streams, timing, carry, 64)[:3],
                     dram_timing_serial(*streams, timing, carry)):
             worst = max(worst, timing_diff(got, want))
@@ -1564,15 +1609,18 @@ def run_dynamic_path(wt, acc, session, main_report, card, phases):
         phases.setdefault(acc, (issue, bank, row, valid, timing, carry))
         return serve(issue, bank, row, valid, timing, carry)
 
+    from repro_torch.graphs.updates import UPDATE_PRESETS
+    stream = dataclasses.replace(UPDATE_PRESETS[preset],
+                                 epochs=DYNAMIC_EPOCHS)
     vec.simulate_packed = keep
     t0 = time.perf_counter()
     try:
-        res = run_dynamic(wt, "wcc", updates=preset, accelerator=acc,
+        res = run_dynamic(wt, "wcc", updates=stream, accelerator=acc,
                           session=session, verify=True)
     finally:
         vec.simulate_packed = serve
     seconds = time.perf_counter() - t0
-    assert res.n_epochs == 4, res.n_epochs
+    assert res.n_epochs == DYNAMIC_EPOCHS + 1, res.n_epochs
     # epoch 0 is the static main path, bit for bit (its ``phases`` list
     # is the timeline's own, as in the JAX package, so it has grown by
     # the later epochs' phases)
@@ -1646,7 +1694,6 @@ def compare_dram_timing(phases, dev) -> dict:
                                                      chunk_len, dram_timing,
                                                      dram_timing_chunks,
                                                      dram_timing_serial)
-    from repro_torch.kernels.dram_timing.ref import dram_timing_ref
     out = {}
     for acc, (*streams, timing, carry) in phases.items():
         C, L = streams[0].shape
@@ -1678,15 +1725,13 @@ def compare_dram_timing(phases, dev) -> dict:
         st = dram_timing(*(x[:, :lo].contiguous() for x in streams), timing,
                          carry)[2]
         win = [x[:, lo:lo + W].contiguous() for x in streams]
-        diff = timing_both(win, timing, st, W // 2)
-        want = dram_timing_ref(*win, timing, st)
+        diff, want, plain_ms = timing_both(win, timing, st, W // 2)
         diff = max(diff, timing_diff(dram_timing_serial(*win, timing, st),
                                      want))
         assert diff == 0, f"dram_timing differs on the {acc} window: {diff}"
         win_ms = chunked_ms(win, timing, st, chunk_len(C, W, R))[0]
         win_serial_ms = cuda_ms(lambda: dram_timing_serial(*win, timing, st),
                                 reps=5)
-        plain_ms = host_ms(lambda: dram_timing_ref(*win, timing, st))
         out[acc] = {
             "max_abs_err": diff, "full_phase_max_abs_err": full_diff,
             "full_phase": {
@@ -2361,8 +2406,8 @@ def random_program(rng, hit_heavy, n_phases=4, max_n=300):
 def serve_both(packed, lo, hi, split, state, dev):
     """Kernel (two chained calls split at ``split``) and plain version
     (one call) on steps ``[lo, hi)`` from ``state``; returns the max
-    absolute difference over finishes and carry, and the inputs on the
-    card (streams, timing)."""
+    absolute difference over finishes and carry, the inputs on the card
+    (streams, timing) and the plain call's ms (host clock)."""
     from repro_torch.kernels.dram_timing.ops import (chunk_steps, dram_serve,
                                                      serve_prepass,
                                                      serve_records)
@@ -2377,11 +2422,14 @@ def serve_both(packed, lo, hi, split, state, dev):
                                 timing, k_state)
         fins.append(f)
     fin_k = torch.cat(fins)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
     fin_p, p_state = dram_serve_ref(*streams, timing, state)
     torch.cuda.synchronize()
+    plain_ms = (time.perf_counter() - t0) * 1e3
     diff = max([max_abs_diff(fin_k, fin_p)]
                + [max_abs_diff(a, b) for a, b in zip(k_state, p_state)])
-    return diff, streams, timing
+    return diff, streams, timing, plain_ms
 
 
 def check_sweep(dev) -> dict:
@@ -2809,7 +2857,7 @@ def run_sweep_phase(wt, card, dev) -> dict:
          dynamic_equal_run_dynamic=True, dynamic_seconds=dyn_s,
          run_case_seconds=solo_s, phase_seconds=phase_s, card=card)
     return {"launches": launches, "serve": serve, "window": window,
-            "seconds": phase_s, "sweeper": sweeper, "cases": cases,
+            "sweeper": sweeper, "cases": cases,
             "rows": rows, "memories": mems}
 
 
@@ -2967,13 +3015,14 @@ def graph_pin(g) -> tuple:
     return (g.name, int(g.n), int(g.m), g.fingerprint)
 
 
-def corpus_runs(sim, on_part=None, scale=1.0, **kw) -> dict:
+def corpus_runs(sim, on_part=None, scale=CORPUS_SCALE, **kw) -> dict:
     """Phase 11's runs through the simulation API ``sim``: the port's
     ``repro_torch.sim`` here (``kw`` is ``device=``), the JAX package's
     ``repro.sim`` in ``tools/corpus_pins.py``, which makes this phase's
     pins from the same calls.  ``on_part(name)`` is called after each
-    part; ``scale`` is the graphs' ``graph_scale`` (the phase runs 1.0,
-    each preset's own size; the CPU tests a cut one).  The grid and the BRAM cases share ``Sweeper(workers=2)``, as
+    part; ``scale`` is the graphs' ``graph_scale`` (the phase runs
+    CORPUS_SCALE; the CPU tests a smaller one).  The grid and the BRAM
+    cases share ``Sweeper(workers=2)``, as
     ``benchmarks/corpus_sweep.py`` does; the ordering arms are graphs of
     their own and go through a batched sweeper (one ``dram_serve_batch``
     a signature group)."""
@@ -3166,7 +3215,7 @@ def run_corpus_phase(card, dev) -> dict:
              out["spec_warnings"]),
          dynamic_runtime_ns=dyn.report.runtime_ns, epochs=len(epochs),
          dynamic_spec_equals_run_dynamic=True)
-    return {"launches": launches, "seconds": seconds}
+    return {"launches": launches}
 
 
 def service_workload(pkg: str, scale: float) -> list:
@@ -3572,7 +3621,7 @@ def run_service_phase(card, dev) -> dict:
          sweep_stats=got["TUNE_SWEEP_STATS"],
          search_seconds={k: v.stats.wall_s
                          for k, v in tuned["searches"].items()}, card=card)
-    return {"launches": launches, "seconds": seconds}
+    return {"launches": launches}
 
 
 def row_fields(row) -> dict:
@@ -3762,7 +3811,7 @@ def run_lock_witness_phase(card, dev, wt, reports) -> dict:
     (``REPRO_ANALYSIS_LOCKS=1`` for this phase only):
     :func:`lock_witness_parts`, part (a) on the full-size wiki-talk
     stand-in held to the main path's ``reports``; then no hazard recorded
-    in any part.  Returns the launches by part and the seconds."""
+    in any part.  Returns the launches by part."""
     import os
     from repro_torch.analysis import locks
     t_phase = time.perf_counter()
@@ -3782,7 +3831,7 @@ def run_lock_witness_phase(card, dev, wt, reports) -> dict:
     assert out["findings"] == [], (
         "the lock witness recorded hazards:\n  "
         + "\n  ".join(out["findings"]))
-    return {"launches": out["launches"], "seconds": seconds}
+    return {"launches": out["launches"]}
 
 
 def session_pack(sess, acc, memory, dev):
@@ -3994,8 +4043,7 @@ def sweep_surface_runs(swept, launches, card, dev) -> dict:
 def run_distributed_phase(wt, sessions, swept, card, dev) -> dict:
     """Phase 14, the distributed engine and ``devices=N`` on one card:
     :func:`nccl_engine_runs`, :func:`sharded_serve_runs` and
-    :func:`sweep_surface_runs`.  Returns the launches by part and the
-    seconds."""
+    :func:`sweep_surface_runs`.  Returns the launches by part."""
     from repro_torch.algorithms.common import Problem
     from repro_torch.sim import get_accelerator
     from repro_torch.sim.session import resolve_run_config
@@ -4012,7 +4060,7 @@ def run_distributed_phase(wt, sessions, swept, card, dev) -> dict:
     emit(phase="distributed", part="total", seconds=seconds,
          sharded_serves=len(serves), surface_rows=surface["rows"],
          card=card)
-    return {"launches": launches, "seconds": seconds}
+    return {"launches": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -4519,7 +4567,7 @@ def run_lm_phase(card, dev) -> dict:
     width, float32, held to ``repro``'s pins), ``lm_families`` (the ten
     smoke configurations held to theirs), ``lm_serve``; with the port's
     kernel launch counts zeroed before and all zero after (the path
-    reaches no hand-written kernel).  Returns the seconds."""
+    reaches no hand-written kernel).  Returns the serve run."""
     from repro_torch import interop
     from repro_torch.configs import ARCHS, get_config
     from repro_torch.kernels import launch_counts, zero_launch_counts
@@ -4569,7 +4617,7 @@ def run_lm_phase(card, dev) -> dict:
     assert not any(counts.values()), counts
     seconds = time.perf_counter() - t_phase
     emit(phase="lm_total", seconds=seconds, launches=counts, card=card)
-    return {"seconds": seconds, "serve": serve}
+    return {"serve": serve}
 
 
 # ---------------------------------------------------------------------------
@@ -4604,9 +4652,9 @@ LM_TRAIN_PARAM_SHARE = 1e-3
 LM_TRAIN_NOISE_LEAF = 1e-6
 #: train_full: qwen3-0.6b as published through ``launch.train.main``
 LM_TRAIN_FULL_DATA = {"seq_len": 512, "global_batch": 8}
-LM_TRAIN_FULL_STEPS = 20
+LM_TRAIN_FULL_STEPS = 10
 LM_TRAIN_ACCUM_STEPS = 4
-LM_TRAIN_MIN_DROP = 1.0                 # nats, step 1 to step 20
+LM_TRAIN_MIN_DROP = 1.0                 # nats, step 1 to the last
 #: train_resume: 2 layers at full width, 4 steps of 4 x 128 tokens
 LM_TRAIN_RESUME_LAYERS = 2
 LM_TRAIN_RESUME_DATA = {"seq_len": 128, "global_batch": 4, "seed": 0}
@@ -5424,7 +5472,7 @@ def run_lm_mesh_phase(card, dev) -> dict:
     every family's fraction and the roofline rows against the pins) and
     ``lm_sharded`` (:func:`lm_sharded_parts` on a one-rank NCCL group;
     one card, so no number here comes from more than one).  Returns the
-    launches by part and the seconds."""
+    launches by part, the traces and the sharded parts."""
     from repro_torch.configs import get_config
     from repro_torch.core import hbm_adapter as H
     from repro_torch.kernels import launch_counts, zero_launch_counts
@@ -5473,8 +5521,7 @@ def run_lm_mesh_phase(card, dev) -> dict:
     seconds = time.perf_counter() - t_phase
     emit(phase="lm_mesh", part="total", seconds=seconds, launches=launches,
          card=card)
-    return {"launches": launches, "seconds": seconds, "traces": traces,
-            "sharded": sharded}
+    return {"launches": launches, "traces": traces, "sharded": sharded}
 
 
 LM_DRYRUN_ARCH = "qwen3_0_6b"
@@ -5488,8 +5535,13 @@ LM_DRYRUN_MORE = [("hymba_1_5b", "prefill_32k", False, None),
                   ("xlstm_1_3b", "train_4k", True, 8)]
 LM_DRYRUN_PINS = ROOT / "tools" / "lm_dryrun_pins.json"
 LM_DRYRUN_TIMEOUT_S = 600
+#: ``launch.train.main``'s arguments for phase 18's training: 4 steps
+#: saving at steps 2 and 4; each run resumes from step 2 with the same
+#: arguments (the same schedule), saving none; the config cut in depth to
+#: LM_TRAIN_MESH_LAYERS layers (the widths as published)
 LM_TRAIN_MESH_ARGV = ["--arch", LM_ARCH, "--steps", "4", "--seq-len", "256",
                       "--global-batch", "2", "--save-every", "2"]
+LM_TRAIN_MESH_LAYERS = 8
 LM_TRAIN_MESH_TOL = 1e-6
 
 
@@ -5498,8 +5550,9 @@ def lm_dryrun_start(out_dir: str, more: bool = False) -> list:
     over both production meshes, one process a cell (``long_500k``'s two,
     which the shape rules skip, in one), or with ``more`` on each cell of
     LM_DRYRUN_MORE.  Returns ``(name, process, report path, log, end,
-    layers)`` for each; a thread fills ``end`` with the process's exit
-    code and seconds when it exits."""
+    layers)`` for each, also added to DRYRUN_JOBS; a thread fills ``end``
+    with the process's exit code, its seconds and the clock when it
+    exits."""
     from repro_torch.launch.specs import SHAPES
     runs = []
     for shape in () if more else SHAPES:
@@ -5525,13 +5578,26 @@ def lm_dryrun_start(out_dir: str, more: bool = False) -> list:
             env=dict(os.environ, PYTHONPATH=str(ROOT / "src")))
         t0 = time.perf_counter()
         ended = {}
-        waiter = threading.Thread(
-            target=lambda p=proc, e=ended, t=t0: e.update(
-                rc=p.wait(), seconds=time.perf_counter() - t),
-            daemon=True)
-        waiter.start()
+
+        def wait(p=proc, e=ended, t=t0):
+            rc = p.wait()
+            at = time.perf_counter()
+            e.update(rc=rc, seconds=at - t, at=at)
+        threading.Thread(target=wait, daemon=True).start()
         jobs.append((name, proc, out, log, ended, layers))
+    DRYRUN_JOBS.extend(jobs)
     return jobs
+
+
+def lm_dryrun_stop(jobs, out_dir: str) -> None:
+    """Kill :func:`lm_dryrun_start`'s processes that still run, close
+    their logs and remove ``out_dir``."""
+    for _, proc, _, log, _, _ in jobs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        log.close()
+    shutil.rmtree(out_dir, ignore_errors=True)
 
 
 def lm_dryrun_finish(jobs, card) -> dict:
@@ -5613,15 +5679,21 @@ def lm_dryrun_finish(jobs, card) -> dict:
 
 
 def lm_train_mesh_runs(dev, tmp: str) -> dict:
-    """qwen3-0.6b as published through ``launch.train.main``: 4 steps
-    saving every 2 on a one-rank NCCL group (the mesh path) and with no
-    group; then each resumed from its step-2 checkpoint (4 more steps,
-    none saved).  Each step timed with the card synchronised."""
+    """qwen3-0.6b at its published widths, cut to LM_TRAIN_MESH_LAYERS
+    layers, through ``launch.train.main`` (LM_TRAIN_MESH_ARGV: 4 steps
+    saving at steps 2 and 4) on a one-rank NCCL group (the mesh path) and
+    with no group; then each resumed from its step-2 checkpoint (4 more
+    steps, none saved).  Each step timed with the card synchronised."""
     import torch.distributed as dist
     from repro_torch.launch import train as LT
     from repro_torch.launch.mesh import DEVICE_BACKEND
-    made = LT.make_train_step
+    made, configured = LT.make_train_step, LT.get_config
     step_ms = []
+
+    def cut(arch, smoke=False):
+        cfg = configured(arch, smoke=smoke)
+        return dataclasses.replace(
+            cfg, n_layers=min(cfg.n_layers, LM_TRAIN_MESH_LAYERS))
 
     def timed_steps(*a, **kw):
         step = made(*a, **kw)
@@ -5654,7 +5726,7 @@ def lm_train_mesh_runs(dev, tmp: str) -> dict:
             shutil.rmtree(d)
         return got
 
-    LT.make_train_step = timed_steps
+    LT.make_train_step, LT.get_config = timed_steps, cut
     try:
         out = {}
         dist.init_process_group(
@@ -5669,30 +5741,29 @@ def lm_train_mesh_runs(dev, tmp: str) -> dict:
         out["single_resumed"] = train("single", resume=True)
         return out
     finally:
-        LT.make_train_step = made
+        LT.make_train_step, LT.get_config = made, configured
 
 
-def run_lm_dryrun_phase(card, dev, early=()) -> dict:
-    """Phase 18: ``lm_dryrun`` (:func:`lm_dryrun_start`'s processes, on
-    the card's host while the training runs, read with ``early``'s, the
-    LM_DRYRUN_MORE processes started at phase 15) and ``lm_train_mesh``
-    (:func:`lm_train_mesh_runs`); the port launches no kernel here.
-    Returns the launches, the cells and the seconds."""
+def run_lm_dryrun_phase(card, dev, jobs) -> dict:
+    """Phase 18: ``lm_train_mesh`` (:func:`lm_train_mesh_runs`), then
+    ``lm_dryrun``: ``jobs``, :func:`lm_dryrun_start`'s processes for
+    LM_DRYRUN_ARCH's cells and LM_DRYRUN_MORE's, started earlier, read and
+    held to the pins; the port launches no kernel here.  Returns the
+    launches, the cells and the training runs."""
     from repro_torch.kernels import launch_counts, zero_launch_counts
-    t_phase = time.perf_counter()
     torch.cuda.synchronize()
     zero_launch_counts()
     with tempfile.TemporaryDirectory() as tmp:
-        jobs = lm_dryrun_start(tmp)
         try:
             runs = lm_train_mesh_runs(dev, tmp)
         finally:
-            cells, bad = lm_dryrun_finish(list(early) + jobs, card)
+            cells, bad = lm_dryrun_finish(jobs, card)
     launches = {"lm_dryrun": launch_counts()}
     mesh, single = runs["mesh"], runs["single"]
     rel = [abs(a - b) / abs(b) for a, b in zip(mesh["losses"],
                                                single["losses"])]
     emit(phase="lm_train_mesh", model=LM_ARCH, argv=LM_TRAIN_MESH_ARGV,
+         layers=LM_TRAIN_MESH_LAYERS,
          mesh={"data": 1, "model": 1}, group="nccl, one rank",
          losses=mesh["losses"], unsharded_losses=single["losses"],
          loss_rel=rel, tolerance=LM_TRAIN_MESH_TOL,
@@ -5709,17 +5780,91 @@ def run_lm_dryrun_phase(card, dev, early=()) -> dict:
     for name in ("mesh", "single"):
         resumed = runs[name + "_resumed"]["losses"]
         assert resumed[:2] == runs[name]["losses"][2:4], (name, runs)
-    seconds = time.perf_counter() - t_phase
-    emit(phase="lm_dryrun", part="total", seconds=seconds,
+    emit(phase="lm_dryrun", part="total",
          cells={"/".join(map(str, k)): c["status"]
                 for k, c in sorted(cells.items(), key=str)},
          launches=launches, card=card)
-    return {"launches": launches, "seconds": seconds, "cells": cells,
-            "train": runs}
+    return {"launches": launches, "cells": cells, "train": runs}
+
+
+#: phase 19, the examples: ``examples/torch_quickstart.py`` at its own
+#: size, its printed reports held to ``tools/example_pins.json`` (made from
+#: ``repro``'s ``examples/quickstart.py`` calls on the CPU by
+#: ``tools/example_pins.py``)
+EXAMPLE_PINS = ROOT / "tools" / "example_pins.json"
+
+
+def load_example(name: str):
+    """``examples/<name>.py`` as a module (the examples are scripts, not a
+    package)."""
+    spec = importlib.util.spec_from_file_location(
+        name, ROOT / "examples" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def quickstart_pin(res) -> dict:
+    """What the quickstart prints, as numbers: the two WCC reports, the
+    four variants' and the cross-check's (:func:`report_pin` each), and
+    AccuGraph's first four phases (name, requests, row hits, conflicts,
+    start and end cycle); as JSON gives it back."""
+    return json.loads(json.dumps({
+        "hitgraph": report_pin(res["hitgraph"]),
+        "accugraph": report_pin(res["accugraph"]),
+        "variants": {row.variant: report_pin(row.report)
+                     for row in res["variants"]},
+        "phases": [[ph.name, int(ph.requests), int(ph.row_hits),
+                    int(ph.row_conflicts), int(ph.start_cycle),
+                    int(ph.end_cycle)]
+                   for ph in res["accugraph"].phases[:4]],
+        "cross_check": {b: report_pin(r)
+                        for b, r in res["cross_check"].items()}}))
+
+
+def run_examples_phase(card, dev) -> dict:
+    """Phase 19: ``examples/torch_quickstart.py``'s ``run`` on the card at
+    its own size (``rmat(13, 8)``; the cross-check on ``rmat(9, 4)``), its
+    printed reports equal to the pins, the launches counted (counts zeroed
+    just before it)."""
+    from repro_torch.kernels import launch_counts, zero_launch_counts
+    quickstart = load_example("torch_quickstart")
+    printed = []
+    torch.cuda.synchronize()
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    res = quickstart.run(device=dev, out=printed.append)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = launch_counts()
+    got = quickstart_pin(res)
+    want = json.loads(EXAMPLE_PINS.read_text())["quickstart"]
+    emit(phase="examples", example="torch_quickstart",
+         runtime_ms={"hitgraph": res["hitgraph"].runtime_ms,
+                     "accugraph": res["accugraph"].runtime_ms,
+                     **{f"variant/{r.variant}": r.report.runtime_ms
+                        for r in res["variants"]},
+                     **{f"cross_check/{b}": r.runtime_ms
+                        for b, r in res["cross_check"].items()}},
+         equal_pins=got == want, printed_lines=len(printed),
+         launches={k: n for k, n in launches.items() if n},
+         seconds=seconds, card=card)
+    assert got == want, (got, want)
+    for name in ("dram_serve", "serve_prepass", "sweep_min_rounds"):
+        assert launches[name] > 0, (
+            f"{name} was never launched by the quickstart")
+    return {"launches": {"examples": launches}}
 
 
 def main() -> int:
     t_start = time.perf_counter()
+    laps, last_lap = {}, [t_start]
+
+    def lap(name: str) -> None:
+        """The seconds since the last lap, as phase ``name``'s."""
+        now = time.perf_counter()
+        laps[name] = now - last_lap[0]
+        last_lap[0] = now
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
@@ -5741,13 +5886,13 @@ def main() -> int:
     from repro_torch.kernels.dram_timing.ref import serve_prepass_ref
     from repro_torch.sim import SimSession, get_accelerator, simulate
     from repro_torch.sim.session import resolve_run_config
-    from repro_torch.kernels.dram_timing.ref import dram_serve_ref
 
     dev = torch.device("cuda")
     kind = torch.cuda.get_device_name(0)
     card = card_line()
     emit(phase="device", kind=kind, count=torch.cuda.device_count(),
          card=card, torch=torch.__version__, cuda=torch.version.cuda)
+    lap("device")
 
     # ---- 2. build -----------------------------------------------------
     t0 = time.perf_counter()
@@ -5755,6 +5900,7 @@ def main() -> int:
     build.library()
     emit(phase="build", seconds=time.perf_counter() - t0,
          library=str(lib_path.relative_to(ROOT)))
+    lap("build")
 
     # ---- 3. kernels vs plain on random programs -----------------------
     worst, launches0 = 0, dram_serve.launches
@@ -5766,7 +5912,7 @@ def main() -> int:
             packed = accel.pack_program(random_program(rng, hit_heavy), cfg)
             state = cold_state(packed, cfg.channels, dev)
             split = packed.n_steps // 2 + 1
-            diff, _, _ = serve_both(packed, 0, len(packed.boundary), split,
+            diff, _, _, _ = serve_both(packed, 0, len(packed.boundary), split,
                                     state, dev)
             worst = max(worst, diff)
             cases += 1
@@ -5789,6 +5935,7 @@ def main() -> int:
                     "spmv_sell": "rtol 1e-5, atol 1e-6",
                     "bf16 sum": "rtol 5e-2, atol 5e-2"},
          **check_stationary_kernels(dev))
+    lap("kernels")
 
     # ---- 4. goldens on the card ---------------------------------------
     golden = json.loads(
@@ -5815,7 +5962,9 @@ def main() -> int:
     assert not bad, f"golden digests differ on the card: {bad}"
     assert checked == 24, checked
     emit(phase="goldens", checked=checked, mismatched=len(bad))
+    lap("goldens")
     paths = sweep_paths(dev, card)
+    lap("sweep_paths")
 
     # ---- 5. the main path at full size --------------------------------
     t0 = time.perf_counter()
@@ -5845,6 +5994,7 @@ def main() -> int:
     for acc, r in reports.items():
         assert r.runtime_ns == PINNED_RUNTIME_NS["main", acc], (
             acc, r.runtime_ns)
+    lap("main")
 
     # ---- 6. the dynamic path at full size -------------------------------
     zero_launch_counts()
@@ -5866,6 +6016,7 @@ def main() -> int:
     assert launches["dynamic"]["dram_timing_serial"] == 0, launches["dynamic"]
     assert launches["dynamic"]["dram_timing"] == sum(
         len(r.epochs) - 1 for r in dyn.values()), launches["dynamic"]
+    lap("dynamic")
 
     # ---- 7. the stationary path at full size ----------------------------
     accel.zero_pack_route_counts()
@@ -5874,6 +6025,7 @@ def main() -> int:
     routes["stationary"] = accel.pack_route_counts()
     assert routes["stationary"] == {
         "device_pack": 2 * len(STATIONARY), "host_pack": 0}, routes
+    lap("stationary")
 
     # ---- 7b. the cached main path and a cached dynamic run --------------
     launches["cache"], lookup_calls = run_cache_path(sessions, card, dev)
@@ -5882,6 +6034,7 @@ def main() -> int:
     # one pull launch an iteration: 2 AccuGraph runs x STATIONARY_ITERS
     assert launches["stationary"]["spmv_ell"] == 2 * STATIONARY_ITERS, (
         launches["stationary"])
+    lap("cached")
 
     # ---- 8. kernels vs plain on the paths' inputs ----------------------
     kernels = {}
@@ -5935,11 +6088,10 @@ def main() -> int:
         lo = max(0, first_bnd - W // 2)
         _, st = dram_serve(*(x[:lo].contiguous() for x in full[:3]),
                            full[3], cold)
-        diff, win, timing = serve_both(packed, lo, lo + W, lo + W // 2,
-                                       st, dev)
+        diff, win, timing, plain_ms = serve_both(packed, lo, lo + W,
+                                                 lo + W // 2, st, dev)
         assert diff == 0, f"dram_serve differs on the {acc} window: {diff}"
         win_ms = cuda_ms(lambda: dram_serve(*win, timing, st), reps=5)
-        plain_ms = host_ms(lambda: dram_serve_ref(*win, timing, st))
         win_rec = serve_prepass(*win, timing, B // R, R, T)
         rec_p = serve_prepass_ref(*win, timing, B // R, R, win_rec.shape[1])
         diff = max(diff, max_abs_diff(win_rec, rec_p))
@@ -5971,7 +6123,9 @@ def main() -> int:
                              / HBM_BYTES_PER_S * 1e3}}
         del full, win
 
+    lap("kernels_on_paths_serve")
     kernels["sweep_min_rounds"] = sweep_main_block(wt, sessions, dev, card)
+    lap("kernels_on_paths_sweep")
 
     # ---- CPU cross-check of the card's edge-centric run at full size ---
     t0 = time.perf_counter()
@@ -5986,79 +6140,85 @@ def main() -> int:
                for a, b in zip(run_cpu.per_iter, run_gpu.per_iter))
     emit(phase="edge_centric_cross_check", iterations=run_gpu.iterations,
          seconds=time.perf_counter() - t0)
+    lap("edge_centric_cross_check")
 
     kernels["dram_timing"] = compare_dram_timing(apply_phases, dev)
     del apply_phases
+    lap("kernels_on_paths_timing")
     kernels.update(compare_stationary(wt, stat_runs, dev))
+    lap("kernels_on_paths_stationary")
+
+    # phase 18's dry-run cells (fake tensors, one host core each) run on
+    # the card's host beside the phases before it (each line printed
+    # meanwhile says how many): LM_DRYRUN_ARCH's from phase 9,
+    # LM_DRYRUN_MORE's (the longest) from phase 11, once most of the first
+    # have ended
+    dry_dir = tempfile.mkdtemp(prefix="lm_dryrun_")
+    dry_jobs = lm_dryrun_start(dry_dir)
+    atexit.register(lm_dryrun_stop, dry_jobs, dry_dir)
 
     # ---- 9. the event-driven side -------------------------------------
-    t_event = time.perf_counter()
     launches["trace"] = check_trace(card)
     launches["event"] = run_event_main(sessions, reports, card)
     launches["reference"] = run_reference(card, dev)
     run_analytical(wt, reports, card)
     launches["study"] = run_study_line(card, dev)
-    event_s = time.perf_counter() - t_event
+    lap("event")
 
     # ---- 10. the sweep engine ------------------------------------------
     swept = run_sweep_phase(wt, card, dev)
     launches.update(swept["launches"])
+    lap("sweep")
 
+    dry_jobs += lm_dryrun_start(dry_dir, more=True)
     # ---- 11. the corpus -------------------------------------------------
     corp = run_corpus_phase(card, dev)
     launches.update({f"corpus_{part}": counts
                      for part, counts in corp["launches"].items()})
+    lap("corpus")
 
     # ---- 12. the service and the tuner ----------------------------------
     served = run_service_phase(card, dev)
     launches.update({f"service_{part}": counts
                      for part, counts in served["launches"].items()})
+    lap("service")
 
     # ---- 13. the lock witness -------------------------------------------
     witnessed = run_lock_witness_phase(card, dev, wt, reports)
     launches.update({f"lock_{part}": counts
                      for part, counts in witnessed["launches"].items()})
+    lap("lock_witness")
 
     # ---- 14. the distributed engine and devices=N ------------------------
     distributed = run_distributed_phase(wt, sessions, swept, card, dev)
     launches.update({f"distributed_{part}": counts
                      for part, counts in distributed["launches"].items()})
+    lap("distributed")
 
-    # phase 18's longest dry-run cells (fake tensors, one host core each)
-    # run on the card's host beside phases 15-17
-    dry_dir = tempfile.mkdtemp(prefix="lm_dryrun_")
-    early = lm_dryrun_start(dry_dir, more=True)
-    try:
-        # ---- 15. the LM serve path ---------------------------------------
-        lm = run_lm_phase(card, dev)
+    # ---- 15. the LM serve path -------------------------------------------
+    run_lm_phase(card, dev)
+    lap("lm")
 
-        # ---- 16. LM training ---------------------------------------------
-        lm_train = run_lm_train_phase(card, dev)
+    # ---- 16. LM training -------------------------------------------------
+    run_lm_train_phase(card, dev)
+    lap("lm_train")
 
-        # ---- 17. the LM cost tooling and the LM on a mesh ----------------
-        lm_mesh = run_lm_mesh_phase(card, dev)
-        launches.update(lm_mesh["launches"])
+    # ---- 17. the LM cost tooling and the LM on a mesh --------------------
+    lm_mesh = run_lm_mesh_phase(card, dev)
+    launches.update(lm_mesh["launches"])
+    lap("lm_mesh")
 
-        # ---- 18. the dry run and training on a mesh ----------------------
-        lm_dry = run_lm_dryrun_phase(card, dev, early)
-        launches.update(lm_dry["launches"])
-    finally:
-        for _, proc, _, log, _, _ in early:
-            if proc.poll() is None:
-                proc.kill()
-                proc.wait()
-            log.close()
-        shutil.rmtree(dry_dir, ignore_errors=True)
-    emit(phase="wall", seconds=time.perf_counter() - t_start,
-         event_phase_seconds=event_s, sweep_phase_seconds=swept["seconds"],
-         corpus_phase_seconds=corp["seconds"],
-         service_phase_seconds=served["seconds"],
-         lock_witness_phase_seconds=witnessed["seconds"],
-         distributed_phase_seconds=distributed["seconds"],
-         lm_phase_seconds=lm["seconds"],
-         lm_train_phase_seconds=lm_train["seconds"],
-         lm_mesh_phase_seconds=lm_mesh["seconds"],
-         lm_dryrun_phase_seconds=lm_dry["seconds"], card=card)
+    # ---- 18. the dry run and training on a mesh --------------------------
+    lm_dry = run_lm_dryrun_phase(card, dev, dry_jobs)
+    launches.update(lm_dry["launches"])
+    lap("lm_dryrun")
+
+    # ---- 19. the examples ------------------------------------------------
+    examples = run_examples_phase(card, dev)
+    launches.update(examples["launches"])
+    lap("examples")
+    emit(phase="phase_seconds", total=time.perf_counter() - t_start,
+         seconds=laps, card=card)
 
     ds = kernels["dram_serve"]
     hw = ds["windows"]["hitgraph"]

@@ -138,7 +138,7 @@ class AnalysisConfig:
     exclude: Sequence[str] = ()
     quarantine: Sequence[str] = ("repro", "jax", "jaxlib",
                                  "repro_torch.models",
-                                 "repro_torch.configs.legacy",
+                                 "repro_torch.configs",
                                  "repro_torch.train",
                                  "repro_torch.launch.train",
                                  "repro_torch.launch.specs",

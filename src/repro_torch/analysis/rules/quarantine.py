@@ -8,11 +8,12 @@ importing them re-attaches dead weight to the live simulation platform
 the rest of the suite cannot see into.
 
 The port analyses its quarantined packages too (``repro_torch.models``,
-``repro_torch.configs.legacy``; nothing is excluded), so a module that
+``repro_torch.configs``; nothing is excluded), so a module that
 lies inside a quarantined package the tree holds, or is itself a
 quarantined module, may import any such package (``models/model.py`` its
-sibling ``models/layers.py``, a ``configs/legacy`` module
-``models/config.py``, ``launch/train.py`` the ``train`` package).  An
+sibling ``models/layers.py``, the ``configs`` registry and its ``legacy``
+modules ``models/config.py``, ``launch/train.py`` the ``train``
+package).  An
 import of a quarantined name the tree does not hold (``repro``, ``jax``)
 is a finding from every module.
 """

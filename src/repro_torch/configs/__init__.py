@@ -4,7 +4,9 @@ The architecture modules live under ``legacy/`` — they belong to the
 LM side (``repro_torch.models``), not to the graph accelerator simulation
 API (``repro_torch.sim``), and are quarantined so the public surface only
 advertises graph-simulation entry points.  This registry names them by
-string and imports no module of the LM stack itself.
+string and re-exports ``ModelConfig``, as ``repro.configs`` does; it is
+quarantined with them (``analysis_torch.cfg``): only the LM stack's own
+modules import it.
 
 Each module exports ``CONFIG`` (the exact published configuration) and
 ``SMOKE`` (a reduced same-family config for CPU tests), each a
@@ -15,6 +17,8 @@ from __future__ import annotations
 
 import importlib
 from typing import List
+
+from repro_torch.models.config import ModelConfig
 
 ARCHS: List[str] = [
     "command_r_35b",

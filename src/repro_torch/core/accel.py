@@ -728,3 +728,10 @@ class SimReport:
         if self.runtime_ns <= 0:
             return 0.0
         return self.edges * self.iterations / (self.runtime_ns * 1e-9)
+
+    @property
+    def teps(self) -> float:
+        """Graph500 TEPS: m / runtime."""
+        if self.runtime_ns <= 0:
+            return 0.0
+        return self.edges / (self.runtime_ns * 1e-9)

@@ -96,6 +96,10 @@ class DRAMConfig:
     }
 
     @property
+    def banks_total(self) -> int:
+        return self.channels * self.org.ranks * self.org.banks
+
+    @property
     def banks_per_channel(self) -> int:
         return self.org.ranks * self.org.banks
 
@@ -213,6 +217,9 @@ class DRAMConfig:
 
         return decode
 
+    def bytes_to_lines(self, byte_addrs: np.ndarray) -> np.ndarray:
+        return np.asarray(byte_addrs, dtype=np.int64) // CACHE_LINE_BYTES
+
 
 # ---------------------------------------------------------------------------
 # Presets (Tab. 2 of the paper + HBM future-work configs)
@@ -307,10 +314,39 @@ class MemoryLayout:
         self._cursor = start + aligned * CACHE_LINE_BYTES
         return start
 
+    def offset(self, name: str) -> int:
+        return self._offsets[name][0]
+
     def regions(self) -> Dict[str, Tuple[int, int]]:
         """Every allocation as ``name -> (byte_start, nbytes)`` — what the
         dynamic path diffs to find the regions an epoch's rebuild moved."""
         return dict(self._offsets)
+
+    def nbytes(self, name: str) -> int:
+        return self._offsets[name][1]
+
+    def element_lines(
+        self, name: str, indices: np.ndarray, width_bytes: int
+    ) -> np.ndarray:
+        """Line addresses of elements ``indices`` of array ``name``."""
+        byte_addrs = self.offset(name) + (
+            np.asarray(indices, dtype=np.int64) * width_bytes
+        )
+        return byte_addrs // CACHE_LINE_BYTES
+
+    def sequential_lines(
+        self, name: str, count: int, width_bytes: int, start_elem: int = 0
+    ) -> np.ndarray:
+        """Unique line addresses touched by a sequential scan of ``count``
+        elements, i.e. after perfect cache-line buffering (Fig. 6e)."""
+        if count <= 0:
+            return np.empty(0, dtype=np.int64)
+        first = self.offset(name) + start_elem * width_bytes
+        last = self.offset(name) + (start_elem + count) * width_bytes - 1
+        return np.arange(
+            first // CACHE_LINE_BYTES, last // CACHE_LINE_BYTES + 1,
+            dtype=np.int64,
+        )
 
     @property
     def total_bytes(self) -> int:

@@ -34,6 +34,10 @@ class Trace:
     def __len__(self) -> int:
         return len(self.line_addr)
 
+    @property
+    def total_bytes(self) -> int:
+        return len(self) * CACHE_LINE_BYTES
+
     @staticmethod
     def empty() -> "Trace":
         z = np.empty(0, dtype=np.int64)

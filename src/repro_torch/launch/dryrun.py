@@ -431,6 +431,17 @@ def _propagation_unseen(counter: _Counter):
             counter.paused += 1
             try:
                 return orig(self, *args, **kwargs)
+            except NotImplementedError as e:
+                # an op with no strategy (an einsum under inference mode,
+                # which DTensor's dispatch then decomposes) raises this
+                # from the decomposition's failure, which the raising
+                # frame keeps in a local: frame, exception, traceback,
+                # frame again.  The cycle holds every caller's frame, and
+                # its tensors, until the collector runs; clearing the
+                # raising frame breaks it, so they are freed as the plain
+                # loop frees them
+                traceback.clear_frames(e.__traceback__)
+                raise
             finally:
                 counter.paused -= 1
         return run

@@ -838,7 +838,7 @@ def test_port_config_and_jax_config_load():
     cfg = load_config(REPO_ROOT)
     assert cfg == AnalysisConfig()
     assert cfg.quarantine == ("repro", "jax", "jaxlib", "repro_torch.models",
-                              "repro_torch.configs.legacy",
+                              "repro_torch.configs",
                               "repro_torch.train", "repro_torch.launch.train",
                               "repro_torch.launch.specs",
                               "repro_torch.launch.costmodel",

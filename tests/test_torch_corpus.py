@@ -651,11 +651,14 @@ def smoke():
 
 
 def test_chip_smoke_graph_pins_equal_jax_and_port(smoke):
-    """Every phase-11 graph at full size: ``repro``'s and the port's
-    name, size and fingerprint equal the pins."""
+    """Every phase-11 graph at the phase's scale: ``repro``'s and the
+    port's name, size and fingerprint equal the pins."""
+    scale = smoke.CORPUS_SCALE
     for sel, pin in smoke.CORPUS_GRAPHS.items():
-        assert smoke.graph_pin(r_corpus.resolve_graph(sel)) == pin, sel
-        assert smoke.graph_pin(corpus.resolve_graph(sel)) == pin, sel
+        assert smoke.graph_pin(r_corpus.resolve_graph(sel, scale=scale)) \
+            == pin, sel
+        assert smoke.graph_pin(corpus.resolve_graph(sel, scale=scale)) \
+            == pin, sel
 
 
 def test_chip_smoke_row_pins_equal_jax(smoke):
@@ -664,7 +667,8 @@ def test_chip_smoke_row_pins_equal_jax(smoke):
     port on the CPU) against the pins."""
     kw = dict(problems=smoke.CORPUS_PROBLEMS,
               accelerators=smoke.CORPUS_ACCELERATORS,
-              memories=smoke.CORPUS_MEMORIES, fixed_iters=None)
+              memories=smoke.CORPUS_MEMORIES, fixed_iters=None,
+              graph_scale=smoke.CORPUS_SCALE)
     checked = 0
     for sel, problems in (("karate", smoke.CORPUS_PROBLEMS),
                           ("kron-social", ("wcc",))):
