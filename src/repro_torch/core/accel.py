@@ -48,7 +48,7 @@ from repro_torch.core import cache as cache_mod
 from repro_torch.core import vectorized as vec
 from repro_torch.core.dram import CACHE_LINE_BYTES, DRAMConfig
 from repro_torch.core.trace import SegmentedTrace, Trace
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_host, wait
 
 #: programs packed by each route since the last
 #: :func:`zero_pack_route_counts` (``device_pack``: the torch pack on the
@@ -424,7 +424,7 @@ def finalize_program(packed: PackedProgram, finish,
     reduce from the host-precomputed kinds.  The absolute clock is the
     running (int64, overflow-free) sum of makespans."""
     fin = torch.as_tensor(finish)[:packed.n_steps].amax(dim=(1, 2))
-    fin = fin.cpu().numpy()
+    fin = to_host(fin).numpy()
     dur = np.maximum.reduceat(fin, packed.step_starts).astype(np.int64)
     off = packed.offsets[:-1]
     hits = np.add.reduceat((packed.kind == 0).astype(np.int64), off)
@@ -462,24 +462,23 @@ def finalize_program_device(packed: DevicePackedProgram, finish,
     cross to the host."""
     P = packed.n_phases
     dur = vec._device_phase_durations(finish, packed.L_p)
-    dur, hits, confl = torch.stack(
-        [dur[:P], packed.hits_p[:P], packed.confl_p[:P]]).cpu().numpy(
-    ).astype(np.int64)
+    dur, hits, confl = to_host(torch.stack(
+        [dur[:P], packed.hits_p[:P], packed.confl_p[:P]])).numpy().astype(
+        np.int64)
     return _program_stats(packed, dur, hits, confl, origin)
 
 
-def serve_packed(packed, timing=None, carry=None, origin: int = 0,
-                 device=None,
-                 stage_seconds: Optional[Dict[str, float]] = None):
-    """Run one packed program (host- or device-packed) through the fused
-    serve on ``device`` (a device pack's own device by default) from the
-    given lean carry (default: cold DRAM state) and reduce it to
-    :class:`ProgramStats`.  Returns ``(stats, lean_carry)``.
+def serve_finishes(packed, timing=None, carry=None, device=None,
+                   stage_seconds: Optional[Dict[str, float]] = None):
+    """The fused serve of one packed program (host- or device-packed) on
+    ``device`` (a device pack's own device by default) from the given
+    lean carry (default: cold DRAM state), enqueued and not waited for
+    unless ``stage_seconds`` asks for its times.  Returns ``(finish,
+    lean_carry)``.
 
     ``timing`` overrides the timing vector packed with the program (the
     pack never depends on timing)."""
-    on_device = isinstance(packed, DevicePackedProgram)
-    if device is None and on_device:
+    if device is None and isinstance(packed, DevicePackedProgram):
         device = packed.issue.device
     device = resolve_device(device)
     if timing is None:
@@ -491,11 +490,26 @@ def serve_packed(packed, timing=None, carry=None, origin: int = 0,
     fin, lean = vec.fused_scan(packed.issue, packed.meta, packed.boundary,
                                timing, carry, device,
                                stage_seconds=stage_seconds)
+    return fin, lean
+
+
+def finalize_any(packed, finish, origin: int = 0) -> ProgramStats:
+    """:func:`finalize_program_device` for a device pack,
+    :func:`finalize_program` for a host pack."""
+    if isinstance(packed, DevicePackedProgram):
+        return finalize_program_device(packed, finish, origin=origin)
+    return finalize_program(packed, finish, origin=origin)
+
+
+def serve_packed(packed, timing=None, carry=None, origin: int = 0,
+                 device=None,
+                 stage_seconds: Optional[Dict[str, float]] = None):
+    """:func:`serve_finishes` reduced to :class:`ProgramStats` (one wait
+    on the card, the finalize's copy).  Returns ``(stats, lean_carry)``."""
+    fin, lean = serve_finishes(packed, timing=timing, carry=carry,
+                               device=device, stage_seconds=stage_seconds)
     t0 = time.perf_counter()
-    if on_device:
-        stats = finalize_program_device(packed, fin, origin=origin)
-    else:
-        stats = finalize_program(packed, fin, origin=origin)
+    stats = finalize_any(packed, fin, origin=origin)
     if stage_seconds is not None:
         stage_seconds["finalize"] = (stage_seconds.get("finalize", 0.0)
                                      + time.perf_counter() - t0)
@@ -606,7 +620,7 @@ class VectorizedDRAM:
                                    comps["row"], C, L)[:4]
         streams = [torch.from_numpy(a).to(self.device)
                    for a in streams + (self._timing,)]
-        vec._sync(self.device)
+        wait(self.device)
         self._add_seconds("phase_pack", time.perf_counter() - t0)
         (finish, kind, self.carry), serve = vec.run_timed(
             lambda: vec.simulate_packed(*streams, self.carry), self.device)
@@ -641,7 +655,7 @@ class VectorizedDRAM:
         t0 = time.perf_counter()
         packed = pack_program_auto(program, self.cfg, open_row=self.carry[0],
                                    device=self.device)
-        vec._sync(self.device)
+        wait(self.device)
         self._add_seconds("pack", time.perf_counter() - t0)
         if packed is None:
             return self.now

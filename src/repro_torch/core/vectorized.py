@@ -38,7 +38,7 @@ import torch
 from repro_torch.core import timing as timing_mod
 from repro_torch.core.dram import CACHE_LINE_BYTES, DRAMConfig, DRAMTiming
 from repro_torch.core.trace import Trace, group_ranks
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, wait
 
 NEG_INF32 = -(1 << 30)
 
@@ -427,25 +427,45 @@ def _device_phase_durations(fin, L_p):
     return out.scatter_reduce_(0, phase, step_max, "amax")[:P_pad]
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+class StreamTimer:
+    """Seconds of the work enqueued on ``device``'s current stream between
+    construction and :meth:`stop`: CUDA events on the card, the host
+    clock on the CPU.  :meth:`seconds` does not wait: read it once a wait
+    has passed the stop (:meth:`wait`, or a later copy to the host)."""
+
+    def __init__(self, device: torch.device):
+        self.device = device
+        if device.type == "cuda":
+            self._start = torch.cuda.Event(enable_timing=True)
+            self._end = torch.cuda.Event(enable_timing=True)
+            self._start.record(torch.cuda.current_stream(device))
+        else:
+            self._start = time.perf_counter()
+
+    def stop(self) -> None:
+        if self.device.type == "cuda":
+            self._end.record(torch.cuda.current_stream(self.device))
+        else:
+            self._end = time.perf_counter()
+
+    def wait(self) -> None:
+        """Block until the card has passed the stop (a counted wait)."""
+        wait(self._end if self.device.type == "cuda" else self.device)
+
+    def seconds(self) -> float:
+        if self.device.type == "cuda":
+            return self._start.elapsed_time(self._end) / 1e3
+        return self._end - self._start
 
 
 def run_timed(fn, device: torch.device):
-    """``(fn(), seconds)``: CUDA events around ``fn`` on the card (it
-    synchronises on the end event), the host clock on the CPU."""
-    if device.type != "cuda":
-        t0 = time.perf_counter()
-        out = fn()
-        return out, time.perf_counter() - t0
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
+    """``(fn(), seconds)``: a :class:`StreamTimer` around ``fn``, waited
+    for."""
+    timer = StreamTimer(device)
     out = fn()
-    end.record()
-    end.synchronize()
-    return out, start.elapsed_time(end) / 1e3
+    timer.stop()
+    timer.wait()
+    return out, timer.seconds()
 
 
 def fused_scan(issue, meta, boundary, timing, carry, device,
@@ -454,23 +474,27 @@ def fused_scan(issue, meta, boundary, timing, carry, device,
     carry, on ``device``): the streams (host arrays, or tensors a device
     pack left on ``device``, which are used as they are) go through one
     ``dram_serve`` call — the CUDA kernel on the card, the plain version
-    on the CPU.  Returns ``(finish[S, C, K], carry)`` on ``device``.
-    ``stage_seconds``, when given, receives the ``h2d`` time (the copy of
-    host streams, or the cast of a device pack's boolean ``boundary``) and
-    the ``serve`` time (CUDA events on the card)."""
+    on the CPU.  Returns ``(finish[S, C, K], carry)`` on ``device``, the
+    serve enqueued and not waited for.  ``stage_seconds``, when given,
+    receives the ``h2d`` time (the copy of host streams, or the cast of a
+    device pack's boolean ``boundary``) and the ``serve`` time (CUDA
+    events on the card), each bought with a wait on the card."""
     from repro_torch.kernels.dram_timing.ops import dram_serve
     device = torch.device(device)
     t0 = time.perf_counter()
     streams = [as_int32(a, device) for a in (issue, meta, boundary, timing)]
-    _sync(device)
-    t1 = time.perf_counter()
+    if stage_seconds is not None:
+        wait(device)
+        stage_seconds["h2d"] = (stage_seconds.get("h2d", 0.0)
+                                + time.perf_counter() - t0)
     C = issue.shape[1]
     state = tuple(carry) + (torch.zeros((C,), dtype=torch.int32,
                                         device=device),)
-    (fin, state), serve = run_timed(lambda: dram_serve(*streams, state),
-                                    device)
-    if stage_seconds is not None:
-        stage_seconds["h2d"] = stage_seconds.get("h2d", 0.0) + (t1 - t0)
+    if stage_seconds is None:
+        fin, state = dram_serve(*streams, state)
+    else:
+        (fin, state), serve = run_timed(lambda: dram_serve(*streams, state),
+                                        device)
         stage_seconds["serve"] = stage_seconds.get("serve", 0.0) + serve
     return fin, state[:5]
 

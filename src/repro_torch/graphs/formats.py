@@ -20,6 +20,8 @@ from typing import List, Optional, Tuple, Union
 
 import numpy as np
 
+from repro_torch import spans
+
 
 class GraphParseError(ValueError):
     """A graph file could not be parsed; names the file, the 1-based
@@ -111,15 +113,16 @@ class Graph:
         Cached after the first call."""
         fp = self.__dict__.get("_fingerprint")
         if fp is None:
-            h = hashlib.blake2b(digest_size=16)
-            h.update(f"{self.n}|{int(self.directed)}|{self.name}|"
-                     .encode())
-            h.update(self.src.tobytes())
-            h.update(self.dst.tobytes())
-            if self.weights is not None:
-                h.update(str(self.weights.dtype).encode())
-                h.update(np.ascontiguousarray(self.weights).tobytes())
-            fp = self.__dict__["_fingerprint"] = h.hexdigest()
+            with spans.span("graph.fingerprint"):
+                h = hashlib.blake2b(digest_size=16)
+                h.update(f"{self.n}|{int(self.directed)}|{self.name}|"
+                         .encode())
+                h.update(self.src.tobytes())
+                h.update(self.dst.tobytes())
+                if self.weights is not None:
+                    h.update(str(self.weights.dtype).encode())
+                    h.update(np.ascontiguousarray(self.weights).tobytes())
+                fp = self.__dict__["_fingerprint"] = h.hexdigest()
         return fp
 
     def sorted_by(self, key: str = "dst") -> "Graph":

@@ -40,7 +40,7 @@ from repro_torch.core.trace import Trace
 from repro_torch.core.vectorized import (MAX_PHASE_ISSUE, NEG_INF32,
                                          init_channel_carry, pack_channels,
                                          timing_params)
-from repro_torch.device import resolve_device
+from repro_torch.device import resolve_device, to_host
 from repro_torch.kernels import count_launch
 from repro_torch.kernels.build import check_launch, library
 from repro_torch.kernels.dram_timing.ref import (dram_serve_batch_ref,
@@ -205,12 +205,19 @@ def _check_batch(issue, meta, boundary, timing, state):
         raise ValueError(f"the serve runs a warp a channel: C = {C} > 32")
     if R < 1 or B % R:
         raise ValueError(f"banks ({B}) must split evenly over ranks ({R})")
-    if S and (int(issue.min()) < 0 or int(issue.max()) >= MAX_PHASE_ISSUE):
+    # the range checks read the data: all of them in one wait on the card
+    issue_lh = [issue.min(), issue.max()] if S else []
+    carry = [x.min() for x in (avail, act, bus, hist, pmf) if x.numel()]
+    ptr_lh = [ptr.min(), ptr.max()] if ptr.numel() else []
+    seen = issue_lh + carry + ptr_lh
+    if seen:
+        seen = to_host(torch.stack(seen)).tolist()
+    if issue_lh and (seen[0] < 0 or seen[1] >= MAX_PHASE_ISSUE):
         raise ValueError("issue cycles out of int32 range; chunk the trace")
-    if any(int(x.min()) < NEG_INF32 for x in (avail, act, bus, hist, pmf)
-           if x.numel()):
+    if any(v < NEG_INF32
+           for v in seen[len(issue_lh):len(issue_lh) + len(carry)]):
         raise ValueError("carry holds times below NEG_INF32")
-    if ptr.numel() and (int(ptr.min()) < 0 or int(ptr.max()) > 3):
+    if ptr_lh and (seen[-2] < 0 or seen[-1] > 3):
         raise ValueError("ACT-history pointers must lie in [0, 4)")
     return M, S, C, K, B, R
 

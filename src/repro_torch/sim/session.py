@@ -36,6 +36,7 @@ import time
 from concurrent.futures import Future
 from typing import Dict, Optional
 
+from repro_torch import spans
 from repro_torch.algorithms.common import Problem, RunResult
 from repro_torch.analysis import locks
 from repro_torch.core import cache as cache_mod
@@ -157,27 +158,31 @@ class SimSession:
     def model_for(self, spec, config):
         """Graph-bound model cache, shared across problems and across
         every timing variant of one memory structure."""
+        def build():
+            with spans.span("session.model"):
+                return spec.build_model(self.graph, config)
+
         key = _dram_cfg_key(spec.name, config, include_cache=False)
         if key is None:
             try:
                 key = (spec.name, config)
                 hash(key)
             except TypeError:
-                return spec.build_model(self.graph, config)
-        return self._singleflight(
-            self._models, key,
-            lambda: spec.build_model(self.graph, config))
+                return build()
+        return self._singleflight(self._models, key, build)
 
     def algorithm_run(self, spec, problem: Problem, config, root: int,
                       fixed_iters: Optional[int], device) -> RunResult:
+        def build():
+            with spans.span("session.algorithm"):
+                return spec.run_algorithm(self.graph, problem, config,
+                                          root=root, fixed_iters=fixed_iters,
+                                          device=device)
+
         key = spec.algorithm_key(self.graph, problem, config, root=root,
                                  fixed_iters=fixed_iters)
-        return self._singleflight(
-            self._runs, key,
-            lambda: spec.run_algorithm(self.graph, problem, config,
-                                       root=root, fixed_iters=fixed_iters,
-                                       device=device),
-            count=("algo_runs", "algo_cache_hits"))
+        return self._singleflight(self._runs, key, build,
+                                  count=("algo_runs", "algo_cache_hits"))
 
     def packed_program_for(self, spec, problem: Problem, config, model,
                            run: RunResult, dram, root: int = 0,
@@ -197,12 +202,13 @@ class SimSession:
         device = resolve_device(device)
 
         def _build():
-            program = model.build_program(problem, run)
-            cs = None
-            if dram.cache is not None and dram.cache.enabled:
-                program, cs, _ = cache_mod.filter_program(
-                    program, dram.cache, device=device)
-            return pack_program_auto(program, dram, device=device), cs
+            with spans.span("session.program"):
+                program = model.build_program(problem, run)
+                cs = None
+                if dram.cache is not None and dram.cache.enabled:
+                    program, cs, _ = cache_mod.filter_program(
+                        program, dram.cache, device=device)
+                return pack_program_auto(program, dram, device=device), cs
 
         cfg_key = _dram_cfg_key(spec.name, config, include_cache=True)
         if cfg_key is None:

@@ -44,12 +44,12 @@ from typing import Any, Dict, Iterable, List, Optional, Sequence
 import numpy as np
 import torch
 
+from repro_torch import spans
 from repro_torch.algorithms.common import Problem
 from repro_torch.analysis import locks
 from repro_torch.core import vectorized as vec
-from repro_torch.core.accel import (DevicePackedProgram, ProgramStats,
-                                    SimReport, finalize_program,
-                                    finalize_program_device, serve_packed)
+from repro_torch.core.accel import (ProgramStats, SimReport, finalize_any,
+                                    serve_finishes)
 from repro_torch.device import resolve_device
 from repro_torch.graphs.corpus import GraphLike, resolve_graph
 from repro_torch.graphs.formats import Graph
@@ -166,10 +166,14 @@ class SweepRow:
     point: ``report`` aggregates the whole update timeline and ``epochs``
     carries the per-epoch :class:`~repro_torch.sim.dynamic.EpochReport`
     rows (``None`` for static cases).  A static case served by the sweep
-    records in ``report.stage_seconds`` its ``prepare`` seconds (algorithm
-    run, model, trace and pack, on a worker) and its ``serve`` seconds
-    (its share of a batched serve); ``run_case`` keeps the session's
-    stages."""
+    records in ``report.stage_seconds`` its ``prepare`` seconds (the
+    ``sweep.prepare`` span on a worker: algorithm run, model, trace and
+    pack, or cache hits) and its ``serve`` seconds: on the per-case path
+    the host's wall time from the serve's enqueue to the report, the
+    finalize's wait on the card included; in a batched serve the group
+    serve's device seconds (CUDA events around ``fused_scan_batch``,
+    the host clock on the CPU) over its cases.  ``run_case`` keeps the
+    session's stages."""
 
     case: SweepCase
     report: SimReport
@@ -385,10 +389,11 @@ class Sweeper:
         backend = self.backend if backend is None else backend
         try:
             if backend in (None, "vectorized"):
-                if self.batch_memories:
-                    rows = self._run_batched(cases, control)
-                else:
-                    rows = self._run_pipelined(cases, control)
+                with spans.span("sweep.run") as run:
+                    if self.batch_memories:
+                        rows = self._run_batched(cases, control, run)
+                    else:
+                        rows = self._run_pipelined(cases, control, run)
             else:
                 # the event backend and the reference machine: one case
                 # at a time, grouped by (accelerator, graph)
@@ -405,6 +410,13 @@ class Sweeper:
         finally:
             self._sync_stats()
         return rows
+
+    def _prepare_timed(self, i: int, case: SweepCase, run):
+        """``(prepared, seconds)`` of :meth:`_prepare_case` on a worker,
+        under a ``sweep.prepare`` span that is a child of ``run``."""
+        with spans.adopt(run), spans.span("sweep.prepare", timed=True) as s:
+            out = self._guard(i, case, lambda: self._prepare_case(case))
+        return out, s.seconds
 
     def _prepare_case(self, case: SweepCase):
         """Build ``(model, run, packed, cache_stats, dram)`` for a
@@ -447,70 +459,70 @@ class Sweeper:
         return model, run, packed, cstats, dram
 
     def _run_pipelined(self, cases: Sequence[SweepCase],
-                       control=None) -> List[SweepRow]:
+                       control=None, run=None) -> List[SweepRow]:
         """Sharded per-case execution: ``workers`` threads prepare cases
         while this thread serves them in deterministic case order."""
         order = sorted(
             range(len(cases)),
             key=lambda i: (cases[i].accelerator, cases[i].graph.fingerprint))
         rows: List[Optional[SweepRow]] = [None] * len(cases)
+        pending = deque()
+        it = iter(order)
 
-        def prep(i):
-            t0 = time.perf_counter()
-            out = self._guard(i, cases[i],
-                              lambda: self._prepare_case(cases[i]))
-            return out, time.perf_counter() - t0
+        def submit_next():
+            i = next(it, None)
+            if i is not None:
+                pending.append((i, pool.submit(self._prepare_timed, i,
+                                               cases[i], run)))
 
-        with ThreadPoolExecutor(max_workers=self.workers) as pool:
-            pending = deque()
-            it = iter(order)
-
-            def submit_next():
-                i = next(it, None)
-                if i is not None:
-                    pending.append((i, pool.submit(prep, i)))
-
+        with spans.span("sweep.pool"):
+            pool = ThreadPoolExecutor(max_workers=self.workers)
             # bound the in-flight window so prepared programs don't pile
             # up in memory ahead of the serving loop
             for _ in range(self.workers + 2):
                 submit_next()
-            try:
-                while pending:
-                    self._check_control(control, rows)
-                    i, fut = pending.popleft()
+        try:
+            while pending:
+                self._check_control(control, rows)
+                i, fut = pending.popleft()
+                with spans.span("sweep.pool"):
                     prepped, prep_s = fut.result()
-                    submit_next()
-                    case = cases[i]
-                    if prepped is None:
-                        rows[i] = self._guard(
-                            i, case, lambda: self.run_case(case))
-                        continue
-                    self.stats.cases += 1
-                    model, run_, packed, cstats, dram = prepped
-                    t0 = time.perf_counter()
+                submit_next()
+                case = cases[i]
+                if prepped is None:
+                    rows[i] = self._guard(
+                        i, case, lambda: self.run_case(case))
+                    continue
+                self.stats.cases += 1
+                model, run_, packed, cstats, dram = prepped
+                t0 = time.perf_counter()
 
-                    def _serve():
-                        chaos.maybe_inject("dram.serve",
-                                           case_chaos_key(case))
-                        if packed is None:
-                            return ProgramStats([], 0, 0, 0, 0)
-                        s, _ = serve_packed(
+                def _serve():
+                    chaos.maybe_inject("dram.serve", case_chaos_key(case))
+                    if packed is None:
+                        return ProgramStats([], 0, 0, 0, 0)
+                    with spans.span("sweep.serve"):
+                        fin, _ = serve_finishes(
                             packed, timing=vec.timing_params(dram.timing),
                             device=self.device)
-                        return s
-                    stats = self._guard(i, case, _serve)
-                    stats.attach_cache(cstats)
+                    with spans.span("sweep.finalize"):
+                        return finalize_any(packed, fin)
+                stats = self._guard(i, case, _serve)
+                stats.attach_cache(cstats)
+                with spans.span("sweep.report"):
                     report = model.make_report(case.problem, run_, stats)
-                    serve_s = time.perf_counter() - t0
-                    report.stage_seconds = {"prepare": prep_s,
-                                            "serve": serve_s}
-                    rows[i] = SweepRow(case, report, prep_s + serve_s)
-            except BaseException:
-                # stop at this case boundary: drop queued preps (running
-                # ones finish under the executor's exit) and let the
-                # interruption or error propagate with the rows so far
-                pool.shutdown(wait=False, cancel_futures=True)
-                raise
+                serve_s = time.perf_counter() - t0
+                report.stage_seconds = {"prepare": prep_s, "serve": serve_s}
+                rows[i] = SweepRow(case, report, prep_s + serve_s)
+        except BaseException:
+            # stop at this case boundary: drop queued preps (running ones
+            # finish under the join below) and let the interruption or
+            # error propagate with the rows so far
+            pool.shutdown(wait=False, cancel_futures=True)
+            raise
+        finally:
+            with spans.span("sweep.pool"):
+                pool.shutdown()
         return rows
 
     def _serve_group(self, items, rows, mesh=None) -> None:
@@ -518,54 +530,57 @@ class Sweeper:
         identity) is served against the whole timing batch, never
         replicated; distinct packs are stacked (device or host packs, as
         each memory's decode allows).  With a ``mesh`` the batch is
-        sharded over it, the shared pack copied once a device."""
-        t0 = time.perf_counter()
-        packs = [it[4] for it in items]
-        timings = np.stack([vec.timing_params(it[6].timing) for it in items])
-        first = packs[0]
-        shared = len({id(p) for p in packs}) == 1
-        if shared:
-            streams = (first.issue, first.meta, first.boundary)
-        else:
-            streams = tuple(
-                torch.stack([vec.as_int32(getattr(p, f), self.device)
-                             for p in packs])
-                for f in ("issue", "meta", "boundary"))
-        geometry = (first.n_banks, first.banks_per_rank)
-        if mesh is None:
-            fins, _ = vec.fused_scan_batch(*streams, timings, *geometry,
-                                           self.device)
-        else:
-            from repro_torch.distributed.sharding import (
-                sharded_fused_scan_batch, sharded_fused_scan_batch_shared)
-            serve = (sharded_fused_scan_batch_shared if shared
-                     else sharded_fused_scan_batch)
-            fins, _ = serve(*streams, timings, *geometry, mesh, self.device)
-        share = (time.perf_counter() - t0) / len(items)
+        sharded over it, the shared pack copied once a device.  The serve
+        is timed on the card's stream and read after the first finalize's
+        copy, so the timing adds no wait."""
+        with spans.span("sweep.serve"):
+            packs = [it[4] for it in items]
+            timings = np.stack([vec.timing_params(it[6].timing)
+                                for it in items])
+            first = packs[0]
+            shared = len({id(p) for p in packs}) == 1
+            if shared:
+                streams = (first.issue, first.meta, first.boundary)
+            else:
+                streams = tuple(
+                    torch.stack([vec.as_int32(getattr(p, f), self.device)
+                                 for p in packs])
+                    for f in ("issue", "meta", "boundary"))
+            geometry = (first.n_banks, first.banks_per_rank)
+            timer = vec.StreamTimer(self.device)
+            if mesh is None:
+                fins, _ = vec.fused_scan_batch(*streams, timings, *geometry,
+                                               self.device)
+            else:
+                from repro_torch.distributed.sharding import (
+                    sharded_fused_scan_batch, sharded_fused_scan_batch_shared)
+                serve = (sharded_fused_scan_batch_shared if shared
+                         else sharded_fused_scan_batch)
+                fins, _ = serve(*streams, timings, *geometry, mesh,
+                                self.device)
+            timer.stop()
+        share = None
         for m, (i, case, model, run_, packed, cstats, _dram,
                 wall) in enumerate(items):
-            if isinstance(packed, DevicePackedProgram):
-                stats = finalize_program_device(packed, fins[m])
-            else:
-                stats = finalize_program(packed, fins[m])
+            with spans.span("sweep.finalize"):
+                stats = finalize_any(packed, fins[m])
+            if share is None:
+                share = timer.seconds() / len(items)
             stats.attach_cache(cstats)
-            report = model.make_report(case.problem, run_, stats)
+            with spans.span("sweep.report"):
+                report = model.make_report(case.problem, run_, stats)
             report.stage_seconds = {"prepare": wall, "serve": share}
             rows[i] = SweepRow(case, report, wall + share)
 
     def _run_batched(self, cases: Sequence[SweepCase],
-                     control=None) -> List[SweepRow]:
+                     control=None, run=None) -> List[SweepRow]:
         rows: List[Optional[SweepRow]] = [None] * len(cases)
-
-        def prep(i):
-            t0 = time.perf_counter()
-            out = self._guard(i, cases[i],
-                              lambda: self._prepare_case(cases[i]))
-            return out, time.perf_counter() - t0
-
         self._check_control(control, rows)
-        with ThreadPoolExecutor(max_workers=self.workers) as pool:
-            preps = list(pool.map(prep, range(len(cases))))
+        with spans.span("sweep.pool"), \
+                ThreadPoolExecutor(max_workers=self.workers) as pool:
+            preps = list(pool.map(
+                lambda i: self._prepare_timed(i, cases[i], run),
+                range(len(cases))))
         groups = defaultdict(list)
         for i, (prepped, prep_s) in enumerate(preps):
             if prepped is None:
@@ -580,8 +595,9 @@ class Sweeper:
         for i, case, model, run_, _p, cstats, _d, wall in groups.pop(None,
                                                                      []):
             stats = ProgramStats([], 0, 0, 0, 0).attach_cache(cstats)
-            rows[i] = SweepRow(case, model.make_report(
-                case.problem, run_, stats), wall)
+            with spans.span("sweep.report"):
+                report = model.make_report(case.problem, run_, stats)
+            rows[i] = SweepRow(case, report, wall)
         # independent signature groups serve concurrently (their serves
         # share no state; rows land at disjoint indices)
         group_items = list(groups.values())
@@ -590,16 +606,18 @@ class Sweeper:
         if self.workers > 1 and len(group_items) > 1:
             self._check_control(control, rows)
             meshes = [self._group_mesh(items) for items in group_items]
-            with ThreadPoolExecutor(max_workers=self.workers) as pool:
-                list(pool.map(
-                    lambda items, mesh: self._serve_group(items, rows, mesh),
-                    group_items, meshes))
+
+            def serve(items, mesh):
+                with spans.adopt(run):
+                    self._serve_group(items, rows, mesh)
+            with spans.span("sweep.pool"), \
+                    ThreadPoolExecutor(max_workers=self.workers) as pool:
+                list(pool.map(serve, group_items, meshes))
         else:
             for items in group_items:
                 self._check_control(control, rows)
                 self._serve_group(items, rows, self._group_mesh(items))
         return rows
-
 
 def sweep(graphs: Iterable[GraphLike] = (), problems: Iterable = (),
           accelerators: Iterable[str] = ("hitgraph", "accugraph"),
