@@ -18,12 +18,27 @@ def count_launch(fn: Callable) -> None:
         fn.launches += 1
 
 
+def count_in(counts: Dict[str, int], key: str) -> None:
+    """Add one to ``counts[key]``, a counter kept beside the launch
+    counters (the serve's routes), under the same lock."""
+    with _count_lock:
+        counts[key] += 1
+
+
+def read_counts(counts: Dict[str, int]) -> Dict[str, int]:
+    """A copy of ``counts``, read under the counters' lock."""
+    with _count_lock:
+        return dict(counts)
+
+
 def wrappers() -> Dict[str, Callable]:
     """Every kernel wrapper, by kernel name; each counts its launches in
     ``<wrapper>.launches``.  ``sweep_min_rounds`` is the round sweep and
     ``sweep_min`` the serial one (the two routes of ``sweep_min_block``);
     ``dram_serve`` is the serve over the records that
-    ``serve_prepass`` writes (one launch of each a serve), and
+    ``serve_prepass`` writes (one count of each a serve, whichever route
+    the serve takes: one launch for the walk, six for the chunked scan;
+    ``ops.serve_routes()`` counts the routes), and
     ``dram_serve_batch`` / ``serve_prepass_batch`` the same for M cases at
     once (a batched sweep's serve);
     ``dram_timing`` is the chunked scan and ``dram_timing_serial`` its

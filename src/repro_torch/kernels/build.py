@@ -44,6 +44,13 @@ SIGNATURES = {
     # records, timing, 6 carry inputs, finish, 6 carry outputs, S, S_pad,
     # T, C, K, B, R, M and stream
     "repro_dram_serve_batch": ([_P] * 15 + [_L, _L] + [_I] * 6 + [_P], _I),
+    # S, C, B, R, M, T, the most phase ends a case -> workspace bytes
+    "repro_dram_serve_chunked_bytes": ([_L] + [_I] * 5 + [_L], _L),
+    # as repro_dram_serve_batch, then M, the tile length T, the group G,
+    # the most phase ends a case, the workspace, float[6] launch times (or
+    # null) and stream (C, K, B, R, M, T, G after S and S_pad)
+    "repro_dram_serve_chunked": ([_P] * 15 + [_L, _L] + [_I] * 7
+                                 + [_L, _P, _P, _P], _I),
     # issue, bank, row, valid, timing, 7 carry inputs, finish, kind,
     # 7 carry outputs, C, L, B, R, banks_per_rank, stream
     "repro_dram_timing": ([_P] * 21 + [_I, _L, _I, _I, _I, _P], _I),

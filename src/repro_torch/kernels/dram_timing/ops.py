@@ -16,8 +16,14 @@
 Each wrapper checks its inputs, then launches the CUDA kernel for CUDA
 tensors or runs the plain version (``ref.py``) for CPU tensors.  There
 is no fallback: a CUDA tensor goes to the kernel or the call raises.
-The single-case serve launches the batched serve's two kernels on one
-case.
+The single-case serve launches the batched serve's kernels on one case.
+
+The serve's carry chain takes one of two routes on the card
+(:func:`serve_route`, from the input's shape and the values its check
+reads): the chunked max-plus scan over the whole card (six launches, one
+call) where its int32 bound holds and the program is long, else the
+record walk, a warp a channel in one launch.  :func:`serve_routes`
+counts the card's serve calls by route.
 ``dram_serve.launches`` (the serve's carry chain, from ``dram_serve``
 or ``serve_records``), ``serve_prepass.launches``,
 ``dram_serve_batch.launches`` (from ``dram_serve_batch`` or
@@ -30,7 +36,7 @@ launches.
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Dict, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -41,32 +47,28 @@ from repro_torch.core.vectorized import (MAX_PHASE_ISSUE, NEG_INF32,
                                          init_channel_carry, pack_channels,
                                          timing_params)
 from repro_torch.device import resolve_device, to_host
-from repro_torch.kernels import count_launch
+from repro_torch.kernels import count_in, count_launch, read_counts
 from repro_torch.kernels.build import check_launch, library
-from repro_torch.kernels.dram_timing.ref import (dram_serve_batch_ref,
-                                                 dram_serve_ref,
-                                                 dram_timing_chunked_ref,
-                                                 dram_timing_ref,
-                                                 dram_timing_serial_ref,
-                                                 serve_prepass_batch_ref,
-                                                 serve_prepass_ref,
-                                                 serve_records_batch_ref,
-                                                 serve_records_ref)
+from repro_torch.kernels.dram_timing.ref import (
+    REC_BOUNDARY, SERVE_GROUP, dram_serve_batch_ref, dram_serve_ref,
+    dram_timing_chunked_ref, dram_timing_ref, dram_timing_serial_ref,
+    serve_prepass_batch_ref, serve_prepass_ref, serve_records_batch_ref,
+    serve_records_chunked_batch_ref, serve_records_ref, serve_state_width)
 
 State = Tuple[torch.Tensor, ...]
 
 
 def _check(issue, meta, boundary, timing, state):
     """The input check of :func:`dram_serve`: :func:`_check_batch` on the
-    one case.  Returns ``(S, C, K, B, R)``."""
+    one case.  Returns ``(S, C, K, B, R, plan)``."""
     if not isinstance(issue, torch.Tensor) or issue.dim() != 3:
         raise ValueError("issue must be an [S, C, K] tensor")
     if not isinstance(timing, torch.Tensor):
         raise TypeError(f"expected torch tensors, got {type(timing)}")
-    _, S, C, K, B, R = _check_batch(
+    _, S, C, K, B, R, plan = _check_batch(
         issue, meta, boundary, timing[None],
         tuple(x[None] if isinstance(x, torch.Tensor) else x for x in state))
-    return S, C, K, B, R
+    return S, C, K, B, R, plan
 
 
 #: records a ring slot of the serve holds, and the shared memory the
@@ -86,6 +88,91 @@ def chunk_steps(C: int, K: int) -> int:
     return T
 
 
+#: tile lengths the chunked serve takes (a multiple of its 32-step stage)
+SERVE_CHUNK_LENS = (32, 64, 128, 256, 512, 1024, 2048, 4096)
+#: programs shorter than this walk their records in one launch (PERF.md
+#: §6: from 512 steps on, the chunked route came out faster on the card)
+CHUNKED_MIN_STEPS = 512
+I32_MAX = (1 << 31) - 1
+
+
+def serve_tiling(S: int) -> Tuple[int, int]:
+    """The tile length and group the chunked serve takes for a program of
+    ``S`` steps, the fastest of a sweep on the card (PERF.md §6): long
+    programs take long tiles and groups (fewer pieces to compose and
+    walk), short ones short tiles (more of them side by side) and short
+    groups (a shorter serial compose)."""
+    if S <= 1024:
+        return 32, 8
+    if S <= 8192:
+        return 64, 8
+    if S <= 65536:
+        return 128, 16
+    return 512, SERVE_GROUP
+
+
+def step_growth(timing: Sequence[int], K: int) -> int:
+    """A bound on how far one step of the record walk raises the largest
+    time in its carry or its step (issues included), for ``timing`` (tCL,
+    tRCD, tRP, tRAS, tBL, tRRD, tFAW, each >= 0): a hit's column is at most
+    ``31 tBL`` past its bank's time or issue, a miss's ``tRAS + tRP + tRCD``
+    or ``max(tRRD, tFAW) + tRCD`` past the carry's, and a finish at most
+    ``tCL + K tBL`` past its column or the bus."""
+    tCL, tRCD, tRP, tRAS, tBL, tRRD, tFAW = (int(t) for t in timing)
+    return ((K + 1) * tBL + tCL
+            + max(tRAS + tRP + tRCD, max(tRRD, tFAW) + tRCD, 31 * tBL))
+
+
+def chunked_fits(S: int, C: int, K: int, B: int, R: int, top: int,
+                 pmf_min: int, timing: Sequence[Sequence[int]]) -> bool:
+    """Whether the chunked serve computes what the int32 record walk does
+    on an input of this shape: no step of the walk can wrap, because the
+    largest time it can reach, ``top`` (the largest issue or carry time,
+    at least 0) plus ``S`` steps' growth (:func:`step_growth`, the largest
+    of the cases'), stays inside int32; every timing parameter and phase
+    makespan is at least 0 (so no re-base raises a time); and the state
+    vector fits the kernels (``Dp <= 64``, ``C * Dp <= 1024``)."""
+    Dp = serve_state_width(B, R)
+    if Dp > 64 or C * Dp > 1024 or S < 1 or pmf_min < 0:
+        return False
+    if any(int(t) < 0 for row in timing for t in row):
+        return False
+    growth = max(step_growth(row, K) for row in timing)
+    return (serve_tiling(S)[0] * growth < (1 << 28)
+            and top + (S + 1) * growth <= I32_MAX)
+
+
+def serve_route(S: int, C: int, K: int, B: int, R: int, top: int,
+                pmf_min: int, timing: Sequence[Sequence[int]]) -> str:
+    """The route of a serve of ``S`` steps: ``"chunked"`` where
+    :func:`chunked_fits` holds and the program is at least
+    :data:`CHUNKED_MIN_STEPS` long, else ``"walk"``.  Both tests read the
+    input alone: its shape, ``top`` (the largest issue or carry time),
+    the carry's smallest phase makespan and the timing vectors."""
+    if S >= CHUNKED_MIN_STEPS and chunked_fits(S, C, K, B, R, top, pmf_min,
+                                               timing):
+        return "chunked"
+    return "walk"
+
+
+class ServePlan(NamedTuple):
+    """What a serve's check read that its launch needs: the route and
+    the most phase ends a case's program holds."""
+    route: str
+    phase_ends: int
+
+
+#: serve calls on the card by route (:func:`serve_routes`)
+_ROUTES = {"chunked": 0, "walk": 0}
+
+
+def serve_routes() -> Dict[str, int]:
+    """The card's serve calls (``dram_serve``, ``dram_serve_batch`` and
+    their ``serve_records*`` halves) by route since the process started:
+    ``{"chunked": n, "walk": n}``.  Kept apart from the launch counters."""
+    return read_counts(_ROUTES)
+
+
 def dram_serve(issue: torch.Tensor, meta: torch.Tensor,
                boundary: torch.Tensor, timing: torch.Tensor,
                state: State):
@@ -95,16 +182,19 @@ def dram_serve(issue: torch.Tensor, meta: torch.Tensor,
     step, ``timing`` the int32[7] vector (tCL, tRCD, tRP, tRAS, tBL, tRRD,
     tFAW).  Returns ``(finish[S, C, K], state)``, bit-identical to the JAX
     package's fused scan.  On the card: the carry-free pre-pass
-    (:func:`serve_prepass`), then the serve over its records
-    (:func:`serve_records`); on the CPU the plain step loop."""
-    S, C, K, B, R = _check(issue, meta, boundary, timing, state)
+    (:func:`serve_prepass`), then the serve over its records by the
+    route :func:`serve_route` picks; on the CPU the plain step loop."""
+    S, C, K, B, R, plan = _check(issue, meta, boundary, timing, state)
     if issue.device.type == "cpu":
         return dram_serve_ref(issue, meta, boundary, timing, state)
     if S == 0:
         return torch.empty_like(issue), tuple(x.clone() for x in state)
     rec = serve_prepass(issue, meta, boundary, timing, B // R, R,
                         chunk_steps(C, K))
-    return serve_records(rec, timing, state, S)
+    fin, out = _serve(rec[None], timing[None], tuple(x[None] for x in state),
+                      S, plan, "dram_serve")
+    count_launch(dram_serve)
+    return fin[0], tuple(x[0] for x in out)
 
 
 def serve_prepass(issue: torch.Tensor, meta: torch.Tensor,
@@ -133,14 +223,15 @@ def serve_records(rec: torch.Tensor, timing: torch.Tensor, state: State,
                   S: int):
     """The serve's carry chain over the first ``S`` steps of the records
     ``rec`` (:func:`serve_prepass`) from ``state``; returns ``(finish[S,
-    C, K], state)``.  One launch on the card (the batched serve on one
-    case, counted in ``dram_serve.launches``); the plain record walk for
-    CPU tensors."""
+    C, K], state)``.  On the card the batched serve on one case, by the
+    route :func:`serve_route` picks from the records (one call, counted in
+    ``dram_serve.launches``); the plain record walk for CPU tensors."""
     if rec.device.type == "cpu":
         return serve_records_ref(rec, timing, state, S)
-    fin, out = _launch_records(rec[None], timing[None],
-                               tuple(x[None] for x in state), S,
-                               "dram_serve")
+    recs, timings = rec[None], timing[None]
+    states = tuple(x[None] for x in state)
+    plan, _ = _records_plan(recs, timings, states, S)
+    fin, out = _serve(recs, timings, states, S, plan, "dram_serve")
     count_launch(dram_serve)
     return fin[0], tuple(x[0] for x in out)
 
@@ -155,7 +246,8 @@ MAX_CASES = 65535
 
 def _check_batch(issue, meta, boundary, timing, state):
     """The input check of :func:`dram_serve_batch`: :func:`_check`'s
-    contract on every case.  Returns ``(M, S, C, K, B, R)``."""
+    contract on every case.  Returns ``(M, S, C, K, B, R, plan)``, the
+    :class:`ServePlan` from the same read."""
     if len(state) != 6:
         raise ValueError(f"state must be the 6-tuple carry, got "
                          f"{len(state)} arrays")
@@ -205,21 +297,32 @@ def _check_batch(issue, meta, boundary, timing, state):
         raise ValueError(f"the serve runs a warp a channel: C = {C} > 32")
     if R < 1 or B % R:
         raise ValueError(f"banks ({B}) must split evenly over ranks ({R})")
-    # the range checks read the data: all of them in one wait on the card
-    issue_lh = [issue.min(), issue.max()] if S else []
-    carry = [x.min() for x in (avail, act, bus, hist, pmf) if x.numel()]
-    ptr_lh = [ptr.min(), ptr.max()] if ptr.numel() else []
-    seen = issue_lh + carry + ptr_lh
-    if seen:
-        seen = to_host(torch.stack(seen)).tolist()
-    if issue_lh and (seen[0] < 0 or seen[1] >= MAX_PHASE_ISSUE):
+    # the range checks, and the route's bound, read the data: all of them
+    # in one wait on the card
+    carry = [x for x in (avail, act, bus, hist, pmf) if x.numel()]
+    parts = [v for x in ([issue] if S else []) + carry + [ptr]
+             if x.numel() for v in torch.aminmax(x)]
+    if S:
+        parts.append(boundary.count_nonzero(-1).max())
+    seen = to_host(torch.cat([torch.stack(parts), timing.flatten()])).tolist()
+    n_issue, n_carry = (2 if S else 0), 2 * len(carry)
+    n_ptr = 2 if ptr.numel() else 0
+    issue_lh, seen = seen[:n_issue], seen[n_issue:]
+    carry_lh, seen = seen[:n_carry], seen[n_carry:]
+    ptr_lh, seen = seen[:n_ptr], seen[n_ptr:]
+    phase_ends = seen.pop(0) if S else 0
+    if issue_lh and (issue_lh[0] < 0 or issue_lh[1] >= MAX_PHASE_ISSUE):
         raise ValueError("issue cycles out of int32 range; chunk the trace")
-    if any(v < NEG_INF32
-           for v in seen[len(issue_lh):len(issue_lh) + len(carry)]):
+    if any(v < NEG_INF32 for v in carry_lh[::2]):
         raise ValueError("carry holds times below NEG_INF32")
-    if ptr_lh and (seen[-2] < 0 or seen[-1] > 3):
+    if ptr_lh and (ptr_lh[0] < 0 or ptr_lh[1] > 3):
         raise ValueError("ACT-history pointers must lie in [0, 4)")
-    return M, S, C, K, B, R
+    top = max([0] + issue_lh[1:] + carry_lh[1::2])
+    pmf_min = carry_lh[-2] if pmf.numel() else 0
+    timings = [seen[7 * m:7 * m + 7] for m in range(M)]
+    plan = ServePlan(serve_route(S, C, K, B, R, top, pmf_min, timings),
+                     phase_ends)
+    return M, S, C, K, B, R, plan
 
 
 def dram_serve_batch(issue: torch.Tensor, meta: torch.Tensor,
@@ -232,10 +335,12 @@ def dram_serve_batch(issue: torch.Tensor, meta: torch.Tensor,
     programs (``[M, S, C, K]``, ``[M, S]``), all int32.  Returns
     ``(finish[M, S, C, K], state)``, case m equal to :func:`dram_serve`
     on case m's inputs.  On the card: the pre-pass for every case
-    (:func:`serve_prepass_batch`, one launch), then one CTA a case
-    (:func:`serve_records_batch`, one launch); for CPU tensors the plain
-    version, case by case."""
-    M, S, C, K, B, R = _check_batch(issue, meta, boundary, timing, state)
+    (:func:`serve_prepass_batch`, one launch), then the serve over its
+    records by the route :func:`serve_route` picks (the walk, one CTA a
+    case, or the chunked scan over the whole card); for CPU tensors the
+    plain version, case by case."""
+    M, S, C, K, B, R, plan = _check_batch(issue, meta, boundary, timing,
+                                          state)
     if issue.device.type == "cpu":
         return dram_serve_batch_ref(issue, meta, boundary, timing, state)
     if S == 0:
@@ -244,7 +349,9 @@ def dram_serve_batch(issue: torch.Tensor, meta: torch.Tensor,
                 tuple(x.clone() for x in state))
     rec = serve_prepass_batch(issue, meta, boundary, timing, B // R, R,
                               chunk_steps(C, K))
-    return serve_records_batch(rec, timing, state, S)
+    fin, out = _serve(rec, timing, state, S, plan, "dram_serve_batch")
+    count_launch(dram_serve_batch)
+    return fin, out
 
 
 dram_serve_batch.launches = 0
@@ -272,16 +379,114 @@ serve_prepass_batch.launches = 0
 
 def serve_records_batch(rec: torch.Tensor, timing: torch.Tensor,
                         state: State, S: int):
-    """:func:`serve_records` for M cases, one CTA a case, over the records
-    of :func:`serve_prepass_batch`; returns ``(finish[M, S, C, K],
-    state)``.  One launch on the card (counted in
-    ``dram_serve_batch.launches``); the plain record walk for CPU
-    tensors."""
+    """:func:`serve_records` for M cases over the records of
+    :func:`serve_prepass_batch`; returns ``(finish[M, S, C, K], state)``.
+    On the card one call by the route :func:`serve_route` picks from the
+    records (counted in ``dram_serve_batch.launches``); the plain record
+    walk for CPU tensors."""
     if rec.device.type == "cpu":
         return serve_records_batch_ref(rec, timing, state, S)
-    fin, out = _launch_records(rec, timing, state, S, "dram_serve_batch")
+    plan, _ = _records_plan(rec, timing, state, S)
+    fin, out = _serve(rec, timing, state, S, plan, "dram_serve_batch")
     count_launch(dram_serve_batch)
     return fin, out
+
+
+def serve_records_chunks(rec: torch.Tensor, timing: torch.Tensor,
+                         state: State, S: int, T: int,
+                         group: int = SERVE_GROUP,
+                         time_passes: bool = False):
+    """:func:`serve_records_batch` by the chunked route whatever the
+    program's length, with tiles of ``T`` steps (one of
+    :data:`SERVE_CHUNK_LENS`) and the carry walk composing ``group``
+    pieces at a time (1 to 64); returns ``(finish, state, pass_ms)``,
+    ``pass_ms`` the milliseconds of each of the six launches (count,
+    scan, transfer, compose, walk, emit) by CUDA events with
+    ``time_passes`` on the card, else None.  Raises ``ValueError`` where
+    :func:`chunked_fits` does not hold.  Counted in
+    ``dram_serve_batch.launches``; for CPU tensors the plain chunked
+    version (:func:`~.ref.serve_records_chunked_batch_ref`)."""
+    if T not in SERVE_CHUNK_LENS:
+        raise ValueError(f"tile length must be one of {SERVE_CHUNK_LENS}, "
+                         f"got {T}")
+    if not 1 <= group <= 64:
+        raise ValueError(f"group must lie in [1, 64], got {group}")
+    plan, fits = _records_plan(rec, timing, state, S)
+    if not fits:
+        raise ValueError("the chunked serve's int32 bound does not hold "
+                         "for these records")
+    if rec.device.type == "cpu":
+        return serve_records_chunked_batch_ref(rec, timing, state, S, T,
+                                               group) + (None,)
+    fin, out, ms = _launch_chunked(rec, timing, state, S, plan.phase_ends,
+                                   T, group, "dram_serve_batch",
+                                   time_passes)
+    count_in(_ROUTES, "chunked")
+    count_launch(dram_serve_batch)
+    return fin, out, ms
+
+
+def _records_plan(rec, timing, state, S):
+    """``(plan, fits)`` for a serve of records ``rec[M, C, S_pad, K, 2]``
+    from ``state`` (case axis first): its :class:`ServePlan` and
+    :func:`chunked_fits`, read in one wait (the records' largest time, an
+    issue or a hit chain's below it, their phase ends and the carry's
+    range)."""
+    M, C, _, K, _ = rec.shape
+    avail, act, bus, hist, ptr, pmf = state
+    B, R = avail.shape[2], hist.shape[2]
+    parts = [rec[:, :, :S, :, 0].max(),
+             ((rec[:, 0, :S, 0, 1] & REC_BOUNDARY) != 0).sum(-1).max(),
+             pmf.min()]
+    parts += [x.max() for x in (avail, act, bus, hist, pmf)]
+    seen = to_host(torch.cat([torch.stack(parts), timing.flatten()])).tolist()
+    top = max([0, seen[0]] + seen[3:8])
+    timings = [seen[8 + 7 * m:15 + 7 * m] for m in range(M)]
+    plan = ServePlan(serve_route(S, C, K, B, R, top, seen[2], timings),
+                     seen[1])
+    return plan, chunked_fits(S, C, K, B, R, top, seen[2], timings)
+
+
+def _serve(rec, timing, state, S, plan, name):
+    """One serve call on the card, by ``plan``'s route, over the records
+    ``rec[M, C, S_pad, K, 2]`` from ``state`` (case axis first); returns
+    ``(finish[M, S, C, K], state)``."""
+    count_in(_ROUTES, plan.route)
+    if plan.route == "chunked":
+        T, group = serve_tiling(S)
+        fin, out, _ = _launch_chunked(rec, timing, state, S,
+                                      plan.phase_ends, T, group, name)
+        return fin, out
+    return _launch_records(rec, timing, state, S, name)
+
+
+def _launch_chunked(rec, timing, state, S, phase_ends, T, group, name,
+                    time_passes=False):
+    """One call of the chunked serve over the records ``rec[M, C, S_pad,
+    K, 2]`` (its six launches on the current stream, a workspace from
+    the caching allocator that the kernels initialise themselves);
+    returns ``(finish[M, S, C, K], state, pass_ms)``."""
+    M, C, S_pad, K, _ = rec.shape
+    B, R = state[0].shape[2], state[3].shape[2]
+    lib = library()
+    nbytes = lib.repro_dram_serve_chunked_bytes(S, C, B, R, M, T,
+                                                phase_ends)
+    if nbytes < 0:
+        raise ValueError(f"the chunked serve does not take S={S}, T={T}")
+    work = torch.empty(nbytes, dtype=torch.uint8, device=rec.device)
+    fin = torch.empty((M, S, C, K), dtype=torch.int32, device=rec.device)
+    out = tuple(torch.empty_like(x) for x in state)
+    ms = (ctypes.c_float * 6)() if time_passes else None
+    with torch.cuda.device(rec.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = lib.repro_dram_serve_chunked(
+            rec.data_ptr(), timing.data_ptr(),
+            *(x.data_ptr() for x in state), fin.data_ptr(),
+            *(x.data_ptr() for x in out), S, S_pad, C, K, B, R, M, T, group,
+            phase_ends, work.data_ptr(),
+            ctypes.cast(ms, ctypes.c_void_p) if ms else None, stream)
+    check_launch(code, name)
+    return fin, out, list(ms) if ms else None
 
 
 def _launch_prepass(issue, meta, boundary, timing, banks_per_rank, R, T,

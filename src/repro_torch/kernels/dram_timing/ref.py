@@ -577,43 +577,36 @@ def serve_prepass_ref(issue: torch.Tensor, meta: torch.Tensor,
     return rec
 
 
-def serve_records_ref(rec: torch.Tensor, timing: torch.Tensor,
-                      state: State, S: int):
-    """The serve's carry chain over the first ``S`` steps of the records
-    of :func:`serve_prepass_ref`, one Python-loop iteration a step, from
-    the 6-tuple carry ``state``; returns ``(finish[S, C, K], state)``,
-    equal to :func:`dram_serve_ref` on the program the records came
-    from."""
-    tCL, tRCD, tRP, tRAS, tBL, tRRD, tFAW = (int(t) for t in
-                                             timing.tolist())
-    C, _, K, _ = rec.shape
-    avail, act, bus, hist, ptr, pmf = (x.clone() for x in state)
-    B, R = avail.shape[1], hist.shape[1]
-    dev = rec.device
-    bank_ids = torch.arange(B, device=dev)
-    rank_ids = torch.arange(R, device=dev)
-    ptr_ids = torch.arange(4, device=dev)
-    lane = torch.arange(K, device=dev, dtype=torch.int32)
+def _record_stepper(timing, B: int, R: int, K: int, device):
+    """The record walk's step over ``N`` independent rows (a row a
+    channel in :func:`serve_records_ref`, a row a (channel, chunk) in the
+    chunked emit): ``step(x[N,K], mt[N,K], (avail, act, bus, hist, ptr,
+    pmf)) -> (fin_out[N,K], state)``, int32 that wraps, no phase
+    boundary (the caller re-bases)."""
+    tCL, tRCD, tRP, tRAS, tBL, tRRD, tFAW = (int(t) for t in timing)
+    bank_ids = torch.arange(B, device=device)
+    rank_ids = torch.arange(R, device=device)
+    ptr_ids = torch.arange(4, device=device)
+    lane = torch.arange(K, device=device, dtype=torch.int32)
     lane_tbl, lane_tbl1 = lane * tBL, (lane + 1) * tBL
     tril = lane[:, None] >= lane[None, :]
-    ch = torch.arange(C, device=dev)
-    fin = torch.zeros((S, C, K), dtype=torch.int32, device=dev)
-    for s in range(S):
-        x, mt = rec[:, s, :, 0], rec[:, s, :, 1]
+
+    def step(x, mt, state):
+        avail, act, bus, hist, ptr, pmf = state
         b = mt & 0xFF
         ms = (mt & META_MISS) != 0
         cf = (mt & META_CONFL) != 0
         v = (mt & META_VALID) != 0
         rb_tbl = ((mt >> META_RB_SHIFT) & META_RB_MASK) * tBL
-        m_any = (mt[:, 0] & REC_M_ANY) != 0                 # [C]
-        rank_m = (mt[:, 0] >> REC_RANK_SHIFT) & 0xFF        # [C]
-        ohb = b[:, :, None] == bank_ids                     # [C, K, B]
+        m_any = (mt[:, 0] & REC_M_ANY) != 0                 # [N]
+        rank_m = (mt[:, 0] >> REC_RANK_SHIFT) & 0xFF        # [N]
+        ohb = b[:, :, None] == bank_ids                     # [N, K, B]
         avail_b = torch.where(ohb, avail[:, None, :], NEG_INF32).amax(2)
         act_b = torch.where(ohb, act[:, None, :], NEG_INF32).amax(2)
         if R == 1:
             ptr_m, hist_m = ptr[:, 0], hist[:, 0]
         else:
-            ohr = rank_m[:, None] == rank_ids               # [C, R]
+            ohr = rank_m[:, None] == rank_ids               # [N, R]
             ptr_m = torch.where(ohr, ptr, 0).amax(1)
             hist_m = torch.where(ohr[:, :, None], hist, NEG_INF32).amax(1)
         hist_p = torch.where(ptr_m[:, None] == ptr_ids, hist_m,
@@ -630,7 +623,6 @@ def serve_records_ref(rec: torch.Tensor, timing: torch.Tensor,
         ccm = torch.where(tril, cadj[:, None, :], NEG_INF32).amax(2)
         fin_out = torch.where(v, lane_tbl1 + torch.maximum(bus[:, None],
                                                            ccm), 0)
-        fin[s] = fin_out
         mx = fin_out.amax(1)
         bus = torch.maximum(bus, mx)
         pmf = torch.maximum(pmf, mx)
@@ -643,15 +635,315 @@ def serve_records_ref(rec: torch.Tensor, timing: torch.Tensor,
         r = rank_m if R > 1 else torch.zeros_like(rank_m)
         hit = m_any & (r < R)
         if hit.any():
-            c, rr, p = ch[hit], r[hit].long(), ptr_m[hit]
+            hist, ptr = hist.clone(), ptr.clone()
+            c = torch.nonzero(hit).flatten()
+            rr, p = r[hit].long(), ptr_m[hit]
             ok = (p >= 0) & (p < 4)
             hist[c[ok], rr[ok], p[ok].long()] = torch.maximum(
                 hist[c[ok], rr[ok], p[ok].long()], a_m[hit][ok])
             ptr[c, rr] = torch.remainder(p + 1, 4).to(ptr.dtype)
+        return fin_out, (avail, act, bus, hist, ptr, pmf)
+
+    return step
+
+
+def _rebase(state, shift):
+    """The phase boundary's re-base of a carry by ``shift`` (one value, or
+    one a row), in int32 as the record walk does it."""
+    avail, act, bus, hist, ptr, pmf = state
+    sh = shift.reshape(-1)
+
+    def down(x):
+        by = sh.view((-1,) + (1,) * (x.dim() - 1))
+        return torch.maximum(x, by + NEG_INF32) - by
+
+    return down(avail), down(act), down(bus), down(hist), ptr, \
+        torch.zeros_like(pmf)
+
+
+def serve_records_ref(rec: torch.Tensor, timing: torch.Tensor,
+                      state: State, S: int):
+    """The serve's carry chain over the first ``S`` steps of the records
+    of :func:`serve_prepass_ref`, one Python-loop iteration a step, from
+    the 6-tuple carry ``state``; returns ``(finish[S, C, K], state)``,
+    equal to :func:`dram_serve_ref` on the program the records came
+    from."""
+    C, _, K, _ = rec.shape
+    state = tuple(x.clone() for x in state)
+    B, R = state[0].shape[1], state[3].shape[1]
+    step = _record_stepper(timing.tolist(), B, R, K, rec.device)
+    fin = torch.zeros((S, C, K), dtype=torch.int32, device=rec.device)
+    for s in range(S):
+        mt = rec[:, s, :, 1]
+        fin[s], state = step(rec[:, s, :, 0], mt, state)
         if int(mt[0, 0]) & REC_BOUNDARY:
-            shift = pmf.max()
-            lo = shift + NEG_INF32
-            avail, act, bus, hist = (torch.maximum(t, lo) - shift
-                                     for t in (avail, act, bus, hist))
-            pmf = torch.zeros_like(pmf)
-    return fin, (avail, act, bus, hist, ptr, pmf)
+            state = _rebase(state, state[5].max())
+    return fin, state
+
+
+#: the chunked serve's group: pieces whose matrices the carry walk
+#: multiplies into prefix products at a time (``csrc/dram_serve.cu``)
+SERVE_GROUP = 32
+
+
+def serve_state_width(B: int, R: int) -> int:
+    """Dp, the length of a channel's state vector in the chunked serve:
+    its banks' ``avail`` and ``act``, its ranks' ACT histories (ring in
+    absolute order), the bus, the phase makespan, a constant 0 (through
+    which the records' times and every constant enter) and one unused
+    component that makes the length even."""
+    return 2 * B + 4 * R + 4
+
+
+def _mp_mul(a: torch.Tensor, b: torch.Tensor, zero: int) -> torch.Tensor:
+    """Max-plus product of row-major matrices ``a (x) b`` over the last
+    two axes, held at ``zero`` from below."""
+    return torch.clamp_min((a[..., :, :, None] + b[..., None, :, :]).amax(-2),
+                           zero)
+
+
+def serve_records_chunked_ref(rec: torch.Tensor, timing: torch.Tensor,
+                              state: State, S: int, T: int,
+                              group: int = SERVE_GROUP):
+    """The card's chunked serve (``csrc/dram_serve.cu``, the chunked
+    route) in torch: what :func:`serve_records_ref` computes, by its
+    passes over tiles of ``T`` steps, every tile side by side.
+
+    A tile is cut after each phase's last step into pieces; piece ``p``
+    of the call is the ``p``-th such run of steps.
+
+    1. count: per tile, its phase ends and each (channel, rank)'s blocks
+       with a miss (each moves the rank's ring pointer on by one);
+    2. scan: each tile's entry ring pointers and first piece;
+    3. transfer: with every selection fixed by the records, a piece maps
+       a channel's state vector (:func:`serve_state_width`) max-plus
+       linearly: lane ``j`` walks the tile from the basis vector ``e_j``
+       (int64, every constant through the constant-0 component) and gives
+       column ``j`` of each piece's matrix;
+    4. compose: within groups of ``group`` pieces, prefix products that
+       restart after each phase's last piece;
+    5. walk: per case, ``s <- P (x) s`` over the groups' runs, and at each
+       phase's end the re-base by the makespan over the channels: every
+       run's entry state, every phase's shift and the carry out;
+    6. emit: each (channel, tile) walked once more from its entry state,
+       in int32 by :func:`serve_records_ref`'s own step, taking each
+       phase's shift from the walk.
+
+    Exact wherever the int32 walk does not wrap (the serve's route checks
+    a bound on that before it takes this one).  Returns ``(finish[S, C,
+    K], state)``."""
+    C, _, K, _ = rec.shape
+    state = tuple(x.clone() for x in state)
+    avail, act, bus, hist, ptr, pmf = state
+    B, R = avail.shape[1], hist.shape[1]
+    dev = rec.device
+    if S == 0:
+        return torch.zeros((0, C, K), dtype=torch.int32, device=dev), state
+    tCL, tRCD, tRP, tRAS, tBL, tRRD, tFAW = (int(t) for t in
+                                             timing.tolist())
+    Dp = serve_state_width(B, R)
+    HI, BUS = 2 * B, 2 * B + 4 * R
+    PMF, Z = BUS + 1, BUS + 2
+    NEG = -(1 << 61)
+    i64 = dict(dtype=torch.int64, device=dev)
+    nt = -(-S // T)
+
+    def tiles(v):                      # [C, S, ...] -> [C, nt, T, ...]
+        pad = torch.zeros((C, nt * T - S) + v.shape[2:], dtype=v.dtype,
+                          device=dev)
+        return torch.cat([v, pad], 1).view((C, nt, T) + v.shape[2:])
+
+    x, mt = tiles(rec[:, :S, :, 0].long()), tiles(rec[:, :S, :, 1].long())
+    live = (torch.arange(nt * T, device=dev) < S).view(nt, T)
+    mt0 = mt[..., 0]
+    bnd = ((mt0[0] & REC_BOUNDARY) != 0) & live                # [nt, T]
+    m_any = ((mt0 & REC_M_ANY) != 0) & live                    # [C, nt, T]
+    rank = (torch.zeros_like(mt0) if R == 1
+            else (mt0 >> REC_RANK_SHIFT) & 0xFF)
+    moves = m_any & (rank < R)
+
+    # 1. count
+    miss = torch.stack([(moves & (rank == r)).sum(-1) for r in range(R)],
+                       -1)                                     # [C, nt, R]
+    n_steps = live.sum(-1)
+    lastb = bnd[torch.arange(nt, device=dev), n_steps - 1]
+    npieces = bnd.sum(-1) + (~lastb).long()
+
+    # 2. scan
+    ptr_entry = (ptr.long()[:, None, :] + miss.cumsum(1) - miss) % 4
+    ptr_out = (ptr.long() + miss.sum(1)) % 4
+    pbase = npieces.cumsum(0) - npieces
+    NP = int(npieces.sum())
+
+    # 3. transfer: lane j of every (channel, tile) from e_j
+    L = Dp
+    eye = torch.arange(Dp, device=dev)
+    ident = torch.where(eye[:, None] == eye, 0, NEG).to(torch.int64)
+    st = ident.expand(C, nt, L, Dp).clone()                    # [.., j, i]
+    p = ptr_entry.clone()
+    mats = torch.full((C, NP, Dp, Dp), NEG, **i64)
+    ends = torch.zeros(NP, dtype=torch.bool, device=dev)
+    local = torch.zeros(nt, dtype=torch.long, device=dev)
+    lane_ids = torch.arange(K, device=dev)
+    t_ids = torch.arange(nt, device=dev)
+
+    def put(done):
+        idx = pbase[done] + local[done]
+        mats[:, idx] = torch.clamp_min(st[:, done], NEG).transpose(-1, -2)
+        return idx
+
+    for i in range(T):
+        xi, mi = x[:, :, i], mt[:, :, i]                       # [C, nt, K]
+        zc = st[..., Z][..., None]                             # [C, nt, L, 1]
+        b = mi & 0xFF
+        ms = (mi & META_MISS) != 0
+        cf = (mi & META_CONFL) != 0
+        v = (mi & META_VALID) != 0
+        rb_tbl = ((mi >> META_RB_SHIFT) & META_RB_MASK) * tBL
+        in_b = b < B
+        bb = torch.where(in_b, b, 0)
+
+        def comp(idx):                                         # [C,nt,K]
+            return torch.gather(st, 3, idx[:, :, None, :].expand(
+                C, nt, L, idx.shape[-1]))
+
+        av = torch.where(in_b[:, :, None], comp(bb), zc + NEG_INF32)
+        at = torch.where(in_b[:, :, None], comp(B + bb), zc + NEG_INF32)
+        base = torch.maximum(zc + xi[:, :, None], av)
+        many = m_any[:, :, i]
+        rr = torch.zeros_like(rank[:, :, i]) if R == 1 else torch.clamp_max(
+            rank[:, :, i], R - 1)
+        ok = moves[:, :, i]
+        pm = torch.gather(p, 2, rr[..., None]).squeeze(-1)     # [C, nt]
+        h_p = comp((HI + 4 * rr + pm)[..., None]).squeeze(-1)
+        h_l = comp((HI + 4 * rr + (pm + 3) % 4)[..., None]).squeeze(-1)
+        zneg = zc[..., 0] + NEG_INF32
+        inr = rank[:, :, i] < R
+        h_p = torch.where(inr[..., None], torch.maximum(h_p, zneg), zneg)
+        h_l = torch.where(inr[..., None], torch.maximum(h_l, zneg), zneg)
+        floor = torch.maximum(h_l + tRRD, h_p + tFAW)          # [C, nt, L]
+        pre = torch.where(cf[:, :, None],
+                          torch.maximum(base, at + tRAS) + tRP, base)
+        a = torch.maximum(pre, floor[..., None])
+        col = torch.where((ms & many[..., None])[:, :, None], a + tRCD,
+                          rb_tbl[:, :, None] + base)
+        cadj = torch.where(v[:, :, None], col + tCL - lane_ids * tBL,
+                           zc + NEG_INF32)
+        ccm = cadj.cummax(-1).values
+        fin = torch.where(v[:, :, None], (lane_ids + 1) * tBL
+                          + torch.maximum(st[..., BUS][..., None], ccm), zc)
+        mx = fin.amax(-1)
+        new = st.clone()
+        new[..., BUS] = torch.maximum(st[..., BUS], mx)
+        new[..., PMF] = torch.maximum(st[..., PMF], mx)
+        idx = bb[:, :, None, :].expand(C, nt, L, K)
+        upd = torch.where((v & in_b)[:, :, None], col + tBL, NEG)
+        new[..., :B] = torch.maximum(
+            st[..., :B].scatter_reduce(3, idx, upd, "amax"), zc + NEG_INF32)
+        mv = ms & v
+        upd = torch.where((mv & in_b)[:, :, None], a, NEG)
+        new[..., B:HI] = torch.maximum(
+            st[..., B:HI].scatter_reduce(3, idx, upd, "amax"),
+            zc + NEG_INF32)
+        a_m = torch.where(mv[:, :, None], a, zc + NEG_INF32).amax(-1)
+        hidx = (HI + 4 * rr + pm)[:, :, None, None].expand(C, nt, L, 1)
+        h_now = torch.gather(st, 3, hidx).squeeze(-1)
+        new.scatter_(3, hidx, torch.where(
+            ok[..., None], torch.maximum(h_now, a_m), h_now)[..., None])
+        p.scatter_(2, rr[..., None], torch.where(ok, (pm + 1) % 4,
+                                                 pm)[..., None])
+        st = torch.where(live[:, i][None, :, None, None], new, st)
+        done = bnd[:, i]
+        if bool(done.any()):
+            ends[put(done)] = True
+            st[:, done] = ident
+            local += done.long()
+    put(~lastb)
+
+    # 4. compose: prefix products within a group's runs
+    starts = torch.ones(NP, dtype=torch.bool, device=dev)
+    starts[1:] = ends[:-1]
+    starts[::group] = True
+    pref = mats.clone()
+    for j in range(1, group):
+        ps = torch.arange(j, NP, group, device=dev)
+        if len(ps) == 0:
+            break
+        keep = starts[ps][None, :, None, None]
+        pref[:, ps] = torch.where(keep, mats[:, ps],
+                                  _mp_mul(mats[:, ps], pref[:, ps - 1], NEG))
+
+    # 5. walk
+    s = torch.full((C, Dp), NEG, **i64)
+    s[:, :B], s[:, B:HI] = avail.long(), act.long()
+    s[:, HI:BUS] = hist.long().view(C, 4 * R)
+    s[:, BUS], s[:, PMF], s[:, Z] = bus.long(), pmf.long(), 0
+    entry = torch.full((C, NP, Dp), NEG, **i64)
+    shift = torch.zeros(NP, **i64)
+    run_end = ends.clone()
+    run_end[group - 1::group] = True
+    run_end[-1] = True
+    first = 0
+    for q in torch.nonzero(run_end).flatten().tolist():
+        entry[:, first] = s
+        s = (pref[:, q] + s[:, None, :]).amax(-1)
+        if bool(ends[q]):
+            sh = s[:, PMF].max()
+            s[:, :PMF] = torch.maximum(s[:, :PMF], sh + NEG_INF32) - sh
+            s[:, PMF] = 0
+            shift[q] = sh
+        first = q + 1
+
+    # 6. emit: (channel, tile) rows, from each tile's entry state
+    p0 = pbase
+    rs = p0.clone()
+    while True:
+        back = (rs % group != 0) & ~ends[rs - 1]
+        if not bool(back.any()):
+            break
+        rs = torch.where(back, rs - 1, rs)
+    e = entry[:, rs]                                           # [C, nt, Dp]
+    mid = rs != p0
+    e = torch.where(mid[None, :, None], (pref[:, (p0 - 1).clamp_min(0)]
+                                         + e[:, :, None, :]).amax(-1), e)
+    e = e.to(torch.int32).view(C * nt, Dp)
+    row = (e[:, :B], e[:, B:HI], e[:, BUS], e[:, HI:BUS].reshape(-1, R, 4),
+           ptr_entry.reshape(C * nt, R).to(ptr.dtype), e[:, PMF])
+    step = _record_stepper(timing.tolist(), B, R, K, dev)
+    fin = torch.zeros((C, nt, T, K), dtype=torch.int32, device=dev)
+    xr = x.to(torch.int32).view(C * nt, T, K)
+    mr = mt.to(torch.int32).view(C * nt, T, K)
+    piece = p0.repeat(C)
+    for i in range(T):
+        f, new = step(xr[:, i], mr[:, i], row)
+        on = live[:, i].repeat(C)
+        fin[:, :, i] = f.view(C, nt, K)
+        row = tuple(torch.where(on.view((-1,) + (1,) * (a.dim() - 1)), a, o)
+                    for a, o in zip(new, row))
+        at_end = bnd[:, i].repeat(C)
+        if bool(at_end.any()):
+            sh = shift[piece.clamp_max(NP - 1)].to(torch.int32)
+            moved = _rebase(row, sh)
+            row = tuple(torch.where(at_end.view((-1,) + (1,) * (a.dim() - 1)),
+                                    a, o) for a, o in zip(moved, row))
+            piece = piece + at_end.long()
+    finish = fin.view(C, nt * T, K)[:, :S].transpose(0, 1).contiguous()
+    out = (s[:, :B].to(torch.int32), s[:, B:HI].to(torch.int32),
+           s[:, BUS].to(torch.int32),
+           s[:, HI:BUS].reshape(C, R, 4).to(torch.int32),
+           ptr_out.to(ptr.dtype), s[:, PMF].to(torch.int32))
+    return finish, out
+
+
+def serve_records_chunked_batch_ref(rec: torch.Tensor, timing: torch.Tensor,
+                                    state: State, S: int, T: int,
+                                    group: int = SERVE_GROUP):
+    """:func:`serve_records_chunked_ref` over the M cases of batched
+    records."""
+    fins, states = [], []
+    for m in range(rec.shape[0]):
+        fin, st = serve_records_chunked_ref(
+            rec[m], timing[m], tuple(x[m] for x in state), S, T, group)
+        fins.append(fin)
+        states.append(st)
+    return torch.stack(fins), tuple(torch.stack(xs) for xs in zip(*states))

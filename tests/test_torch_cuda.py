@@ -923,6 +923,152 @@ def test_serve_records_equal_plain(cuda, preset, M):
     assert all(torch.equal(a, b) for a, b in zip(st_k, st_p))
 
 
+def _long_program(seed, S, C, K, B, every, device):
+    """A serve program of ``S`` steps of blocks of any meta (several
+    misses, invalid lanes, banks past the channel's, empty blocks), a
+    phase end about every ``every`` steps, small issues."""
+    rng = np.random.default_rng(seed)
+    issue = rng.integers(0, 5000, (S, C, K))
+    meta = (rng.integers(0, B + 1, (S, C, K))
+            | rng.choice([0, vec.META_MISS], (S, C, K), p=[0.85, 0.15])
+            | rng.choice([0, vec.META_CONFL], (S, C, K))
+            | rng.choice([0, vec.META_VALID, vec.META_VALID], (S, C, K))
+            | (rng.integers(0, K, (S, C, K)) << vec.META_RB_SHIFT))
+    meta[rng.random(S) < 0.05] &= ~vec.META_VALID
+    boundary = rng.random(S) < 1.0 / every
+    boundary[-1] = True
+    return [torch.as_tensor(np.asarray(a, dtype=np.int32), device=device)
+            for a in (issue, meta, boundary)]
+
+
+def _walked(rec, timing, state, S):
+    """The record walk (one launch, a warp a channel) over the same
+    records, whatever the route would be: held to the plain record walk
+    by the tests above."""
+    from repro_torch.kernels.dram_timing import ops
+    return ops._launch_records(rec, timing, state, S, "dram_serve_batch")
+
+
+@pytest.mark.parametrize("S", [256, 1024, 8192, 100_000])
+@pytest.mark.parametrize("shape", ["hitgraph", "accugraph"])
+@pytest.mark.parametrize("M", [1, 4])
+def test_chunked_serve_equals_plain(cuda, S, shape, M):
+    """The serve of 256-, 1,024-, 8,192- and 100,000-step programs, one
+    case (``dram_serve``) and four timing cases sharing the program
+    (``dram_serve_batch``), against the record walk bit for bit
+    (finishes and carry): the plain record walk on the programs up to
+    1,024 steps, the kernel's record walk over the same records on the
+    longer ones (and the plain chunked versions, single and batched, on
+    the 8,192-step one).  The program under ``CHUNKED_MIN_STEPS`` walks,
+    the longer ones take the chunked route; one launch counted a call."""
+    from repro_torch.kernels.dram_timing import ops
+    from repro_torch.kernels.dram_timing.ref import (
+        serve_records_batch_ref, serve_records_chunked_batch_ref,
+        serve_records_chunked_ref)
+    C, K, B, R = (4, 8, 16, 2) if shape == "hitgraph" else (1, 8, 16, 1)
+    issue, meta, bnd = _long_program(S + M, S, C, K, B, 700, cuda)
+    timing = _batch_timings(M, S).to(cuda)
+    state = vec._cold_batch_state(M, C, B, B // R, cuda)
+    route = "walk" if S < ops.CHUNKED_MIN_STEPS else "chunked"
+    routes = ops.serve_routes()
+    before = (dram_serve.launches, dram_serve_batch.launches)
+    if M == 1:
+        fin, st = dram_serve(issue, meta, bnd, timing[0],
+                             tuple(x[0] for x in state))
+        fin, st = fin[None], tuple(x[None] for x in st)
+    else:
+        fin, st = dram_serve_batch(issue, meta, bnd, timing, state)
+    torch.cuda.synchronize()
+    after = ops.serve_routes()
+    assert after[route] == routes[route] + 1
+    assert sum(after.values()) == sum(routes.values()) + 1
+    assert (dram_serve.launches, dram_serve_batch.launches) == (
+        before[0] + (M == 1), before[1] + (M > 1))
+    rec = ops.serve_prepass_batch(issue, meta, bnd, timing, B // R, R,
+                                  chunk_steps(C, K))
+    if S <= 1024:
+        want = serve_records_batch_ref(rec.cpu(), timing.cpu(),
+                                       tuple(x.cpu() for x in state), S)
+        want = (want[0].to(cuda), tuple(x.to(cuda) for x in want[1]))
+    else:
+        want = _walked(rec, timing, state, S)
+    assert torch.equal(fin, want[0])
+    for a, b in zip(st, want[1]):
+        assert torch.equal(a, b)
+    if S == 8192:
+        T, group = ops.serve_tiling(S)
+        plain = (serve_records_chunked_batch_ref(rec, timing, state, S, T,
+                                                 group)
+                 if M > 1 else
+                 [x[None] if i == 0 else tuple(y[None] for y in x)
+                  for i, x in enumerate(serve_records_chunked_ref(
+                      rec[0], timing[0], tuple(x[0] for x in state), S, T,
+                      group))])
+        assert torch.equal(plain[0], fin)
+        assert all(torch.equal(a, b) for a, b in zip(plain[1], st))
+
+
+@pytest.mark.parametrize("T, group", [(32, 1), (64, 2), (512, 32),
+                                      (4096, 64)])
+@pytest.mark.parametrize("every", [3, 40, 5000])
+def test_serve_records_chunks_equal_the_walk(cuda, T, group, every):
+    """The chunked route at any tile length and group, with phase ends
+    every few steps, every few tiles or hardly at all, from a warm carry,
+    against the kernel's record walk over the same records; the six
+    launches timed on request."""
+    from repro_torch.kernels.dram_timing import ops
+    S, C, K, B, R, M = 6000, 4, 4, 8, 2, 2
+    issue, meta, bnd = _long_program(T + every, S, C, K, B, every, cuda)
+    timing = _batch_timings(M, T).to(cuda)
+    cold = vec._cold_batch_state(M, C, B, B // R, cuda)
+    rec = ops.serve_prepass_batch(issue, meta, bnd, timing, B // R, R,
+                                  chunk_steps(C, K))
+    half = S // 2
+    warm = _walked(rec, timing, cold, half)[1]
+    rec2 = ops.serve_prepass_batch(*(x[half:].contiguous()
+                                     for x in (issue, meta, bnd)),
+                                   timing, B // R, R, chunk_steps(C, K))
+    fin, st, ms = ops.serve_records_chunks(rec2, timing, warm, S - half, T,
+                                           group, time_passes=True)
+    want = _walked(rec2, timing, warm, S - half)
+    assert len(ms) == 6 and all(x >= 0 for x in ms)
+    assert torch.equal(fin, want[0])
+    for a, b in zip(st, want[1]):
+        assert torch.equal(a, b)
+
+
+def test_chunked_serve_on_packed_programs(cuda):
+    """A packed program long enough for the chunked route (HitGraph, hit
+    chains of 8 lanes, 30 phases), served whole and as two chained calls,
+    equals the plain serve."""
+    from repro_torch.kernels.dram_timing import ops
+    cfg = PRESETS["hitgraph"]()
+    packed = accel.pack_program(_program(5, True, 30, 3000), cfg)
+    args = [torch.as_tensor(np.asarray(a, dtype=np.int32), device=cuda)
+            for a in (packed.issue, packed.meta, packed.boundary,
+                      packed.timing)]
+    S = packed.issue.shape[0]
+    assert S >= 2 * ops.CHUNKED_MIN_STEPS
+    state = tuple(vec.init_lean_carry(cfg.channels, packed.n_banks,
+                                      packed.banks_per_rank, cuda)) + (
+        torch.zeros(cfg.channels, dtype=torch.int32, device=cuda),)
+    routes = ops.serve_routes()
+    fin, st = dram_serve(*args, state)
+    split = S // 2 + 7
+    f1, s1 = dram_serve(*(a[:split].contiguous() for a in args[:3]),
+                        args[3], state)
+    f2, s2 = dram_serve(*(a[split:].contiguous() for a in args[:3]),
+                        args[3], s1)
+    torch.cuda.synchronize()
+    assert ops.serve_routes()["chunked"] == routes["chunked"] + 3
+    fin_p, st_p = dram_serve_ref(*(a.cpu() for a in args),
+                                 tuple(x.cpu() for x in state))
+    assert torch.equal(fin.cpu(), fin_p)
+    assert torch.equal(torch.cat([f1, f2]).cpu(), fin_p)
+    for a, b, c in zip(st, s2, st_p):
+        assert torch.equal(a.cpu(), c) and torch.equal(b.cpu(), c)
+
+
 def test_dram_serve_batch_checks_on_card(cuda):
     from repro_torch.kernels.dram_timing.ops import dram_serve_batch
     cfg = PRESETS["hitgraph"]()

@@ -21,11 +21,13 @@ from repro.kernels.dram_timing.ref import dram_serve_ref as r_serve_ref
 
 from repro_torch import interop
 from repro_torch.core import accel, vectorized as vec
+from repro_torch.kernels.dram_timing import ops
 from repro_torch.kernels.dram_timing.ops import chunk_steps, dram_serve
-from repro_torch.kernels.dram_timing.ref import (REC_BOUNDARY, REC_EMPTY,
-                                                 dram_serve_ref,
-                                                 serve_prepass_ref,
-                                                 serve_records_ref)
+from repro_torch.kernels.dram_timing.ref import (
+    REC_BOUNDARY, REC_EMPTY, dram_serve_ref, serve_prepass_batch_ref,
+    serve_prepass_ref, serve_records_batch_ref,
+    serve_records_chunked_batch_ref, serve_records_chunked_ref,
+    serve_records_ref)
 
 
 def _random_serve_program(rng, n_phases=5, span=1 << 16, max_n=400,
@@ -301,3 +303,183 @@ def test_record_walk_exact_on_any_meta(seed, C, K, R):
     rec = serve_prepass_ref(*streams, timing, B // R, R, S)
     assert bool(((rec[:, :, 0, 1] & REC_BOUNDARY) != 0).any(dim=0).eq(
         torch.as_tensor(boundary)).all())
+
+
+# ---- the chunked route's plain version --------------------------------
+
+#: the tile length and group of the chunked tests: many tiles, and runs
+#: that cross a group's end
+TILE, GROUP = 8, 3
+
+
+def _phase_ends(layout, S, rng):
+    """Phase ends (a bool a step) placed against tiles of ``TILE``:
+    inside tiles, on a tile's last step, on its first step (a one-step
+    piece), one every few whole tiles, or on runs of consecutive steps."""
+    b = np.zeros(S + TILE, dtype=bool)
+    if layout == "inside":
+        for t0 in range(0, S, TILE):
+            b[t0 + rng.integers(1, TILE - 1, 2)] = True
+    elif layout == "edge":
+        b[TILE - 1::TILE] = True
+    elif layout == "first":
+        b[TILE::TILE] = True
+    elif layout == "between":
+        b[3 * TILE - 1::3 * TILE] = True
+    elif layout == "dense":
+        b[TILE + 2:3 * TILE + 5] = True
+    return b[:S]
+
+
+def _any_program(rng, S, C, K, B):
+    """Blocks of any meta (the shapes ``test_record_walk_exact_on_any_meta``
+    draws), then: empty blocks (no valid lane), a tile with no miss, and a
+    tile whose rank-0 ring wraps (a valid miss on a rank-0 bank in six of
+    its steps)."""
+    issue = rng.integers(0, 500, (S, C, K))
+    meta = (rng.integers(0, B + 2, (S, C, K))
+            | rng.choice([0, vec.META_MISS], (S, C, K), p=[0.8, 0.2])
+            | rng.choice([0, vec.META_CONFL], (S, C, K))
+            | rng.choice([0, vec.META_VALID, vec.META_VALID], (S, C, K))
+            | (rng.integers(0, K, (S, C, K)) << vec.META_RB_SHIFT))
+    meta[rng.random(S) < 0.1] &= ~vec.META_VALID
+    meta[TILE:2 * TILE] &= ~vec.META_MISS
+    wrap = 2 * TILE + np.arange(6)
+    meta[wrap, :, 0] = (rng.integers(0, 2, (6, C)) | vec.META_MISS
+                        | vec.META_VALID)
+    return issue, meta
+
+
+def _warm_state(rng, C, B, R):
+    lo = vec.NEG_INF32
+    return (_t(rng.integers(lo, 300, (C, B))), _t(rng.integers(lo, 300, (C, B))),
+            _t(rng.integers(lo, 300, (C,))), _t(rng.integers(lo, 300, (C, R, 4))),
+            _t(rng.integers(0, 4, (C, R))), _t(rng.integers(0, 300, (C,))))
+
+
+LAYOUTS = ["inside", "edge", "first", "between", "dense"]
+
+
+@pytest.mark.parametrize("layout", LAYOUTS)
+@pytest.mark.parametrize("K", [1, 8, 32])
+@pytest.mark.parametrize("R", [1, 2])
+@pytest.mark.parametrize("C", [1, 4])
+def test_chunked_ref_equals_record_walk(C, R, K, layout):
+    """The chunked serve's plain version (tiles of 8 steps, groups of 3
+    pieces) against the record walk, bit for bit (finishes and the whole
+    carry), from a warm carry: phase ends inside, on the edges of and
+    across tiles, empty blocks, a tile with no miss and one whose ring
+    wraps past 4, on blocks of any meta."""
+    rng = np.random.default_rng([C, R, K, LAYOUTS.index(layout)])
+    S, B = 5 * TILE + 3, 8
+    issue, meta = _any_program(rng, S, C, K, B)
+    streams = [_t(issue), _t(meta), _t(_phase_ends(layout, S, rng))]
+    timing = _t(vec.timing_params(R_PRESETS["hitgraph"]().timing))
+    state = _warm_state(rng, C, B, R)
+    rec = serve_prepass_ref(*streams, timing, B // R, R, S + 1)
+    assert int(((rec[:, 2 * TILE:3 * TILE, :, 1] & vec.META_MISS) != 0)
+               .sum()) >= 6
+    fin_w, st_w = serve_records_ref(rec, timing, state, S)
+    fin_c, st_c = serve_records_chunked_ref(rec, timing, state, S, TILE,
+                                            GROUP)
+    assert torch.equal(fin_c, fin_w)
+    for a, b in zip(st_c, st_w):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("preset", ["hitgraph", "accugraph"])
+@pytest.mark.parametrize("shared", [True, False])
+def test_chunked_batch_ref_shared_and_stacked(preset, shared):
+    """Packed programs served for three timing cases, the program shared
+    by every case or stacked (a program a case, phase ends on different
+    steps): the chunked plain version equals the record walk case by
+    case."""
+    r_cfg = R_PRESETS[preset]()
+    cfg = interop.dram_config(r_cfg)
+    packs = [accel.pack_program(interop.segmented_trace(
+        _random_serve_program(np.random.default_rng(41 + i), n_phases=4,
+                              max_n=60, hit_heavy=True)), cfg)
+             for i in range(1 if shared else 3)]
+    S = min(p.n_steps for p in packs)
+    fields = [[_t(getattr(p, f)[:S]) for p in packs]
+              for f in ("issue", "meta", "boundary")]
+    streams = [f[0] if shared else torch.stack(f) for f in fields]
+    timing = _t(np.stack([vec.timing_params(r_cfg.timing)] * 3)
+                + np.arange(3)[:, None])
+    C, B, bpr = r_cfg.channels, packs[0].n_banks, packs[0].banks_per_rank
+    state = vec._cold_batch_state(3, C, B, bpr, "cpu")
+    rec = serve_prepass_batch_ref(*streams, timing, bpr, B // bpr, S)
+    fin_w, st_w = serve_records_batch_ref(rec, timing, state, S)
+    fin_c, st_c = serve_records_chunked_batch_ref(rec, timing, state, S,
+                                                  TILE, GROUP)
+    assert torch.equal(fin_c, fin_w)
+    for a, b in zip(st_c, st_w):
+        assert torch.equal(a, b)
+
+
+HITGRAPH_TIMING = [list(vec.timing_params(R_PRESETS["hitgraph"]().timing))]
+
+
+@pytest.mark.parametrize("args, route", [
+    # HitGraph's full program from a cold carry
+    ((745472, 4, 8, 16, 2, 10**6, 0, HITGRAPH_TIMING), "chunked"),
+    # issues near the top of int32: a step could wrap
+    ((745472, 4, 8, 16, 2, vec.MAX_PHASE_ISSUE - 1, 0, HITGRAPH_TIMING),
+     "walk"),
+    # too short to spread
+    ((ops.CHUNKED_MIN_STEPS - 1, 4, 8, 16, 2, 0, 0, HITGRAPH_TIMING),
+     "walk"),
+    # a negative timing parameter or phase makespan
+    ((8192, 1, 8, 16, 1, 0, 0, [[11, 11, 11, 28, -4, 5, 24]]), "walk"),
+    ((8192, 1, 8, 16, 1, 0, -1, HITGRAPH_TIMING), "walk"),
+    # a state vector past the kernels' width
+    ((8192, 1, 8, 32, 1, 0, 0, HITGRAPH_TIMING), "walk"),
+])
+def test_serve_route(args, route):
+    """The route reads the input's shape and values alone: long programs
+    whose largest reachable time stays inside int32 take the chunked scan,
+    the rest the record walk."""
+    assert ops.serve_route(*args) == route
+
+
+@pytest.mark.parametrize("near_edge", [False, True])
+def test_check_routes_near_int32_to_the_walk(near_edge):
+    """The serve's own check reads the bound with its range checks: the
+    same long program from a carry whose bank times lie near 2^31 goes to
+    the record walk, from a cold carry to the chunked scan; the plan also
+    counts the phase ends."""
+    rng = np.random.default_rng(9)
+    S, C, K, B, R = 2 * ops.CHUNKED_MIN_STEPS, 4, 8, 16, 2
+    issue = rng.integers(0, 5000, (S, C, K))
+    meta = rng.integers(0, B, (S, C, K)) | vec.META_VALID
+    boundary = np.zeros(S, dtype=bool)
+    boundary[::500] = True
+    timing = _t(vec.timing_params(R_PRESETS["hitgraph"]().timing))
+    state = tuple(vec.init_lean_carry(C, B, B // R, "cpu")) + (
+        torch.zeros(C, dtype=torch.int32),)
+    if near_edge:
+        state = (torch.full((C, B), 2**31 - 10**4, dtype=torch.int32),
+                 ) + state[1:]
+    *_, plan = ops._check(_t(issue), _t(meta), _t(boundary), timing, state)
+    assert plan == ops.ServePlan("walk" if near_edge else "chunked",
+                                 int(boundary.sum()))
+
+
+def test_serve_records_chunks_on_the_cpu():
+    """For CPU tensors the chunked route's wrapper is its plain version;
+    a carry whose bus time lies near 2^31 is refused rather than served."""
+    rng = np.random.default_rng(4)
+    S, C, K, B, R = 3 * TILE + 1, 2, 4, 8, 2
+    issue, meta = _any_program(rng, S, C, K, B)
+    streams = [_t(issue), _t(meta), _t(_phase_ends("inside", S, rng))]
+    timing = _t(vec.timing_params(R_PRESETS["hitgraph"]().timing))[None]
+    state = tuple(x[None] for x in _warm_state(rng, C, B, R))
+    rec = serve_prepass_batch_ref(*streams, timing, B // R, R, S + 1)
+    fin, st, ms = ops.serve_records_chunks(rec, timing, state, S, 32)
+    want = serve_records_batch_ref(rec, timing, state, S)
+    assert ms is None and torch.equal(fin, want[0])
+    assert all(torch.equal(a, b) for a, b in zip(st, want[1]))
+    far = (state[0],) * 2 + (torch.full_like(state[2], 2**31 - 100),) + \
+        state[3:]
+    with pytest.raises(ValueError, match="int32 bound"):
+        ops.serve_records_chunks(rec, timing, far, S, 32)

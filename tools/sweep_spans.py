@@ -21,7 +21,8 @@ second.  Prints one JSON line:
   per-point figures), ``host_waits_per_point`` (the program's host-wait
   counter over the window, over its points) and ``host_ops_us`` (the
   outermost host ops inside ``sweep.serve``, ``sweep.pool`` and
-  ``sweep.finalize``, by name);
+  ``sweep.finalize``, by name) and ``serve_routes`` (the window's serve
+  calls by route, ``kernels/dram_timing/ops.py::serve_routes``);
 - ``span_cost_us``: a span's host cost with nothing recording, timed
   (``timed=True``), and with the recorder open;
 - ``ab``: points per second of each untraced window, recorder off / on;
@@ -87,6 +88,7 @@ def main(argv=None) -> int:
     from portbench import bench, graphgen, spantrace
     from repro_torch import device as device_mod
     from repro_torch import spans
+    from repro_torch.kernels.dram_timing.ops import serve_routes
 
     cell = bench.load_cell(args.workload, args.root)
     dev = torch.device(args.device)
@@ -133,11 +135,13 @@ def main(argv=None) -> int:
         acts.append(torch.profiler.ProfilerActivity.CUDA)
     prof = torch.profiler.profile(activities=acts)
     waits0 = device_mod.host_wait_count()
+    routes0 = serve_routes()
     sync()
     prof.start()
     points, _ = window(args.seconds, torch.profiler.record_function)
     prof.stop()
     waits = device_mod.host_wait_count() - waits0
+    routes = {k: v - routes0[k] for k, v in serve_routes().items()}
     events = spantrace.read_events(prof)
     del prof
     marks = spantrace.host_spans(events, ("portbench.",))
@@ -146,6 +150,7 @@ def main(argv=None) -> int:
     calls = [(s.start, s.end) for s in marks if s.name == "portbench.call"]
     summary = spantrace.window_summary(events, lo, hi, points, calls)
     summary["host_waits_per_point"] = waits / points
+    summary["serve_routes"] = routes
     summary["host_ops_us"] = {
         name: spantrace.host_ops_within(events, name)
         for name in ("sweep.serve", "sweep.pool", "sweep.finalize")}
